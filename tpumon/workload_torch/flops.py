@@ -1,0 +1,100 @@
+"""Model-FLOPs accounting → MFU, for the port.
+
+``forward_flops`` and ``train_flops_per_step`` are the reference's
+accounting (``tpumon/workload/flops.py``), copied: they count the matmul
+FLOPs one optimizer step of ``models.llama`` executes, attention at the
+full S×S the additive-mask implementation computes, backward = 2× forward.
+
+The peak table is keyed on ``torch.cuda.get_device_name()`` and holds only
+the H100's published dense (no sparsity) bf16 rates and HBM bandwidths,
+from NVIDIA's H100 Tensor Core GPU data sheet: SXM 989 TFLOP/s and
+3.35 TB/s, PCIe 756 TFLOP/s and 2.0 TB/s. Any other device (the CPU,
+other cards) has no peak, and MFU is then None rather than a number
+computed against a made-up peak.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+#: Device-name substring → peak dense bf16 FLOP/s. The name of an H100
+#: SXM part is "NVIDIA H100 80GB HBM3"; a PCIe part says "PCIe". First
+#: match wins, so the PCIe row comes first.
+PEAK_BF16_FLOPS: dict[str, float] = {
+    "H100 PCIe": 756e12,
+    "H100 SXM": 989e12,
+    "H100 80GB HBM3": 989e12,
+}
+
+#: The same keys → HBM bytes/s (the bandwidth side of a kernel's bound).
+PEAK_HBM_BYTES: dict[str, float] = {
+    "H100 PCIe": 2.0e12,
+    "H100 SXM": 3.35e12,
+    "H100 80GB HBM3": 3.35e12,
+}
+
+
+def _lookup(table: dict[str, float], device) -> float | None:
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    name = torch.cuda.get_device_name(device)
+    for key, value in table.items():
+        if key in name:
+            return value
+    return None
+
+
+def peak_flops_per_device(device) -> float | None:
+    """Peak dense bf16 FLOP/s of a device, or None when unknown."""
+    return _lookup(PEAK_BF16_FLOPS, device)
+
+
+def peak_hbm_bytes_per_device(device) -> float | None:
+    """Peak HBM bytes/s of a device, or None when unknown."""
+    return _lookup(PEAK_HBM_BYTES, device)
+
+
+def forward_flops(cfg, batch: int, seq: int) -> float:
+    """Matmul FLOPs of one forward pass of models.llama (2·m·n·k per
+    matmul as executed: GQA-narrow K/V projections, full-S² attention,
+    SwiGLU FFN, unembed)."""
+    B, S = batch, seq
+    D = cfg.dim
+    H, KV, HD = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    F = cfg.ffn_dim
+    L = cfg.n_layers
+    qkvo = 2 * B * S * D * (H * HD) * 2 + 2 * B * S * D * (KV * HD) * 2
+    attn = 2 * B * S * S * H * HD * 2  # scores + probs·V
+    ffn = 6 * B * S * D * F
+    unembed = 2 * B * S * D * cfg.vocab
+    return float(L * (qkvo + attn + ffn) + unembed)
+
+
+def train_flops_per_step(cfg, batch: int, seq: int) -> float:
+    """One optimizer step: forward + backward (2× forward) = 3× forward."""
+    return 3.0 * forward_flops(cfg, batch, seq)
+
+
+def mfu(cfg, batch: int, seq: int, steps_per_sec: float, device) -> float | None:
+    """Model FLOPs utilization in [0, 1] on one device, or None when the
+    device's peak is unknown (CPU) or throughput wasn't measured."""
+    if not steps_per_sec or steps_per_sec <= 0 or not math.isfinite(steps_per_sec):
+        return None
+    peak = peak_flops_per_device(device)
+    if peak is None:
+        return None
+    return train_flops_per_step(cfg, batch, seq) * steps_per_sec / peak
+
+
+__all__ = [
+    "PEAK_BF16_FLOPS",
+    "PEAK_HBM_BYTES",
+    "forward_flops",
+    "mfu",
+    "peak_flops_per_device",
+    "peak_hbm_bytes_per_device",
+    "train_flops_per_step",
+]
