@@ -9,22 +9,26 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
 1. env      torch/CUDA versions, device name and capability, nvidia-smi's
             name and power limit, nvcc --version.
 2. build    build the three flash kernels from ops/csrc/*.cu and print
-            the build seconds and ptxas' register/shared-memory report.
+            the build seconds and ptxas' register/shared-memory report;
+            fails on any spilled register or ignored setmaxnreg.
 3. kernels  each kernel against its plain PyTorch version on the card, at
             the main path's attention shape (medium microbatch: B=2,
             S=4096, H=16, KV=4, D=128, causal), at non-causal Sk != S and
-            ragged D=64 cases, and at a long causal case (S=16384) where
-            the JAX package takes its streamed kernels. Prints one JSON
-            line per kernel and case: errors beside their limits, the
-            kernel's time (CUDA events, median), the plain version's, the
-            library call's where one computes the same function, and the
-            bound (the least time for the same work at the card's peaks).
+            ragged D=64 cases, at a long causal case (S=16384) where the
+            JAX package takes its streamed kernels, and at the tile edges
+            (S=4000, S=48, MHA). Prints one JSON line per kernel and case:
+            errors beside their limits, the kernel's time (CUDA events,
+            median), the plain version's, the library call's where one
+            computes the same function, and the bound (the least time for
+            the same work at the card's peaks); then one line per case for
+            the backward as a whole against SDPA's backward.
 4. main     tpumon.workload_torch.harness.main on the medium preset
             (--seq 4096 --batch 8 --grad-accum 4 --attn flash --remat
             --loss-chunk 1024 --steps 10 --phase-stats --serve) with the
-            launch counters zeroed just before and read just after; the
-            metrics page is scraped while the run is live and parsed with
-            the lifecycle probe; losses must be finite.
+            launch counters zeroed just before and read just after (they
+            must equal the counts the run implies); the metrics page is
+            scraped while the run is live and parsed with the lifecycle
+            probe; losses must be finite.
 
 Then it prints the nvidia-smi line, one {"kernels": [...]} JSON line and,
 as the last line, {"ok": true, "device": {...}}.
@@ -36,6 +40,7 @@ import argparse
 import json
 import logging
 import math
+import re
 import socket
 import statistics
 import subprocess
@@ -63,12 +68,18 @@ KERNELS = {
 }
 
 #: (name, B, S, Sk, H, KV, D, causal). "main" is the medium microbatch of
-#: the main path; "long" is in the range where the JAX package streams.
+#: the main path; "long" is in the range where the JAX package streams;
+#: the last three hit the tile edges of the wgmma kernels (128-row q- and
+#: k-blocks, 64-row q tiles in dK/dV): S not a multiple of 128, S below
+#: one tile, and MHA (KV = H).
 CASES = [
     ("main", 2, 4096, 4096, 16, 4, 128, True),
     ("rect", 1, 2000, 3000, 16, 4, 128, False),
     ("ragged64", 2, 1000, 1000, 8, 4, 64, True),
     ("long", 1, 16384, 16384, 4, 1, 128, True),
+    ("ragged4000", 1, 4000, 4000, 16, 4, 128, True),
+    ("small48", 2, 48, 48, 4, 2, 64, True),
+    ("mha", 2, 2048, 2048, 8, 8, 128, True),
 ]
 
 #: Limits: O and lse max-abs; dQ/dK/dV relative L2 (bf16 WMMA products
@@ -125,16 +136,26 @@ def phase_env(torch) -> None:
 
 
 def phase_build() -> None:
+    """Build every kernel and fail if ptxas reports spilled registers in
+    any instantiation, or ignored a setmaxnreg."""
     from tpumon.workload_torch.ops import _build
 
     t0 = time.perf_counter()
     report = _build.build(tuple(KERNELS))
     print(f"build: {time.perf_counter() - t0:.2f} s "
           f"({len(report)} compiled)", flush=True)
+    bad = []
     for name, info in report.items():
         print(f"build: {name} {info['seconds']:.2f} s", flush=True)
         for line in info["ptxas"]:
             print(f"  {line.strip()}", flush=True)
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if spill and (int(spill.group(1)) or int(spill.group(2))):
+                bad.append(f"{name}: {line.strip()}")
+            if "setmaxnreg ignored" in line:
+                bad.append(f"{name}: {line.strip()}")
+    if bad:
+        fail("ptxas: " + "; ".join(bad))
 
 
 def time_ms(torch, fn, reps: int) -> float:
@@ -269,6 +290,32 @@ def phase_kernels(torch, reps: int, seed: int) -> dict:
             }
             emit(row)
             results.setdefault(name, {})[case] = row
+
+        # The backward as a whole: the Δ pre-pass, flash_dq and flash_dkv,
+        # beside the library's backward (SDPA forward + backward minus its
+        # forward, on the K/V expanded to H heads). No single library call
+        # computes dQ or dK/dV alone, so the kernels' rows keep null.
+        def backward():
+            d = fa.flash_delta(o, do)
+            fa.flash_dq(q, k, v, do, lse, d, causal)
+            fa.flash_dkv(q, k, v, do, lse, d, causal)
+
+        qg, kg, vg = (t.detach().requires_grad_() for t in (qt, kt, vt))
+        dot = do.transpose(1, 2).contiguous()
+
+        def sdpa_fwd_bwd():
+            out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
+            torch.autograd.grad(out, (qg, kg, vg), dot)
+
+        bwd_ms = time_ms(torch, backward, reps)
+        fwd_bwd_ms = time_ms(torch, sdpa_fwd_bwd, reps)
+        sdpa_fwd_ms = results["flash_fwd"][case]["library_ms"]
+        emit({"case": case, "backward": {
+            "ms": bwd_ms, "library_ms": fwd_bwd_ms - sdpa_fwd_ms,
+            "sdpa_fwd_bwd_ms": fwd_bwd_ms, "sdpa_fwd_ms": sdpa_fwd_ms,
+            "kernels": ["delta (torch)", "flash_dq", "flash_dkv"]},
+            "reps": reps})
+        del qg, kg, vg, dot
         del q, k, v, do, o, lse, ref_o, ref_lse, delta, dq, ref_dq
         del dk, dv, ref_dk, ref_dv, qt, kt, vt
         torch.cuda.empty_cache()
@@ -374,6 +421,8 @@ def phase_main(torch) -> dict:
     L = cfg.n_layers
     expected = {"flash_fwd": 11 * 4 * 2 * L + 2 * 3 * L,
                 "flash_dq": 11 * 4 * L + 2 * L, "flash_dkv": 11 * 4 * L + 2 * L}
+    if counts != expected:
+        fail(f"launch counts {counts} differ from the expected {expected}")
     result = {
         "phase": "main", "argv": argv, "loss_first": first, "loss_last": last,
         "window_losses": window_losses, "steps_per_sec": steps_per_sec,

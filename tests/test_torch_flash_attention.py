@@ -138,14 +138,8 @@ def test_kernel_input_checks(dtype, D, contiguous, error):
         fa._check_kernel_inputs({"q": q, "k": k, "v": k})
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize(
-    "B,S,Sk,H,KV,D,causal",
-    [(2, 256, 256, 8, 2, 128, True), (1, 200, 300, 4, 4, 64, False)],
-)
-def test_kernels_match_plain_versions_on_card(B, S, Sk, H, KV, D, causal):
-    """Each CUDA kernel against its plain version on the card (bf16:
-    O atol 2e-2, lse atol 1e-4, gradients relative L2 1e-2)."""
+def _card_inputs(B, S, Sk, H, KV, D):
+    """Seeded bf16 q, k, v, dO on the card; skips where there is none."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     dev = torch.device("cuda", 0)
@@ -154,7 +148,26 @@ def test_kernels_match_plain_versions_on_card(B, S, Sk, H, KV, D, causal):
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
 
-    q, k, v, do = randn(B, S, H, D), randn(B, Sk, KV, D), randn(B, Sk, KV, D), randn(B, S, H, D)
+    return randn(B, S, H, D), randn(B, Sk, KV, D), randn(B, Sk, KV, D), randn(B, S, H, D)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "B,S,Sk,H,KV,D,causal",
+    [
+        (2, 256, 256, 8, 2, 128, True),    # GQA, whole tiles
+        (1, 200, 300, 4, 4, 64, False),    # MHA, Sk > S, ragged
+        (1, 1000, 1000, 8, 2, 128, True),  # S not a multiple of the tiles
+        (2, 48, 48, 4, 2, 64, True),       # S below one tile
+        (1, 48, 80, 4, 1, 128, False),     # MQA, below one tile, Sk != S
+        (2, 384, 384, 4, 4, 128, True),    # MHA
+        (1, 300, 200, 8, 1, 64, False),    # MQA, Sk < S
+    ],
+)
+def test_kernels_match_plain_versions_on_card(B, S, Sk, H, KV, D, causal):
+    """Each CUDA kernel against its plain version on the card (bf16:
+    O atol 2e-2, lse atol 1e-4, gradients relative L2 1e-2)."""
+    q, k, v, do = _card_inputs(B, S, Sk, H, KV, D)
     fa.reset_launches()
     o, lse = fa.flash_fwd(q, k, v, causal)
     ref_o, ref_lse = fa.flash_fwd_reference(q, k, v, causal)
@@ -169,3 +182,18 @@ def test_kernels_match_plain_versions_on_card(B, S, Sk, H, KV, D, causal):
         rel = ((a.float() - b.float()).norm() / b.float().norm()).item()
         assert rel <= 1e-2
     assert fa.launches == {"flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+def test_dkv_kernel_is_deterministic_on_card(D):
+    """dK and dV are sums kept on chip and written once (no atomics), so
+    two calls on the same inputs agree bit for bit."""
+    q, k, v, do = _card_inputs(1, 640, 640, 8, 2, D)
+    _, lse = fa.flash_fwd(q, k, v, True)
+    o, _ = fa.flash_fwd_reference(q, k, v, True)
+    delta = fa.flash_delta(o, do)
+    first = fa.flash_dkv(q, k, v, do, lse, delta, True)
+    second = fa.flash_dkv(q, k, v, do, lse, delta, True)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)

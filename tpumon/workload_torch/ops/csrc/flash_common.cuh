@@ -1,6 +1,7 @@
-// Shared pieces of the three flash-attention kernels (flash_fwd.cu,
-// flash_dq.cu, flash_dkv.cu): tile constants, tile loads, warp reductions
-// and one warp-level bf16 tensor-core product.
+// The pieces of flash_dq.cu, the one flash kernel still on WMMA: tile
+// constants, tile loads, warp reductions and one warp-level bf16
+// tensor-core product. flash_fwd.cu and flash_dkv.cu are built on wgmma
+// and TMA from hopper_common.cuh instead.
 //
 // Layout and conventions, common to every kernel:
 // - q / O / dO / dQ are [B, S, H, D] and k / v / dK / dV are [B, Sk, KV, D],

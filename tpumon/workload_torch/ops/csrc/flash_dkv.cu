@@ -1,156 +1,368 @@
-// flash_dkv: the attention backward's dK and dV. For one k-block it
-// recomputes P = exp(s * scale - lse) and dS = P * (dO v^T - delta) * scale
-// for every q row that can see it, and accumulates dV += P^T dO and
-// dK += dS^T q over the q-heads of the GQA group.
+// flash_dkv: the attention backward's dK and dV, on Hopper's wgmma with
+// the accumulators in registers, fed by TMA through a ring of q/dO tiles.
+// For one k-block it recomputes P = exp(s * scale - lse) and
+// dS = P * (dO v^T - delta) * scale for every q row that can see it, and
+// accumulates dV += P^T dO and dK += dS^T q over the q-heads of the GQA
+// group.
 //
 // Replaces _dkv_kernel of tpumon/workload/ops/flash_attention.py (:476).
 // On the TPU the group heads and q-blocks are grid dimensions over a
 // revisited output block; here blocks run in parallel and in no order, so
-// the CTA loops over them itself and keeps the sums on chip. No atomics,
-// and the decomposition stays the reference's, so a parity failure points
-// at one kernel.
+// the CTA loops over them itself and keeps the sums on chip: no atomics,
+// dK and dV deterministic and written once.
 //
-// Grid (ceil(Sk/64), B*KV): one CTA per (batch, kv-head, k-block). Under
-// causal the q loop starts at the first q-block whose last row reaches the
-// k-block (the reference's _qj clamp, :605-614). dK and dV accumulate in
-// f32 in shared memory and are written once in k's and v's dtype.
+// Bound on this card: four products, 8 * B * H * pairs * D operations over
+// the live (q, k) pairs. At the main path's shape (B=2, S=4096, H=16,
+// KV=4, D=128, causal) that is 274.9 GFLOP, 0.278 ms at 989 TFLOP/s bf16,
+// against 0.020 ms for its 67.4 MB of bytes: bound by operations.
 //
-// Bound on this card: four products per (q, k) tile pair, so tensor-core
-// operations at the training shapes. This version does not pipeline its
-// copies; it uses about 187 KB of shared memory at D = 128, so one CTA
-// per SM.
-#include "flash_common.cuh"
+// Design (one CTA per batch, kv-head and 128-row k-block; 384 threads):
+// - The scores are computed transposed, with the k rows as wgmma's M:
+//   S^T = k q^T and dP^T = v dO^T, all four operands K-major in shared
+//   memory. Warpgroups 0 and 1 own 64 k rows each, exactly the rows of dK
+//   and dV they accumulate, so P^T and dS^T come out in registers as the
+//   A operands of dV += P^T dO and dK += dS^T q (dO and q read MN-major
+//   through the trans-b flag). No shared-memory transpose and no
+//   __syncthreads between the halves of a step.
+// - At D = 128 a CTA accumulates one of the two gradients (PART DV or DK:
+//   two launches, the DV one without dP^T, delta or v). With dK and dV
+//   both in one warpgroup (128 accumulator registers at D = 128) beside
+//   S^T and dP^T, ptxas serialized every wgmma and spilled 80 to 290
+//   bytes, whatever the setmaxnreg budget and for q tiles of 16 to 64
+//   rows; with one of the two it does neither. Split, the DV part holds
+//   64 + 32 accumulator registers and the DK part 64 + 16 + 16, at the
+//   price of computing S^T twice (five products instead of four). At
+//   D = 64 one CTA holds both (PART BOTH: 32 + 32 + 32 + 32).
+// - q rows per ring stage: 64, except 32 for PART DK at D = 128 (a 64-row
+//   tile put its accumulators at 128 and spilled 8 bytes).
+// - Warp 8, the first of warpgroup 2, is the producer (its other three
+//   warps exit at once). One lane loads k (and v) once and streams q and
+//   dO tiles through a ring of STAGES stages with TMA; the warp's 32
+//   lanes copy the tile's lse (times log2 e) and delta into the same stage
+//   and arrive on its full barrier beside the TMA bytes. lse and delta are
+//   per q row, so per column here. setmaxnreg moves registers from the
+//   producer's warpgroup (24) to the consumers (240).
+// - Shared memory at D = 128: k and v 64 KB, a stage 16 to 32.5 KB, two
+//   stages: at most 129 KB, one CTA per SM.
+// - Causal: the q loop starts at the first q tile that reaches the
+//   k-block; only tiles that cross the diagonal (or the S edge) are
+//   masked, and a warpgroup skips a tile that its rows cannot see.
+//
+// What still holds it below half its bound: S^T is computed twice at
+// D = 128; the products of a step run back to back in each warpgroup with
+// the exp and dS math between them and nothing else in flight; and the
+// producer waits for both warpgroups before it refills a stage.
+#include "hopper_common.cuh"
 
-namespace flash {
+namespace dkv {
 
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-    dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-               const bf16* __restrict__ v, const bf16* __restrict__ dout,
+using namespace hopper;
+
+constexpr int BKR = 128;  // k rows per CTA: two consumer warpgroups of 64
+constexpr int STAGES = 2;
+constexpr int THREADS = 384;  // two consumer warpgroups + the producer's
+constexpr int CONSUMER_REGS = 240;
+constexpr int PRODUCER_REGS = 24;
+constexpr int CONSUMER_WARPS = 8;
+
+// Which gradients a CTA accumulates.
+enum Part { BOTH = 0, DV = 1, DK = 2 };
+
+template <int D, int PART>
+struct Cfg {
+  static constexpr bool kDV = PART != DK;  // dV += P^T dO
+  static constexpr bool kDK = PART != DV;  // dK += dS^T q, needs dP^T
+  static constexpr int BQ = (D == 128 && PART == DK) ? 32 : 64;
+  static constexpr int KV_BYTES = BKR * D * 2;
+  static constexpr int Q_BYTES = BQ * D * 2;
+  static constexpr int V_OFF = KV_BYTES;
+  static constexpr int Q_OFF = 2 * KV_BYTES;
+  static constexpr int DO_OFF = Q_OFF + STAGES * Q_BYTES;
+  static constexpr int LSE_OFF = DO_OFF + STAGES * Q_BYTES;
+  static constexpr int DELTA_OFF = LSE_OFF + STAGES * BQ * 4;
+  static constexpr int BAR_OFF = DELTA_OFF + STAGES * BQ * 4;
+  static constexpr int BYTES = BAR_OFF + (1 + 2 * STAGES) * 8;
+  static constexpr size_t LAUNCH = size_t(BYTES) + 1024;  // 1 KB alignment
+  static_assert(KV_BYTES % 1024 == 0 && Q_BYTES % 1024 == 0, "1 KB tiles");
+  static_assert(LAUNCH <= 232448, "over the 227 KB a block may use");
+};
+
+template <int D, int PART>
+__global__ void __launch_bounds__(THREADS, 1)
+    dkv_kernel(const __grid_constant__ CUtensorMap map_q,
+               const __grid_constant__ CUtensorMap map_k,
+               const __grid_constant__ CUtensorMap map_v,
+               const __grid_constant__ CUtensorMap map_do,
                const float* __restrict__ lse, const float* __restrict__ delta,
                bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int KV,
                int S, int Sk, float scale, int causal) {
-  using L = Ld<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  Carve cv{smem};
-  bf16* sK = cv.take<bf16>(L::tile_h);
-  bf16* sV = cv.take<bf16>(L::tile_h);
-  bf16* sQ = cv.take<bf16>(L::tile_h);
-  bf16* sDO = cv.take<bf16>(L::tile_h);
-  float* sS = cv.take<float>(L::tile_s);
-  float* sDP = cv.take<float>(L::tile_s);
-  bf16* sP = cv.take<bf16>(L::tile_p);
-  bf16* sDS = cv.take<bf16>(L::tile_p);
-  float* sDK = cv.take<float>(L::tile_a);
-  float* sDV = cv.take<float>(L::tile_a);
-  float* sLse = cv.take<float>(BQ * 4);
-  float* sDelta = cv.take<float>(BQ * 4);
+  using C = Cfg<D, PART>;
+  constexpr int BQ = C::BQ;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = smem_base_1k(smem_raw);
+  unsigned char* sK = sm;
+  unsigned char* sV = sm + C::V_OFF;
+  unsigned char* sQ = sm + C::Q_OFF;
+  unsigned char* sDO = sm + C::DO_OFF;
+  float* sLse = reinterpret_cast<float*>(sm + C::LSE_OFF);
+  float* sDelta = reinterpret_cast<float*>(sm + C::DELTA_OFF);
+  uint64_t* full_kv = reinterpret_cast<uint64_t*>(sm + C::BAR_OFF);
+  uint64_t* full = full_kv + 1;
+  uint64_t* empty = full + STAGES;
 
-  const int k0 = blockIdx.x * BK;
-  const int b = blockIdx.y / KV, kvh = blockIdx.y % KV;
+  const int b = blockIdx.x / KV, kvh = blockIdx.x % KV;
+  const int k0 = blockIdx.y * BKR;  // the heaviest k-blocks come first
   const int group = H / KV;
-  const int64_t q_stride = int64_t(H) * D, kv_stride = int64_t(KV) * D;
-  const int64_t kv_off = int64_t(b) * Sk * kv_stride + int64_t(kvh) * D;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int r0 = warp * 16;
-
-  load_tile<BK, D>(sK, k + kv_off, k0, Sk, kv_stride);
-  load_tile<BK, D>(sV, v + kv_off, k0, Sk, kv_stride);
-  for (int i = threadIdx.x; i < BK * L::A; i += THREADS) {
-    sDK[i] = 0.0f;
-    sDV[i] = 0.0f;
-  }
-
   const int n_qb = (S + BQ - 1) / BQ;
   const int qb_lo = causal ? k0 / BQ : 0;
+  const int wg = threadIdx.x / 128;
 
-  for (int g = 0; g < group; ++g) {
-    const int h = kvh * group + g;
-    const int64_t q_off = int64_t(b) * S * q_stride + int64_t(h) * D;
-    const int64_t row_off = (int64_t(b) * H + h) * S;
-    for (int qb = qb_lo; qb < n_qb; ++qb) {
-      const int q0 = qb * BQ;
-      __syncthreads();  // every warp is done with the previous q tiles
-      load_tile<BQ, D>(sQ, q + q_off, q0, S, q_stride);
-      load_tile<BQ, D>(sDO, dout + q_off, q0, S, q_stride);
-      load_rows<BQ>(sLse, lse + row_off, q0, S);
-      load_rows<BQ>(sDelta, delta + row_off, q0, S);
-      __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_init(full_kv, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 32);  // the producer warp's lanes, one with tx
+      mbar_init(&empty[s], CONSUMER_WARPS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-      // s and dP for this warp's 16 q rows against the k-block.
-      warp_gemm<BK / 16, D, wmma::row_major, wmma::col_major, false>(
-          sS + r0 * L::S, L::S, sQ + r0 * L::H, L::H, sK, L::H);
-      warp_gemm<BK / 16, D, wmma::row_major, wmma::col_major, false>(
-          sDP + r0 * L::S, L::S, sDO + r0 * L::H, L::H, sV, L::H);
-      __syncwarp();
-
-      for (int rr = 0; rr < 16; ++rr) {
-        const int r = r0 + rr, row = q0 + r;
-        const float row_lse = sLse[r], row_delta = sDelta[r];
-#pragma unroll
-        for (int j = 0; j < BK / 32; ++j) {
-          const int c = lane + 32 * j, col = k0 + c;
-          const bool live = row < S && col < Sk && (!causal || col <= row);
-          const float p =
-              live ? expf(sS[r * L::S + c] * scale - row_lse) : 0.0f;
-          const float ds = p * (sDP[r * L::S + c] - row_delta) * scale;
-          sP[r * L::P + c] = __float2bfloat16(p);
-          sDS[r * L::P + c] = __float2bfloat16(ds);
+  if (wg == 2) {
+    // ---- producer: warp 8 streams q, dO, lse and delta ----
+    reg_dealloc<PRODUCER_REGS>();
+    if (threadIdx.x < 288) {
+      const int lane = threadIdx.x % 32;
+      if (lane == 0) {
+        prefetch_map(&map_q);
+        prefetch_map(&map_do);
+        mbar_arrive_tx(full_kv, (C::kDK ? 2 : 1) * C::KV_BYTES);
+        tma_load_tile<D>(sK, BKR, &map_k, full_kv, kvh, k0, b);
+        if (C::kDK) tma_load_tile<D>(sV, BKR, &map_v, full_kv, kvh, k0, b);
+      }
+      int it = 0;
+      for (int g = 0; g < group; ++g) {
+        const int h = kvh * group + g;
+        const float* lse_h = lse + (int64_t(b) * H + h) * S;
+        const float* delta_h = delta + (int64_t(b) * H + h) * S;
+        for (int qb = qb_lo; qb < n_qb; ++qb, ++it) {
+          const int s = it % STAGES;
+          const int q0 = qb * BQ;
+          mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+          for (int i = lane; i < BQ; i += 32) {
+            const bool live = q0 + i < S;
+            sLse[s * BQ + i] = live ? lse_h[q0 + i] * LOG2E : 0.0f;
+            if (C::kDK) sDelta[s * BQ + i] = live ? delta_h[q0 + i] : 0.0f;
+          }
+          if (lane == 0) {
+            mbar_arrive_tx(&full[s], 2 * C::Q_BYTES);
+            tma_load_tile<D>(sQ + s * C::Q_BYTES, BQ, &map_q, &full[s], h, q0,
+                             b);
+            tma_load_tile<D>(sDO + s * C::Q_BYTES, BQ, &map_do, &full[s], h,
+                             q0, b);
+          } else {
+            mbar_arrive(&full[s]);
+          }
         }
       }
-      __syncthreads();  // the transposed products read every warp's rows
-
-      // This warp's 16 k rows: dV += P^T dO, dK += dS^T q.
-      warp_gemm<D / 16, BQ, wmma::col_major, wmma::row_major, true>(
-          sDV + r0 * L::A, L::A, sP + r0, L::P, sDO, L::H);
-      warp_gemm<D / 16, BQ, wmma::col_major, wmma::row_major, true>(
-          sDK + r0 * L::A, L::A, sDS + r0, L::P, sQ, L::H);
     }
-  }
-  __syncwarp();
+  } else {
+    // ---- consumers: 64 k rows per warpgroup ----
+    reg_alloc<CONSUMER_REGS>();
+    const int t = threadIdx.x % 128, lane = t % 32;
+    const int row0 = k0 + wg * 64 + (t / 32) * 16 + lane / 4;  // and +8
+    const int cq = (lane % 4) * 2;
+    const int wg_row_min = k0 + wg * 64;
+    const unsigned char* sKw = sK + wg * 64 * ROW_BYTES;
+    const unsigned char* sVw = sV + wg * 64 * ROW_BYTES;
+    const float scale_log2 = scale * LOG2E;
 
-  for (int rr = 0; rr < 16; ++rr) {
-    const int r = r0 + rr, row = k0 + r;
-    if (row >= Sk) break;
-    const int64_t off = (int64_t(b) * Sk + row) * kv_stride + int64_t(kvh) * D;
-    for (int c = lane; c < D; c += 32) {
-      dk[off + c] = __float2bfloat16(sDK[r * L::A + c]);
-      dv[off + c] = __float2bfloat16(sDV[r * L::A + c]);
+    float acc_dk[D / 2], acc_dv[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) {
+      acc_dk[i] = 0.0f;
+      acc_dv[i] = 0.0f;
+    }
+
+    mbar_wait(full_kv, 0);
+    int it = 0;
+    for (int g = 0; g < group; ++g) {
+      for (int qb = qb_lo; qb < n_qb; ++qb, ++it) {
+        const int s = it % STAGES;
+        const int q0 = qb * BQ;
+        mbar_wait(&full[s], (it / STAGES) & 1);
+        // Under causal a tile wholly above this warpgroup's rows is dead.
+        if (!(causal && q0 + BQ - 1 < wg_row_min)) {
+          const unsigned char* sQs = sQ + s * C::Q_BYTES;
+          const unsigned char* sDOs = sDO + s * C::Q_BYTES;
+
+          // S^T = k q^T (and dP^T = v dO^T): k rows are M, q rows are N.
+          // Zeroed although the first k slice overwrites them: left
+          // undefined, ptxas may give both the same registers.
+          float st[BQ / 2], dpt[BQ / 2];
+#pragma unroll
+          for (int i = 0; i < BQ / 2; ++i) {
+            st[i] = 0.0f;
+            dpt[i] = 0.0f;
+          }
+          const uint64_t d_k = opaque(desc_sw128(sKw, 0, 1024));
+          const uint64_t d_q = opaque(desc_sw128(sQs, 0, 1024));
+          wg_fence();
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk) {
+            // k16 slice kk: box kk / 4, then 32 bytes (2 units of 16) a slice.
+            const int box = kk / 4, slice = (kk % 4) * 2;
+            wgmma_ss<BQ>(st, d_k + box * (BKR * ROW_BYTES / 16) + slice,
+                         d_q + box * (BQ * ROW_BYTES / 16) + slice, kk > 0);
+          }
+          if constexpr (C::kDK) {
+            const uint64_t d_v = opaque(desc_sw128(sVw, 0, 1024));
+            const uint64_t d_do = opaque(desc_sw128(sDOs, 0, 1024));
+#pragma unroll
+            for (int kk = 0; kk < D / 16; ++kk) {
+              const int box = kk / 4, slice = (kk % 4) * 2;
+              wgmma_ss<BQ>(dpt, d_v + box * (BKR * ROW_BYTES / 16) + slice,
+                           d_do + box * (BQ * ROW_BYTES / 16) + slice, kk > 0);
+            }
+          }
+          wg_commit();
+          wg_wait<0>();
+          fence_regs(st);
+          if constexpr (C::kDK) fence_regs(dpt);
+
+          // P^T = exp2(s * scale log2 e - lse log2 e); dS^T = P^T (dP^T -
+          // delta) scale. Column c of this thread's pairs is q row q0 + c.
+          // Each k16 slice is packed to bf16 as soon as it is formed.
+          const bool masked =
+              q0 + BQ > S || (causal && q0 < wg_row_min + 63);
+          const float* lse_s = sLse + s * BQ;
+          const float* delta_s = sDelta + s * BQ;
+          uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+#pragma unroll
+          for (int kk = 0; kk < BQ / 16; ++kk) {
+#pragma unroll
+            for (int jj = 0; jj < 2; ++jj) {
+              const int j = 2 * kk + jj;
+              const float2 lse2 =
+                  *reinterpret_cast<const float2*>(lse_s + 8 * j + cq);
+              float p[4], ds[4];
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                const int idx = 4 * j + i, e = i % 2;
+                p[i] = ex2(st[idx] * scale_log2 - (e ? lse2.y : lse2.x));
+                if (masked) {
+                  const int col = q0 + 8 * j + cq + e;
+                  const int row = row0 + 8 * (i / 2);
+                  if (col >= S || (causal && col < row)) p[i] = 0.0f;
+                }
+              }
+              if constexpr (C::kDV) {
+                pa[kk][2 * jj] = pack_bf16(p[0], p[1]);
+                pa[kk][2 * jj + 1] = pack_bf16(p[2], p[3]);
+              }
+              if constexpr (C::kDK) {
+                const float2 del2 =
+                    *reinterpret_cast<const float2*>(delta_s + 8 * j + cq);
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {
+                  ds[i] = p[i] * (dpt[4 * j + i] - (i % 2 ? del2.y : del2.x)) *
+                          scale;
+                }
+                da[kk][2 * jj] = pack_bf16(ds[0], ds[1]);
+                da[kk][2 * jj + 1] = pack_bf16(ds[2], ds[3]);
+              }
+            }
+          }
+
+          // dV += P^T dO, dK += dS^T q: dO and q are [BQ, D], read
+          // MN-major, 16 q rows a k16 slice.
+          wg_fence();
+          if constexpr (C::kDV) {
+            const uint64_t d_dot = opaque(desc_sw128(sDOs, BQ * ROW_BYTES, 1024));
+            fence_regs(acc_dv);
+#pragma unroll
+            for (int kk = 0; kk < BQ / 16; ++kk) {
+              wgmma_rs<D>(acc_dv, pa[kk], d_dot + kk * 16 * ROW_BYTES / 16, 1);
+            }
+          }
+          if constexpr (C::kDK) {
+            const uint64_t d_qt = opaque(desc_sw128(sQs, BQ * ROW_BYTES, 1024));
+            fence_regs(acc_dk);
+#pragma unroll
+            for (int kk = 0; kk < BQ / 16; ++kk) {
+              wgmma_rs<D>(acc_dk, da[kk], d_qt + kk * 16 * ROW_BYTES / 16, 1);
+            }
+          }
+          wg_commit();
+          wg_wait<0>();
+          if constexpr (C::kDV) fence_regs(acc_dv);
+          if constexpr (C::kDK) fence_regs(acc_dk);
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[s]);
+      }
+    }
+
+    // Epilogue: dK and dV in k's and v's dtype, each row written once.
+    const int64_t kv_stride = int64_t(KV) * D;
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int row = row0 + 8 * hr;
+      if (row >= Sk) continue;
+      const int64_t off = (int64_t(b) * Sk + row) * kv_stride +
+                          int64_t(kvh) * D + cq;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        if constexpr (C::kDK) {
+          *reinterpret_cast<uint32_t*>(dk + off + 8 * j) =
+              pack_bf16(acc_dk[4 * j + 2 * hr], acc_dk[4 * j + 2 * hr + 1]);
+        }
+        if constexpr (C::kDV) {
+          *reinterpret_cast<uint32_t*>(dv + off + 8 * j) =
+              pack_bf16(acc_dv[4 * j + 2 * hr], acc_dv[4 * j + 2 * hr + 1]);
+        }
+      }
     }
   }
 }
 
-template <int D>
-int run(const void* q, const void* k, const void* v, const void* dout,
-        const void* lse, const void* delta, void* dk, void* dv, int B, int H,
-        int KV, int S, int Sk, float scale, int causal, void* stream) {
-  using L = Ld<D>;
-  const size_t smem = 4 * L::tile_h + 2 * L::tile_s + 2 * L::tile_p +
-                      2 * L::tile_a + 2 * BQ * 4;
-  const dim3 grid((Sk + BK - 1) / BK, B * KV);
-  return launch(dkv_kernel<D>, grid, smem, stream,
-                static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-                static_cast<const float*>(lse),
+template <int D, int PART>
+int run_part(const void* q, const void* k, const void* v, const void* dout,
+             const void* lse, const void* delta, void* dk, void* dv, int B,
+             int H, int KV, int S, int Sk, float scale, int causal,
+             void* stream) {
+  using C = Cfg<D, PART>;
+  CUtensorMap map_q, map_k, map_v, map_do;
+  int err = make_map(&map_q, q, B, S, H, D, C::BQ);
+  if (!err) err = make_map(&map_do, dout, B, S, H, D, C::BQ);
+  if (!err) err = make_map(&map_k, k, B, Sk, KV, D, BKR);
+  if (!err) err = make_map(&map_v, v, B, Sk, KV, D, BKR);
+  if (err) return err;
+  const dim3 grid(B * KV, (Sk + BKR - 1) / BKR);
+  return launch(dkv_kernel<D, PART>, grid, THREADS, C::LAUNCH, stream, map_q,
+                map_k, map_v, map_do, static_cast<const float*>(lse),
                 static_cast<const float*>(delta), static_cast<bf16*>(dk),
                 static_cast<bf16*>(dv), H, KV, S, Sk, scale, causal);
 }
 
-}  // namespace flash
+}  // namespace dkv
 
-// Plain C entry for ctypes. Returns a cudaError_t value (0 = launched).
+// Plain C entry for ctypes. Returns 0 when launched, else a cudaError_t
+// value (or hopper::TMAP_ERROR + CUresult when a tensor map is refused).
 extern "C" int flash_dkv(const void* q, const void* k, const void* v,
                          const void* dout, const void* lse, const void* delta,
                          void* dk, void* dv, int B, int H, int KV, int S,
                          int Sk, int D, float scale, int causal,
                          void* stream) {
   if (D == 128) {
-    return flash::run<128>(q, k, v, dout, lse, delta, dk, dv, B, H, KV, S, Sk,
-                           scale, causal, stream);
+    int err = dkv::run_part<128, dkv::DV>(q, k, v, dout, lse, delta, dk, dv, B,
+                                          H, KV, S, Sk, scale, causal, stream);
+    if (err) return err;
+    return dkv::run_part<128, dkv::DK>(q, k, v, dout, lse, delta, dk, dv, B, H,
+                                       KV, S, Sk, scale, causal, stream);
   }
   if (D == 64) {
-    return flash::run<64>(q, k, v, dout, lse, delta, dk, dv, B, H, KV, S, Sk,
-                          scale, causal, stream);
+    return dkv::run_part<64, dkv::BOTH>(q, k, v, dout, lse, delta, dk, dv, B,
+                                        H, KV, S, Sk, scale, causal, stream);
   }
   return int(cudaErrorInvalidValue);
 }

@@ -1,124 +1,257 @@
 // flash_fwd: the attention forward, O = softmax(q k^T / sqrt(D)) v and
-// lse = m + log(l) per row.
+// lse = m + log(l) per row, on Hopper's wgmma with the accumulators in
+// registers, fed by TMA through a ring of K/V tiles.
 //
 // Replaces two TPU kernels of tpumon/workload/ops/flash_attention.py:
 // _fwd_kernel_resident (:199) and _fwd_kernel_streamed (:233). They split
 // only because a TPU core's scoped VMEM cannot hold long K/V bands; here
 // K/V tiles always stream through shared memory, so one kernel covers both.
 //
-// Grid (ceil(S/64), B*H): one CTA per (batch, q-head, q-block). The CTA
-// loops over 64-row K/V tiles up to the causal bound (the TPU kernel's
-// bound, :218) or over all of Sk, with the online-softmax state m, l in
-// shared memory and the f32 output accumulator in shared memory.
+// Bound on this card: the two products, 4 * B * H * pairs * D operations
+// over the live (q, k) pairs. At the main path's shape (B=2, S=4096,
+// H=16, KV=4, D=128, causal: 8.39 M pairs a head) that is 137.4 GFLOP,
+// 0.139 ms at 989 TFLOP/s bf16, against 0.017 ms for its 56.6 MB of bytes:
+// bound by operations.
 //
-// Bound on this card: at the training shapes (S >= 1024, D = 128) the two
-// products dominate and the kernel is bound by tensor-core operations, not
-// bytes. This first version issues WMMA from shared memory with no copy
-// pipelining, so it runs well below that bound; the ladder up is cp.async
-// or TMA double buffering, then wgmma with the accumulator in registers.
-#include "flash_common.cuh"
+// Design (one CTA per batch, q-head and 128-row q-block; 384 threads):
+// - Warpgroups 0 and 1 are consumers, 64 q rows each (wgmma's M). Each
+//   holds its S tile (64 x BK f32, 64 registers a thread) and its O
+//   accumulator (64 x D f32, 64 registers) in registers for the whole
+//   k loop; the online softmax runs on the S registers (a row sits in a
+//   quad of lanes: two shuffles for the max, the sum reduced once at the
+//   end), and P is converted to bf16 in registers, where the accumulator
+//   layout already is the A operand of the P.V product. V is read
+//   transposed through the descriptor's trans-b flag: no copies.
+// - Warpgroup 2 is the producer: one of its threads loads the q tile once
+//   and keeps K and V tiles in flight through a ring of STAGES stages with
+//   full/empty mbarriers (K and V on separate full barriers, so S = q k^T
+//   starts while V is still arriving). The launch gives every thread 168
+//   registers (65,536 / 384, rounded down to 8); setmaxnreg then moves
+//   them inside the block: the producer warpgroup drops to 24 and each
+//   consumer rises to 240 (24 * 128 + 240 * 256 = 168 * 384 = 64,512).
+// - BK = 128: S = q k^T is one m64n128 wgmma per k16 slice, and the tiles
+//   of a stage (2 x 32 KB at D = 128) leave room for two stages beside
+//   the 32 KB q tile: 160 KB of the 227 KB, one CTA per SM. A third stage
+//   would fit (224 KB) but the consumers, not the copies, are the limit
+//   at two.
+// - Causal: the k loop ends at the diagonal; only tiles that cross it (or
+//   the Sk edge) are masked; the heaviest q-blocks launch first.
+// - q, k and v are read as 4-D tensor maps (D, heads, seq, batch) in
+//   boxes of 64 columns (D = 128 is two boxes a tile); a box past seq is
+//   zero-filled inside its own batch.
+//
+// What still holds it below half its bound: each consumer warpgroup runs
+// its softmax between its two products with nothing of its own in flight
+// (no intra-warpgroup overlap of the next S with this softmax, no
+// ping-pong schedule between the two warpgroups), and O is stored from
+// registers with 4-byte writes rather than through shared memory and TMA.
+#include "hopper_common.cuh"
 
-namespace flash {
+namespace fwd {
+
+using namespace hopper;
+
+constexpr int BQ = 128;  // q rows per CTA: two consumer warpgroups of 64
+constexpr int BK = 128;  // k rows per ring stage
+constexpr int STAGES = 2;
+constexpr int THREADS = 384;  // two consumer warpgroups + the producer's
+constexpr int CONSUMER_REGS = 240;
+constexpr int PRODUCER_REGS = 24;
+constexpr int CONSUMER_WARPS = 8;
 
 template <int D>
-__global__ void __launch_bounds__(THREADS)
-    fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-               const bf16* __restrict__ v, bf16* __restrict__ o,
-               float* __restrict__ lse, int H, int KV, int S, int Sk,
-               float scale, int causal) {
-  using L = Ld<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  Carve cv{smem};
-  bf16* sQ = cv.take<bf16>(L::tile_h);
-  bf16* sK = cv.take<bf16>(L::tile_h);
-  bf16* sV = cv.take<bf16>(L::tile_h);
-  float* sS = cv.take<float>(L::tile_s);
-  bf16* sP = cv.take<bf16>(L::tile_p);
-  float* sAcc = cv.take<float>(L::tile_a);
-  float* sM = cv.take<float>(BQ * 4);
-  float* sL = cv.take<float>(BQ * 4);
+struct Smem {
+  static constexpr int Q_BYTES = BQ * D * 2;
+  static constexpr int KV_BYTES = BK * D * 2;
+  static constexpr int K_OFF = Q_BYTES;
+  static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
+  static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;
+  static constexpr int BYTES = BAR_OFF + (1 + 3 * STAGES) * 8;
+  static constexpr size_t LAUNCH = size_t(BYTES) + 1024;  // 1 KB alignment
+  static_assert(Q_BYTES % 1024 == 0 && KV_BYTES % 1024 == 0, "1 KB tiles");
+  static_assert(LAUNCH <= 232448, "over the 227 KB a block may use");
+};
 
-  const int q0 = blockIdx.x * BQ;
-  const int b = blockIdx.y / H, h = blockIdx.y % H;
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+    fwd_kernel(const __grid_constant__ CUtensorMap map_q,
+               const __grid_constant__ CUtensorMap map_k,
+               const __grid_constant__ CUtensorMap map_v,
+               bf16* __restrict__ o, float* __restrict__ lse, int H, int KV,
+               int S, int Sk, float scale_log2, int causal) {
+  using L = Smem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = smem_base_1k(smem_raw);
+  unsigned char* sQ = sm;
+  unsigned char* sK = sm + L::K_OFF;
+  unsigned char* sV = sm + L::V_OFF;
+  uint64_t* full_q = reinterpret_cast<uint64_t*>(sm + L::BAR_OFF);
+  uint64_t* full_k = full_q + 1;
+  uint64_t* full_v = full_k + STAGES;
+  uint64_t* empty = full_v + STAGES;
+
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
   const int kvh = (h * KV) / H;
-  const int64_t q_stride = int64_t(H) * D, kv_stride = int64_t(KV) * D;
-  const bf16* qp = q + int64_t(b) * S * q_stride + int64_t(h) * D;
-  const bf16* kp = k + int64_t(b) * Sk * kv_stride + int64_t(kvh) * D;
-  const bf16* vp = v + int64_t(b) * Sk * kv_stride + int64_t(kvh) * D;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int r0 = warp * 16;
-
-  load_tile<BQ, D>(sQ, qp, q0, S, q_stride);
-  for (int i = threadIdx.x; i < BQ * L::A; i += THREADS) sAcc[i] = 0.0f;
-  for (int i = threadIdx.x; i < BQ; i += THREADS) {
-    sM[i] = NEG_BIG;
-    sL[i] = 0.0f;
-  }
-
+  // Under causal the last q-blocks see the most keys: launch them first.
+  const int qb = causal ? int(gridDim.y) - 1 - int(blockIdx.y) : blockIdx.y;
+  const int q0 = qb * BQ;
   int n_kb = (Sk + BK - 1) / BK;
   if (causal) n_kb = min(n_kb, (q0 + BQ + BK - 1) / BK);
+  const int wg = threadIdx.x / 128;
 
-  for (int kb = 0; kb < n_kb; ++kb) {
-    const int k0 = kb * BK;
-    __syncthreads();  // every warp is done with the previous K/V tiles
-    load_tile<BK, D>(sK, kp, k0, Sk, kv_stride);
-    load_tile<BK, D>(sV, vp, k0, Sk, kv_stride);
-    __syncthreads();
-
-    // s = q k^T for this warp's 16 rows.
-    warp_gemm<BK / 16, D, wmma::row_major, wmma::col_major, false>(
-        sS + r0 * L::S, L::S, sQ + r0 * L::H, L::H, sK, L::H);
-    __syncwarp();
-
-    // Online softmax over the warp's rows; each lane owns two columns.
-    for (int rr = 0; rr < 16; ++rr) {
-      const int r = r0 + rr, row = q0 + r;
-      float sv[BK / 32];
-      float mx = NEG_BIG;
-#pragma unroll
-      for (int j = 0; j < BK / 32; ++j) {
-        const int c = lane + 32 * j, col = k0 + c;
-        const bool live = col < Sk && (!causal || col <= row);
-        sv[j] = live ? sS[r * L::S + c] * scale : NEG_BIG;
-        mx = fmaxf(mx, sv[j]);
-      }
-      mx = warp_max(mx);
-      const float m_old = sM[r];
-      const float m_new = fmaxf(m_old, mx);
-      const float alpha = expf(m_old - m_new);
-      float sum = 0.0f;
-#pragma unroll
-      for (int j = 0; j < BK / 32; ++j) {
-        const float p = expf(sv[j] - m_new);
-        sP[r * L::P + lane + 32 * j] = __float2bfloat16(p);
-        sum += p;
-      }
-      sum = warp_sum(sum);
-      for (int c = lane; c < D; c += 32) sAcc[r * L::A + c] *= alpha;
-      __syncwarp();  // every lane has read sM[r] before lane 0 moves it
-      if (lane == 0) {
-        sM[r] = m_new;
-        sL[r] = sL[r] * alpha + sum;
-      }
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full_k[s], 1);
+      mbar_init(&full_v[s], 1);
+      mbar_init(&empty[s], CONSUMER_WARPS);
     }
-    __syncwarp();
-
-    // acc += bf16(p) v for this warp's rows.
-    warp_gemm<D / 16, BK, wmma::row_major, wmma::row_major, true>(
-        sAcc + r0 * L::A, L::A, sP + r0 * L::P, L::P, sV, L::H);
+    mbar_fence_init();
   }
-  __syncwarp();
+  __syncthreads();
 
-  for (int rr = 0; rr < 16; ++rr) {
-    const int r = r0 + rr, row = q0 + r;
-    if (row >= S) break;
-    const float l = sL[r];
-    const float inv = 1.0f / l;
-    bf16* op = o + (int64_t(b) * S + row) * q_stride + int64_t(h) * D;
-    for (int c = lane; c < D; c += 32) {
-      op[c] = __float2bfloat16(sAcc[r * L::A + c] * inv);
+  if (wg == 2) {
+    // ---- producer: one thread issues every copy ----
+    reg_dealloc<PRODUCER_REGS>();
+    if (threadIdx.x == 256) {
+      prefetch_map(&map_q);
+      prefetch_map(&map_k);
+      prefetch_map(&map_v);
+      mbar_arrive_tx(full_q, L::Q_BYTES);
+      tma_load_tile<D>(sQ, BQ, &map_q, full_q, h, q0, b);
+      for (int kb = 0; kb < n_kb; ++kb) {
+        const int s = kb % STAGES;
+        mbar_wait(&empty[s], ((kb / STAGES) & 1) ^ 1);
+        mbar_arrive_tx(&full_k[s], L::KV_BYTES);
+        tma_load_tile<D>(sK + s * L::KV_BYTES, BK, &map_k, &full_k[s], kvh,
+                         kb * BK, b);
+        mbar_arrive_tx(&full_v[s], L::KV_BYTES);
+        tma_load_tile<D>(sV + s * L::KV_BYTES, BK, &map_v, &full_v[s], kvh,
+                         kb * BK, b);
+      }
     }
-    if (lane == 0) lse[(int64_t(b) * H + h) * S + row] = sM[r] + logf(l);
+  } else {
+    // ---- consumers: 64 q rows per warpgroup ----
+    reg_alloc<CONSUMER_REGS>();
+    const int t = threadIdx.x % 128, lane = t % 32;
+    const int row0 = q0 + wg * 64 + (t / 32) * 16 + lane / 4;  // and +8
+    const int cq = (lane % 4) * 2;
+    const int wg_row_min = q0 + wg * 64;
+    const unsigned char* sQw = sQ + wg * 64 * ROW_BYTES;
+
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+    float m[2] = {NEG_BIG, NEG_BIG};
+    float l[2] = {0.0f, 0.0f};  // this thread's share of the row sums
+
+    mbar_wait(full_q, 0);
+    for (int kb = 0; kb < n_kb; ++kb) {
+      const int s = kb % STAGES;
+      const uint32_t parity = (kb / STAGES) & 1;
+      const int k0 = kb * BK;
+      const unsigned char* sKs = sK + s * L::KV_BYTES;
+      const unsigned char* sVs = sV + s * L::KV_BYTES;
+
+      // S = q k^T: K-major q and k, the head dim is the contraction.
+      float sc[BK / 2];
+      const uint64_t dq = opaque(desc_sw128(sQw, 0, 1024));
+      const uint64_t dk = opaque(desc_sw128(sKs, 0, 1024));
+      mbar_wait(&full_k[s], parity);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        // k16 slice kk: box kk / 4, then 32 bytes (2 units of 16) a slice.
+        const int box = kk / 4, slice = (kk % 4) * 2;
+        wgmma_ss<BK>(sc, dq + box * (BQ * ROW_BYTES / 16) + slice,
+                     dk + box * (BK * ROW_BYTES / 16) + slice, kk > 0);
+      }
+      wg_commit();
+      wg_wait<0>();
+      fence_regs(sc);
+
+      // Online softmax in the log2 domain (scale_log2 = log2(e)/sqrt(D)).
+      const bool masked =
+          k0 + BK > Sk || (causal && k0 + BK - 1 > wg_row_min);
+      float mt[2] = {NEG_BIG, NEG_BIG};
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int idx = 4 * j + i, hr = i / 2;
+          float x = sc[idx] * scale_log2;
+          if (masked) {
+            const int col = k0 + 8 * j + cq + (i % 2);
+            const int row = row0 + 8 * hr;
+            if (col >= Sk || (causal && col > row)) x = NEG_BIG;
+          }
+          sc[idx] = x;
+          mt[hr] = fmaxf(mt[hr], x);
+        }
+      }
+      float alpha[2];
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const float m_new = fmaxf(m[hr], quad_max(mt[hr]));
+        alpha[hr] = ex2(m[hr] - m_new);
+        m[hr] = m_new;
+      }
+      float sum[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int idx = 0; idx < BK / 2; ++idx) {
+        const int hr = (idx % 4) / 2;
+        sc[idx] = ex2(sc[idx] - m[hr]);
+        sum[hr] += sc[idx];
+      }
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) l[hr] = l[hr] * alpha[hr] + sum[hr];
+#pragma unroll
+      for (int idx = 0; idx < D / 2; ++idx) acc[idx] *= alpha[(idx % 4) / 2];
+
+      // P in bf16, in registers: the A operand of O += P v.
+      uint32_t pa[BK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          pa[kk][i] = pack_bf16(sc[8 * kk + 2 * i], sc[8 * kk + 2 * i + 1]);
+        }
+      }
+
+      // O += P v: v is [BK, D] with D contiguous, read MN-major.
+      const uint64_t dv = opaque(desc_sw128(sVs, BK * ROW_BYTES, 1024));
+      mbar_wait(&full_v[s], parity);
+      wg_fence();
+      fence_regs(acc);
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        wgmma_rs<D>(acc, pa[kk], dv + kk * 16 * ROW_BYTES / 16, 1);
+      }
+      wg_commit();
+      wg_wait<0>();
+      fence_regs(acc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
+
+    // Epilogue: O = acc / l in q's dtype, lse = (m + log2 l) * ln 2.
+    const int64_t q_stride = int64_t(H) * D;
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int row = row0 + 8 * hr;
+      const float l_row = quad_sum(l[hr]);
+      if (row >= S) continue;
+      const float inv = __fdividef(1.0f, l_row);
+      bf16* op = o + (int64_t(b) * S + row) * q_stride + int64_t(h) * D + cq;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<uint32_t*>(op + 8 * j) =
+            pack_bf16(acc[4 * j + 2 * hr] * inv, acc[4 * j + 2 * hr + 1] * inv);
+      }
+      if (cq == 0) {
+        lse[(int64_t(b) * H + h) * S + row] = (m[hr] + __log2f(l_row)) * LN2;
+      }
+    }
   }
 }
 
@@ -126,29 +259,31 @@ template <int D>
 int run(const void* q, const void* k, const void* v, void* o, void* lse,
         int B, int H, int KV, int S, int Sk, float scale, int causal,
         void* stream) {
-  using L = Ld<D>;
-  const size_t smem = 3 * L::tile_h + L::tile_s + L::tile_p + L::tile_a +
-                      2 * BQ * 4;
-  const dim3 grid((S + BQ - 1) / BQ, B * H);
-  return launch(fwd_kernel<D>, grid, smem, stream,
-                static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                static_cast<const bf16*>(v), static_cast<bf16*>(o),
-                static_cast<float*>(lse), H, KV, S, Sk, scale, causal);
+  CUtensorMap map_q, map_k, map_v;
+  int err = make_map(&map_q, q, B, S, H, D, BQ);
+  if (!err) err = make_map(&map_k, k, B, Sk, KV, D, BK);
+  if (!err) err = make_map(&map_v, v, B, Sk, KV, D, BK);
+  if (err) return err;
+  const dim3 grid(B * H, (S + BQ - 1) / BQ);
+  return launch(fwd_kernel<D>, grid, THREADS, Smem<D>::LAUNCH, stream, map_q,
+                map_k, map_v, static_cast<bf16*>(o), static_cast<float*>(lse),
+                H, KV, S, Sk, scale * LOG2E, causal);
 }
 
-}  // namespace flash
+}  // namespace fwd
 
-// Plain C entry for ctypes. Returns a cudaError_t value (0 = launched).
+// Plain C entry for ctypes. Returns 0 when launched, else a cudaError_t
+// value (or hopper::TMAP_ERROR + CUresult when a tensor map is refused).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
                          void* lse, int B, int H, int KV, int S, int Sk, int D,
                          float scale, int causal, void* stream) {
   if (D == 128) {
-    return flash::run<128>(q, k, v, o, lse, B, H, KV, S, Sk, scale, causal,
-                           stream);
+    return fwd::run<128>(q, k, v, o, lse, B, H, KV, S, Sk, scale, causal,
+                         stream);
   }
   if (D == 64) {
-    return flash::run<64>(q, k, v, o, lse, B, H, KV, S, Sk, scale, causal,
-                          stream);
+    return fwd::run<64>(q, k, v, o, lse, B, H, KV, S, Sk, scale, causal,
+                        stream);
   }
   return int(cudaErrorInvalidValue);
 }

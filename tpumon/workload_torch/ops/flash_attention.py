@@ -23,8 +23,10 @@ kernels are held against on the card. The Δ pre-pass (rowsum(dO·O) minus
 the lse cotangent) is plain torch, as XLA fused it outside Pallas.
 
 The TPU-only knobs of the reference (``interpret``, ``resident``,
-``block_q``/``block_k`` and its tuned tile tables) are not ported: the
-kernels use one 64×64 tiling.
+``block_q``/``block_k`` and its tuned tile tables) are not ported: each
+kernel fixes its own tiles for Hopper (``flash_fwd``: 128 q rows by 128
+k rows; ``flash_dkv``: 128 k rows by 32 or 64 q rows; ``flash_dq``: 64
+by 64), and its source says why.
 """
 
 from __future__ import annotations
@@ -177,7 +179,10 @@ def _launch(name: str, device: torch.device, *args) -> None:
     with torch.cuda.device(device):
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
+        raise RuntimeError(
+            f"{name} launch failed: error {err} (a cudaError_t, or 10000 + "
+            "the CUresult of a refused TMA tensor map)"
+        )
     launches[name] += 1
 
 
