@@ -10,7 +10,8 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
             name and power limit, nvcc --version.
 2. build    build the three flash kernels from ops/csrc/*.cu and print
             the build seconds and ptxas' register/shared-memory report;
-            fails on any spilled register or ignored setmaxnreg.
+            fails on any spilled register, ignored setmaxnreg or
+            serialized wgmma (ptxas' "(C7512)"/"(C7520)" lines).
 3. kernels  each kernel against its plain PyTorch version on the card, at
             the main path's attention shape (medium microbatch: B=2,
             S=4096, H=16, KV=4, D=128, causal), at non-causal Sk != S and
@@ -29,6 +30,13 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
             must equal the counts the run implies); the metrics page is
             scraped while the run is live and parsed with the lifecycle
             probe; losses must be finite.
+5. profile  the same harness.main argv for 3 steps, without --serve and
+            --phase-stats, with the timed steps under torch.profiler (CUDA
+            activity): one JSON line with the 15 device kernels that take
+            the most time per step, the three flash kernels' share of the
+            step, and the device's idle share over the profiled steps
+            (1 - union of device-activity intervals / wall time). It
+            measures only; a failure in it fails the run.
 
 Then it prints the nvidia-smi line, one {"kernels": [...]} JSON line and,
 as the last line, {"ok": true, "device": {...}}.
@@ -82,7 +90,7 @@ CASES = [
     ("mha", 2, 2048, 2048, 8, 8, 128, True),
 ]
 
-#: Limits: O and lse max-abs; dQ/dK/dV relative L2 (bf16 WMMA products
+#: Limits: O and lse max-abs; dQ/dK/dV relative L2 (bf16 wgmma products
 #: with f32 accumulation against dense f32 math). O carries bf16 output
 #: rounding (values near 1 round by up to 2^-8); lse is f32 throughout;
 #: the gradients round P and dS to bf16 (about 2.6e-3 relative L2 on an
@@ -95,6 +103,26 @@ MAIN_ARGV = [
     "--loss-chunk", "1024", "--steps", "10", "--stats-every", "5",
     "--phase-stats", "--serve",
 ]
+
+#: Steps the profile phase traces (after the harness's warm-up step).
+PROFILE_STEPS = 3
+
+#: Each flash wrapper's device kernel, as its C++ name in ops/csrc appears
+#: in a profiler trace.
+KERNEL_SYMBOLS = {"flash_fwd": "fwd::fwd_kernel", "flash_dq": "dq::dq_kernel",
+                  "flash_dkv": "dkv::dkv_kernel"}
+
+
+def kernel_class(name: str) -> str:
+    """The profile's coarse split of device time: the flash kernels,
+    cuBLAS matrix products, aten's elementwise and reduction kernels."""
+    if any(symbol in name for symbol in KERNEL_SYMBOLS.values()):
+        return "flash"
+    if "nvjet" in name or "gemm" in name.lower() or "xmma" in name:
+        return "matmul"
+    if "elementwise" in name or "reduce_kernel" in name:
+        return "elementwise"
+    return "other"
 
 
 def fail(msg: str) -> None:
@@ -137,7 +165,7 @@ def phase_env(torch) -> None:
 
 def phase_build() -> None:
     """Build every kernel and fail if ptxas reports spilled registers in
-    any instantiation, or ignored a setmaxnreg."""
+    any instantiation, ignored a setmaxnreg or serialized a wgmma."""
     from tpumon.workload_torch.ops import _build
 
     t0 = time.perf_counter()
@@ -152,7 +180,11 @@ def phase_build() -> None:
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
             if spill and (int(spill.group(1)) or int(spill.group(2))):
                 bad.append(f"{name}: {line.strip()}")
-            if "setmaxnreg ignored" in line:
+            # "(C7512) ... wgmma.mma_async instructions are serialized"
+            # (or C7520, the same loss from another cause): a wgmma kernel
+            # lost its pipelining.
+            if any(s in line for s in ("setmaxnreg ignored", "(C7512)",
+                                       "instructions are serialized")):
                 bad.append(f"{name}: {line.strip()}")
     if bad:
         fail("ptxas: " + "; ".join(bad))
@@ -437,9 +469,111 @@ def phase_main(torch) -> dict:
     return result
 
 
+def profile_summary(spans, wall_s: float, steps: int, top: int = 15) -> dict:
+    """Per-step breakdown of a trace. ``spans`` are (name, start_us, end_us)
+    of every device activity in ``steps`` steps that took ``wall_s`` on the
+    host's clock; the idle share is 1 - (union of the spans / wall)."""
+    per_name: dict[str, list] = {}
+    busy_us, run_start, run_end = 0.0, None, None
+    for name, start, end in sorted(spans, key=lambda s: s[1]):
+        entry = per_name.setdefault(name, [0, 0.0])
+        entry[0] += 1
+        entry[1] += end - start
+        if run_end is None or start > run_end:
+            if run_end is not None:
+                busy_us += run_end - run_start
+            run_start, run_end = start, end
+        else:
+            run_end = max(run_end, end)
+    if run_end is not None:
+        busy_us += run_end - run_start
+    step_ms = wall_s * 1e3 / steps
+    flash_ms = {
+        kernel: sum(t for name, (_, t) in per_name.items() if symbol in name)
+        / 1e3 / steps
+        for kernel, symbol in KERNEL_SYMBOLS.items()
+    }
+    by_class: dict[str, float] = {}
+    for name, (_, t) in per_name.items():
+        cls = kernel_class(name)
+        by_class[cls] = by_class.get(cls, 0.0) + t / 1e3 / steps
+    ranked = sorted(per_name.items(), key=lambda item: -item[1][1])[:top]
+    return {
+        "steps": steps, "step_ms": step_ms,
+        "device_busy_ms_per_step": busy_us / 1e3 / steps,
+        "idle_share": 1.0 - busy_us / (wall_s * 1e6),
+        "ms_per_step_by_class": by_class,
+        "top_kernels": [{"name": name[:200], "calls_per_step": calls / steps,
+                         "ms_per_step": t / 1e3 / steps}
+                        for name, (calls, t) in ranked],
+        "flash_ms_per_step": flash_ms,
+        "flash_share_of_step": sum(flash_ms.values()) / step_ms,
+    }
+
+
+def phase_profile(torch) -> dict:
+    """Trace the timed steps of the main path's argv (3 steps, no serve
+    page, no phase probe). The trace brackets the timed steps: the train
+    step the harness builds is wrapped to synchronise and start the
+    profiler before the first timed step, and to synchronise and stop it
+    after the last; the steps themselves run unchanged."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpumon.workload_torch import harness
+
+    argv = [a for a in MAIN_ARGV if a not in ("--phase-stats", "--serve")]
+    argv[argv.index("--steps") + 1] = str(PROFILE_STEPS)
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    make_train_step = harness.make_train_step
+    calls = 0
+    window: dict[str, float] = {}
+
+    def traced_make_train_step(*args, **kwargs):
+        step = make_train_step(*args, **kwargs)
+
+        def traced_step(tokens):
+            nonlocal calls
+            calls += 1
+            if calls == 2:  # the first step after the warm-up
+                torch.cuda.synchronize()
+                prof.start()
+                window["t0"] = time.perf_counter()
+            out = step(tokens)
+            if calls == 1 + PROFILE_STEPS:
+                torch.cuda.synchronize()
+                window["t1"] = time.perf_counter()
+                prof.stop()
+            return out
+
+        return traced_step
+
+    harness.make_train_step = traced_make_train_step
+    try:
+        rc = harness.main(argv)
+    finally:
+        harness.make_train_step = make_train_step
+    if rc != 0:
+        fail(f"profile: harness.main returned {rc}")
+    if "t1" not in window:
+        fail(f"profile: the harness ran {calls} steps, not 1 + {PROFILE_STEPS}")
+    spans = [(e.name, e.time_range.start, e.time_range.end)
+             for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not spans:
+        fail("profile: the trace holds no device activity")
+    result = {"phase": "profile", "argv": argv,
+              **profile_summary(spans, window["t1"] - window["t0"],
+                                PROFILE_STEPS)}
+    missing = [k for k, ms in result["flash_ms_per_step"].items() if ms <= 0]
+    if missing:
+        fail(f"profile: no device time for {missing} in the trace")
+    emit(result)
+    return result
+
+
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="env,build,kernels,main")
+    parser.add_argument("--phases", default="env,build,kernels,main,profile")
     parser.add_argument("--reps", type=int, default=10,
                         help="timed runs per kernel (median reported)")
     parser.add_argument("--seed", type=int, default=0)
@@ -462,6 +596,8 @@ def main(argv: list[str] | None = None) -> int:
         phase_build()
     kernels = phase_kernels(torch, args.reps, args.seed) if "kernels" in phases else {}
     main_run = phase_main(torch) if "main" in phases else None
+    if "profile" in phases:
+        phase_profile(torch)
     print(f"total: {time.perf_counter() - t0:.1f} s", flush=True)
 
     line = []

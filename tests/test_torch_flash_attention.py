@@ -162,6 +162,10 @@ def _card_inputs(B, S, Sk, H, KV, D):
         (1, 48, 80, 4, 1, 128, False),     # MQA, below one tile, Sk != S
         (2, 384, 384, 4, 4, 128, True),    # MHA
         (1, 300, 200, 8, 1, 64, False),    # MQA, Sk < S
+        (1, 65, 65, 4, 2, 64, True),       # one past a 64-row k tile
+        (2, 65, 65, 4, 1, 128, True),
+        (2, 129, 129, 4, 2, 64, True),     # one past a 128-row q-block
+        (1, 129, 129, 8, 2, 128, True),
     ],
 )
 def test_kernels_match_plain_versions_on_card(B, S, Sk, H, KV, D, causal):
@@ -185,15 +189,19 @@ def test_kernels_match_plain_versions_on_card(B, S, Sk, H, KV, D, causal):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["flash_dq", "flash_dkv"])
 @pytest.mark.parametrize("D", [64, 128])
-def test_dkv_kernel_is_deterministic_on_card(D):
-    """dK and dV are sums kept on chip and written once (no atomics), so
-    two calls on the same inputs agree bit for bit."""
+def test_backward_kernels_are_deterministic_on_card(kernel, D):
+    """dQ, dK and dV are sums kept on chip and written once (no atomics),
+    so two calls on the same inputs agree bit for bit."""
     q, k, v, do = _card_inputs(1, 640, 640, 8, 2, D)
     _, lse = fa.flash_fwd(q, k, v, True)
     o, _ = fa.flash_fwd_reference(q, k, v, True)
     delta = fa.flash_delta(o, do)
-    first = fa.flash_dkv(q, k, v, do, lse, delta, True)
-    second = fa.flash_dkv(q, k, v, do, lse, delta, True)
+    fn = getattr(fa, kernel)
+    first = fn(q, k, v, do, lse, delta, True)
+    second = fn(q, k, v, do, lse, delta, True)
+    if kernel == "flash_dq":
+        first, second = (first,), (second,)
     for a, b in zip(first, second):
         assert torch.equal(a, b)

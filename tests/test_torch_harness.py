@@ -8,6 +8,7 @@ final gradient norm at the dryrun's tolerances: loss |Δ| ≤ 5e-3, grad-norm
 relative ≤ 0.02 (__graft_entry__.py), bf16 on both sides.
 """
 
+import importlib.util
 import os
 import subprocess
 import sys
@@ -195,3 +196,33 @@ def test_chip_smoke_refuses_to_run_without_a_card():
     )
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_chip_smoke_profile_summary():
+    """The profile phase's arithmetic on a hand-made trace of 2 steps:
+    overlapping or touching spans count once toward the busy time, and
+    the flash kernels are found by their C++ names."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    spans = [
+        ("void fwd::fwd_kernel<128>(CUtensorMap_st)", 0.0, 100.0),
+        ("void dq::dq_kernel<128>(CUtensorMap_st)", 50.0, 150.0),
+        ("gemm", 300.0, 400.0),
+        ("void dkv::dkv_kernel<128, 1>(CUtensorMap_st)", 400.0, 500.0),
+        ("gemm", 900.0, 1000.0),
+    ]
+    out = chip_smoke.profile_summary(spans, wall_s=2e-3, steps=2, top=2)
+    assert out["step_ms"] == pytest.approx(1.0)
+    assert out["device_busy_ms_per_step"] == pytest.approx(0.225)
+    assert out["idle_share"] == pytest.approx(0.775)
+    assert out["flash_ms_per_step"] == pytest.approx(
+        {"flash_fwd": 0.05, "flash_dq": 0.05, "flash_dkv": 0.05})
+    assert out["flash_share_of_step"] == pytest.approx(0.15)
+    assert out["ms_per_step_by_class"] == pytest.approx(
+        {"flash": 0.15, "matmul": 0.1})
+    assert [k["name"] for k in out["top_kernels"]] == [
+        "gemm", "void fwd::fwd_kernel<128>(CUtensorMap_st)"]
+    assert out["top_kernels"][0]["calls_per_step"] == 1.0
+    assert out["top_kernels"][0]["ms_per_step"] == pytest.approx(0.1)

@@ -1,136 +1,304 @@
-// flash_dq: the attention backward's dQ. For each q row it recomputes
-// P = exp(s * scale - lse) from the forward's lse, forms dP = dO v^T and
-// dS = P * (dP - delta) * scale, and accumulates dQ = dS k.
+// flash_dq: the attention backward's dQ, on Hopper's wgmma with the
+// accumulators in registers, fed by TMA through a ring of K/V tiles. For
+// each q row it recomputes P = exp(s * scale - lse) from the forward's
+// lse, forms dP = dO v^T and dS = P * (dP - delta) * scale, and
+// accumulates dQ = dS k. delta = rowsum(dO * O) minus the lse cotangent
+// comes from the caller (plain torch, as XLA fused it outside Pallas on
+// the TPU).
 //
 // Replaces two TPU kernels of tpumon/workload/ops/flash_attention.py:
 // _dq_kernel_resident (:407) and _dq_kernel_streamed (:441), which differ
-// only in whether the K/V band fits a TPU core's scoped VMEM.
+// only in whether the K/V band fits a TPU core's scoped VMEM; here K/V
+// tiles always stream through shared memory, so one kernel covers both.
 //
-// Grid (ceil(S/64), B*H): one CTA per (batch, q-head, q-block), looping
-// over K/V tiles up to the causal bound, with dQ accumulated in f32 in
-// shared memory and written once in q's dtype. delta = rowsum(dO * O)
-// minus the lse cotangent comes from the caller (plain torch, as XLA fused
-// it outside Pallas on the TPU).
+// Bound on this card: three products, 6 * B * H * pairs * D operations
+// over the live (q, k) pairs. At the main path's shape (B=2, S=4096,
+// H=16, KV=4, D=128, causal) that is 206.2 GFLOP, 0.209 ms at 989 TFLOP/s
+// bf16, against 0.035 ms for its 118.5 MB of bytes: bound by operations.
 //
-// Bound on this card: three products per (q, k) tile pair, so tensor-core
-// operations at the training shapes. This version does not pipeline its
-// copies and keeps every product's output in shared memory.
-#include "flash_common.cuh"
+// Design (one CTA per batch, q-head and 128-row q-block; 384 threads):
+// - It is flash_fwd with one more product. Warpgroups 0 and 1 are
+//   consumers, 64 q rows each (wgmma's M), and keep their dQ accumulator
+//   (64 x D f32) in registers for the whole k loop. Per k tile they issue
+//   S = q k^T and dP = dO v^T (all four operands K-major in shared memory)
+//   as one commit group, so they wait once for both; form P and dS on the
+//   S and dP registers; pack dS to bf16 in registers, where the
+//   accumulator layout already is the A operand of the next product; and
+//   issue dQ += dS k, reading the same k tile MN-major through the trans-b
+//   flag: no copies, no shared-memory round trip.
+// - lse (times log2 e) and delta are per q row and constant over the k
+//   loop: each consumer thread reads its two rows once into registers.
+// - Warpgroup 2 is the producer: one of its threads loads the q and dO
+//   tiles once, on one barrier, and keeps K and V tiles in flight through
+//   a ring of STAGES stages with full/empty mbarriers. K and V share a
+//   stage's full barrier: waiting for V between the S and dP issues (to
+//   start S while V still arrives) made ptxas serialize every wgmma
+//   ("(C7520) ... WG.AR in divergent path": the wait is a loop).
+//   setmaxnreg moves registers inside the block: 24 for the producer's
+//   warpgroup and 240 for each consumer (24 * 128 + 240 * 256 = 168 * 384).
+// - BK = 64 k rows a stage. A consumer thread then holds dQ (D / 2), S and
+//   dP (32 each) and the packed dS (16): 144 registers at D = 128. BK = 128
+//   would hold 224, the size at which flash_dkv spilled and serialized its
+//   wgmma. Shared memory at D = 128: q and dO 64 KB, a stage 32 KB, two
+//   stages: 129 KB with the barriers, one CTA per SM (a third stage would
+//   fit in 161 KB).
+// - Causal: the k loop ends at the diagonal; only tiles that cross it (or
+//   the Sk edge) are masked; the heaviest q-blocks launch first. With
+//   BQ = 128 and BK = 64 the last k tile of a q-block lies wholly above
+//   warpgroup 0's rows: that warpgroup skips its products there but still
+//   releases the stage. The Sk edge is masked explicitly: a K row past Sk
+//   arrives as zeros, so s = 0 and P = 2^-lse, not 0.
+// - dQ is stored from registers in q's dtype, each row once (no atomics):
+//   bit-for-bit deterministic.
+//
+// What still holds it above its bound: within a warpgroup each k tile is
+// serial (S and dP, then the exp and dS math, then dQ += dS k) with
+// nothing of its own in flight; the other warpgroup's products are the
+// only overlap.
+#include "hopper_common.cuh"
 
-namespace flash {
+namespace dq {
+
+using namespace hopper;
+
+constexpr int BQ = 128;  // q rows per CTA: two consumer warpgroups of 64
+constexpr int BK = 64;   // k rows per ring stage
+constexpr int STAGES = 2;
+constexpr int THREADS = 384;  // two consumer warpgroups + the producer's
+constexpr int CONSUMER_REGS = 240;
+constexpr int PRODUCER_REGS = 24;
+constexpr int CONSUMER_WARPS = 8;
 
 template <int D>
-__global__ void __launch_bounds__(THREADS)
-    dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-              const bf16* __restrict__ v, const bf16* __restrict__ dout,
+struct Smem {
+  static constexpr int Q_BYTES = BQ * D * 2;
+  static constexpr int KV_BYTES = BK * D * 2;
+  static constexpr int DO_OFF = Q_BYTES;
+  static constexpr int K_OFF = 2 * Q_BYTES;
+  static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
+  static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;
+  static constexpr int BYTES = BAR_OFF + (1 + 2 * STAGES) * 8;
+  static constexpr size_t LAUNCH = size_t(BYTES) + 1024;  // 1 KB alignment
+  static_assert(Q_BYTES % 1024 == 0 && KV_BYTES % 1024 == 0, "1 KB tiles");
+  static_assert(LAUNCH <= 232448, "over the 227 KB a block may use");
+};
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+    dq_kernel(const __grid_constant__ CUtensorMap map_q,
+              const __grid_constant__ CUtensorMap map_k,
+              const __grid_constant__ CUtensorMap map_v,
+              const __grid_constant__ CUtensorMap map_do,
               const float* __restrict__ lse, const float* __restrict__ delta,
-              bf16* __restrict__ dq, int H, int KV, int S, int Sk, float scale,
-              int causal) {
-  using L = Ld<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  Carve cv{smem};
-  bf16* sQ = cv.take<bf16>(L::tile_h);
-  bf16* sDO = cv.take<bf16>(L::tile_h);
-  bf16* sK = cv.take<bf16>(L::tile_h);
-  bf16* sV = cv.take<bf16>(L::tile_h);
-  float* sS = cv.take<float>(L::tile_s);
-  float* sDP = cv.take<float>(L::tile_s);
-  bf16* sDS = cv.take<bf16>(L::tile_p);
-  float* sAcc = cv.take<float>(L::tile_a);
-  float* sLse = cv.take<float>(BQ * 4);
-  float* sDelta = cv.take<float>(BQ * 4);
+              bf16* __restrict__ dq_out, int H, int KV, int S, int Sk,
+              float scale, int causal) {
+  using L = Smem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = smem_base_1k(smem_raw);
+  unsigned char* sQ = sm;
+  unsigned char* sDO = sm + L::DO_OFF;
+  unsigned char* sK = sm + L::K_OFF;
+  unsigned char* sV = sm + L::V_OFF;
+  uint64_t* full_q = reinterpret_cast<uint64_t*>(sm + L::BAR_OFF);
+  uint64_t* full = full_q + 1;
+  uint64_t* empty = full + STAGES;
 
-  const int q0 = blockIdx.x * BQ;
-  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
   const int kvh = (h * KV) / H;
-  const int64_t q_stride = int64_t(H) * D, kv_stride = int64_t(KV) * D;
-  const int64_t q_off = int64_t(b) * S * q_stride + int64_t(h) * D;
-  const int64_t kv_off = int64_t(b) * Sk * kv_stride + int64_t(kvh) * D;
-  const int64_t row_off = (int64_t(b) * H + h) * S;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int r0 = warp * 16;
-
-  load_tile<BQ, D>(sQ, q + q_off, q0, S, q_stride);
-  load_tile<BQ, D>(sDO, dout + q_off, q0, S, q_stride);
-  load_rows<BQ>(sLse, lse + row_off, q0, S);
-  load_rows<BQ>(sDelta, delta + row_off, q0, S);
-  for (int i = threadIdx.x; i < BQ * L::A; i += THREADS) sAcc[i] = 0.0f;
-
+  // Under causal the last q-blocks see the most keys: launch them first.
+  const int qb = causal ? int(gridDim.y) - 1 - int(blockIdx.y) : blockIdx.y;
+  const int q0 = qb * BQ;
   int n_kb = (Sk + BK - 1) / BK;
   if (causal) n_kb = min(n_kb, (q0 + BQ + BK - 1) / BK);
+  const int wg = threadIdx.x / 128;
 
-  for (int kb = 0; kb < n_kb; ++kb) {
-    const int k0 = kb * BK;
-    __syncthreads();
-    load_tile<BK, D>(sK, k + kv_off, k0, Sk, kv_stride);
-    load_tile<BK, D>(sV, v + kv_off, k0, Sk, kv_stride);
-    __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMER_WARPS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-    warp_gemm<BK / 16, D, wmma::row_major, wmma::col_major, false>(
-        sS + r0 * L::S, L::S, sQ + r0 * L::H, L::H, sK, L::H);
-    warp_gemm<BK / 16, D, wmma::row_major, wmma::col_major, false>(
-        sDP + r0 * L::S, L::S, sDO + r0 * L::H, L::H, sV, L::H);
-    __syncwarp();
-
-    for (int rr = 0; rr < 16; ++rr) {
-      const int r = r0 + rr, row = q0 + r;
-      const float row_lse = sLse[r], row_delta = sDelta[r];
-#pragma unroll
-      for (int j = 0; j < BK / 32; ++j) {
-        const int c = lane + 32 * j, col = k0 + c;
-        const bool live = row < S && col < Sk && (!causal || col <= row);
-        const float p = live ? expf(sS[r * L::S + c] * scale - row_lse) : 0.0f;
-        const float ds = p * (sDP[r * L::S + c] - row_delta) * scale;
-        sDS[r * L::P + c] = __float2bfloat16(ds);
+  if (wg == 2) {
+    // ---- producer: one thread issues every copy ----
+    reg_dealloc<PRODUCER_REGS>();
+    if (threadIdx.x == 256) {
+      prefetch_map(&map_q);
+      prefetch_map(&map_do);
+      prefetch_map(&map_k);
+      prefetch_map(&map_v);
+      mbar_arrive_tx(full_q, 2 * L::Q_BYTES);
+      tma_load_tile<D>(sQ, BQ, &map_q, full_q, h, q0, b);
+      tma_load_tile<D>(sDO, BQ, &map_do, full_q, h, q0, b);
+      for (int kb = 0; kb < n_kb; ++kb) {
+        const int s = kb % STAGES;
+        mbar_wait(&empty[s], ((kb / STAGES) & 1) ^ 1);
+        mbar_arrive_tx(&full[s], 2 * L::KV_BYTES);
+        tma_load_tile<D>(sK + s * L::KV_BYTES, BK, &map_k, &full[s], kvh,
+                         kb * BK, b);
+        tma_load_tile<D>(sV + s * L::KV_BYTES, BK, &map_v, &full[s], kvh,
+                         kb * BK, b);
       }
     }
-    __syncwarp();
+  } else {
+    // ---- consumers: 64 q rows per warpgroup ----
+    reg_alloc<CONSUMER_REGS>();
+    const int t = threadIdx.x % 128, lane = t % 32;
+    const int row0 = q0 + wg * 64 + (t / 32) * 16 + lane / 4;  // and +8
+    const int cq = (lane % 4) * 2;
+    const int wg_row_min = q0 + wg * 64;
+    const unsigned char* sQw = sQ + wg * 64 * ROW_BYTES;
+    const unsigned char* sDOw = sDO + wg * 64 * ROW_BYTES;
+    const float scale_log2 = scale * LOG2E;
 
-    warp_gemm<D / 16, BK, wmma::row_major, wmma::row_major, true>(
-        sAcc + r0 * L::A, L::A, sDS + r0 * L::P, L::P, sK, L::H);
-  }
-  __syncwarp();
+    // This thread's two rows of lse (in the log2 domain) and delta.
+    float lse2[2], del[2];
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int row = row0 + 8 * hr;
+      const int64_t at = (int64_t(b) * H + h) * S + row;
+      lse2[hr] = row < S ? lse[at] * LOG2E : 0.0f;
+      del[hr] = row < S ? delta[at] : 0.0f;
+    }
 
-  for (int rr = 0; rr < 16; ++rr) {
-    const int r = r0 + rr, row = q0 + r;
-    if (row >= S) break;
-    bf16* out = dq + (int64_t(b) * S + row) * q_stride + int64_t(h) * D;
-    for (int c = lane; c < D; c += 32) {
-      out[c] = __float2bfloat16(sAcc[r * L::A + c]);
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+
+    mbar_wait(full_q, 0);
+    for (int kb = 0; kb < n_kb; ++kb) {
+      const int s = kb % STAGES;
+      const uint32_t parity = (kb / STAGES) & 1;
+      const int k0 = kb * BK;
+      const unsigned char* sKs = sK + s * L::KV_BYTES;
+      const unsigned char* sVs = sV + s * L::KV_BYTES;
+      // The stage is released only after it was filled: an arrival before
+      // would count toward the stage's previous fill.
+      mbar_wait(&full[s], parity);
+      // Under causal a tile wholly above this warpgroup's rows is dead.
+      if (!(causal && k0 > wg_row_min + 63)) {
+        // S = q k^T and dP = dO v^T: the head dim is the contraction.
+        // Zeroed although the first k slice overwrites them: left
+        // undefined, ptxas may give both the same registers.
+        float sc[BK / 2], dp[BK / 2];
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i) {
+          sc[i] = 0.0f;
+          dp[i] = 0.0f;
+        }
+        const uint64_t d_q = opaque(desc_sw128(sQw, 0, 1024));
+        const uint64_t d_k = opaque(desc_sw128(sKs, 0, 1024));
+        const uint64_t d_do = opaque(desc_sw128(sDOw, 0, 1024));
+        const uint64_t d_v = opaque(desc_sw128(sVs, 0, 1024));
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          // k16 slice kk: box kk / 4, then 32 bytes (2 units of 16) a slice.
+          const int box = kk / 4, slice = (kk % 4) * 2;
+          wgmma_ss<BK>(sc, d_q + box * (BQ * ROW_BYTES / 16) + slice,
+                       d_k + box * (BK * ROW_BYTES / 16) + slice, kk > 0);
+        }
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const int box = kk / 4, slice = (kk % 4) * 2;
+          wgmma_ss<BK>(dp, d_do + box * (BQ * ROW_BYTES / 16) + slice,
+                       d_v + box * (BK * ROW_BYTES / 16) + slice, kk > 0);
+        }
+        wg_commit();
+        wg_wait<0>();
+        fence_regs(sc);
+        fence_regs(dp);
+
+        // P = exp2(s * scale log2 e - lse log2 e); dS = P (dP - delta)
+        // scale, packed to bf16 in the A-operand layout of dQ += dS k.
+        const bool masked =
+            k0 + BK > Sk || (causal && k0 + BK - 1 > wg_row_min);
+        uint32_t da[BK / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) {
+          float ds[8];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            const int idx = 8 * kk + e, hr = (e % 4) / 2;
+            float p = ex2(sc[idx] * scale_log2 - lse2[hr]);
+            if (masked) {
+              const int col = k0 + 8 * (idx / 4) + cq + (e % 2);
+              const int row = row0 + 8 * hr;
+              if (col >= Sk || (causal && col > row)) p = 0.0f;
+            }
+            ds[e] = p * (dp[idx] - del[hr]) * scale;
+          }
+#pragma unroll
+          for (int i = 0; i < 4; ++i) da[kk][i] = pack_bf16(ds[2 * i], ds[2 * i + 1]);
+        }
+
+        // dQ += dS k: k is [BK, D] with D contiguous, read MN-major.
+        const uint64_t d_kt = opaque(desc_sw128(sKs, BK * ROW_BYTES, 1024));
+        wg_fence();
+        fence_regs(acc);
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) {
+          wgmma_rs<D>(acc, da[kk], d_kt + kk * 16 * ROW_BYTES / 16, 1);
+        }
+        wg_commit();
+        wg_wait<0>();
+        fence_regs(acc);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
+
+    // Epilogue: dQ in q's dtype, each row written once.
+    const int64_t q_stride = int64_t(H) * D;
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int row = row0 + 8 * hr;
+      if (row >= S) continue;
+      bf16* out = dq_out + (int64_t(b) * S + row) * q_stride + int64_t(h) * D + cq;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<uint32_t*>(out + 8 * j) =
+            pack_bf16(acc[4 * j + 2 * hr], acc[4 * j + 2 * hr + 1]);
+      }
     }
   }
 }
 
 template <int D>
 int run(const void* q, const void* k, const void* v, const void* dout,
-        const void* lse, const void* delta, void* dq, int B, int H, int KV,
-        int S, int Sk, float scale, int causal, void* stream) {
-  using L = Ld<D>;
-  const size_t smem = 4 * L::tile_h + 2 * L::tile_s + L::tile_p + L::tile_a +
-                      2 * BQ * 4;
-  const dim3 grid((S + BQ - 1) / BQ, B * H);
-  return launch(dq_kernel<D>, grid, smem, stream,
-                static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-                static_cast<const float*>(lse),
-                static_cast<const float*>(delta), static_cast<bf16*>(dq), H,
+        const void* lse, const void* delta, void* dq_out, int B, int H,
+        int KV, int S, int Sk, float scale, int causal, void* stream) {
+  CUtensorMap map_q, map_k, map_v, map_do;
+  int err = make_map(&map_q, q, B, S, H, D, BQ);
+  if (!err) err = make_map(&map_do, dout, B, S, H, D, BQ);
+  if (!err) err = make_map(&map_k, k, B, Sk, KV, D, BK);
+  if (!err) err = make_map(&map_v, v, B, Sk, KV, D, BK);
+  if (err) return err;
+  const dim3 grid(B * H, (S + BQ - 1) / BQ);
+  return launch(dq_kernel<D>, grid, THREADS, Smem<D>::LAUNCH, stream, map_q,
+                map_k, map_v, map_do, static_cast<const float*>(lse),
+                static_cast<const float*>(delta), static_cast<bf16*>(dq_out), H,
                 KV, S, Sk, scale, causal);
 }
 
-}  // namespace flash
+}  // namespace dq
 
-// Plain C entry for ctypes. Returns a cudaError_t value (0 = launched).
+// Plain C entry for ctypes. Returns 0 when launched, else a cudaError_t
+// value (or hopper::TMAP_ERROR + CUresult when a tensor map is refused).
 extern "C" int flash_dq(const void* q, const void* k, const void* v,
                         const void* dout, const void* lse, const void* delta,
                         void* dq, int B, int H, int KV, int S, int Sk, int D,
                         float scale, int causal, void* stream) {
   if (D == 128) {
-    return flash::run<128>(q, k, v, dout, lse, delta, dq, B, H, KV, S, Sk,
-                           scale, causal, stream);
+    return dq::run<128>(q, k, v, dout, lse, delta, dq, B, H, KV, S, Sk, scale,
+                        causal, stream);
   }
   if (D == 64) {
-    return flash::run<64>(q, k, v, dout, lse, delta, dq, B, H, KV, S, Sk,
-                          scale, causal, stream);
+    return dq::run<64>(q, k, v, dout, lse, delta, dq, B, H, KV, S, Sk, scale,
+                       causal, stream);
   }
   return int(cudaErrorInvalidValue);
 }

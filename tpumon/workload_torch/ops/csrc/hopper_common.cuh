@@ -1,6 +1,7 @@
-// Hopper building blocks of flash_fwd.cu and flash_dkv.cu: TMA tensor maps
-// and loads, mbarriers, wgmma descriptors and issue, register moves
-// between the wgmma accumulator and A-operand layouts, and setmaxnreg.
+// Hopper building blocks of flash_fwd.cu, flash_dq.cu and flash_dkv.cu:
+// TMA tensor maps and loads, mbarriers, wgmma descriptors and issue,
+// register moves between the wgmma accumulator and A-operand layouts, and
+// setmaxnreg.
 //
 // Everything here is hand PTX for sm_90a; no CUTLASS/CuTe headers, so a
 // kernel builds in seconds.

@@ -25,8 +25,8 @@ the lse cotangent) is plain torch, as XLA fused it outside Pallas.
 The TPU-only knobs of the reference (``interpret``, ``resident``,
 ``block_q``/``block_k`` and its tuned tile tables) are not ported: each
 kernel fixes its own tiles for Hopper (``flash_fwd``: 128 q rows by 128
-k rows; ``flash_dkv``: 128 k rows by 32 or 64 q rows; ``flash_dq``: 64
-by 64), and its source says why.
+k rows; ``flash_dq``: 128 q rows by 64 k rows; ``flash_dkv``: 128 k rows
+by 32 or 64 q rows), and its source says why.
 """
 
 from __future__ import annotations
