@@ -3,40 +3,59 @@
 
     python3 chip_smoke.py                      # every phase, one card
     python3 chip_smoke.py --phases env,build,kernels --reps 3
+    python3 chip_smoke.py --phases env,build,moe,checkpoint
 
 Phases (any failure exits non-zero; no phase's exception is swallowed):
 
-1. env      torch/CUDA versions, device name and capability, nvidia-smi's
-            name and power limit, nvcc --version.
-2. build    build the three flash kernels from ops/csrc/*.cu and print
-            the build seconds and ptxas' register/shared-memory report;
-            fails on any spilled register, ignored setmaxnreg or
-            serialized wgmma (ptxas' "(C7512)"/"(C7520)" lines).
-3. kernels  each kernel against its plain PyTorch version on the card, at
-            the main path's attention shape (medium microbatch: B=2,
-            S=4096, H=16, KV=4, D=128, causal), at non-causal Sk != S and
-            ragged D=64 cases, at a long causal case (S=16384) where the
-            JAX package takes its streamed kernels, and at the tile edges
-            (S=4000, S=48, MHA). Prints one JSON line per kernel and case:
-            errors beside their limits, the kernel's time (CUDA events,
-            median), the plain version's, the library call's where one
-            computes the same function, and the bound (the least time for
-            the same work at the card's peaks); then one line per case for
-            the backward as a whole against SDPA's backward.
-4. main     tpumon.workload_torch.harness.main on the medium preset
-            (--seq 4096 --batch 8 --grad-accum 4 --attn flash --remat
-            --loss-chunk 1024 --steps 10 --phase-stats --serve) with the
-            launch counters zeroed just before and read just after (they
-            must equal the counts the run implies); the metrics page is
-            scraped while the run is live and parsed with the lifecycle
-            probe; losses must be finite.
-5. profile  the same harness.main argv for 3 steps, without --serve and
-            --phase-stats, with the timed steps under torch.profiler (CUDA
-            activity): one JSON line with the 15 device kernels that take
-            the most time per step, the three flash kernels' share of the
-            step, and the device's idle share over the profiled steps
-            (1 - union of device-activity intervals / wall time). It
-            measures only; a failure in it fails the run.
+1. env        torch/CUDA versions, device name and capability, nvidia-smi's
+              name and power limit, nvcc --version.
+2. build      build the three flash kernels from ops/csrc/*.cu and print
+              the build seconds and ptxas' register/shared-memory report;
+              fails on any spilled register, ignored setmaxnreg or
+              serialized wgmma (ptxas' "(C7512)"/"(C7520)" lines).
+3. kernels    each kernel against its plain PyTorch version on the card,
+              at the main path's attention shape (medium microbatch: B=2,
+              S=4096, H=16, KV=4, D=128, causal), at the MoE path's (B=1,
+              S=4096, H=8, KV=4, D=64, causal), at non-causal Sk != S and
+              ragged D=64 cases, at a long causal case (S=16384) where
+              the JAX package takes its streamed kernels, and at the tile
+              edges (S=4000, S=48, MHA). Prints one JSON line per kernel
+              and case: errors beside their limits, the kernel's time
+              (CUDA events, median), the plain version's, the library
+              call's where one computes the same function, and the bound
+              (the least time for the same work at the card's peaks);
+              then one line per case for the backward as a whole against
+              SDPA's backward.
+4. main       tpumon.workload_torch.harness.main on the medium preset
+              (--seq 4096 --batch 8 --grad-accum 4 --attn flash --remat
+              --loss-chunk 1024 --steps 10 --phase-stats --serve) with the
+              launch counters zeroed just before and read just after (they
+              must equal the counts the run implies); the metrics page is
+              scraped while the run is live and parsed with the lifecycle
+              probe; losses must be finite.
+5. moe        the same checks on the MoE path: --model moe --preset small
+              --seq 4096 --batch 8 --grad-accum 8 --attn flash --remat
+              --steps 10 --phase-stats --serve.
+6. checkpoint the MoE argv with --checkpoint-dir (no --serve or
+              --phase-stats): an uninterrupted 4-step run saving every 2
+              steps; a 2-step run into a second directory, then a 4-step
+              run there that resumes at step 2 (saving every step, so its
+              live page shows a save before the run ends). The resumed
+              losses must equal the uninterrupted run's at rel 1e-6 (the
+              line also says whether they are bit for bit equal), and the
+              resumed run's page must show the save and restore spans and
+              a step counter that counts on from 2.
+7. bench      tpumon.workload_torch.bench_attention.main at --batch 2
+              --heads 16 --kv-heads 4 --head-dim 128 --seq 4096; prints
+              its rows; fails if the flash row has an error.
+8. profile    the main and the MoE argv for 3 steps each, without --serve
+              and --phase-stats, with the timed steps under
+              torch.profiler (CUDA activity): one JSON line per path with
+              the 15 device kernels that take the most time per step, the
+              three flash kernels' share of the step, and the device's
+              idle share over the profiled steps (1 - union of
+              device-activity intervals / wall time). It measures only; a
+              failure in it fails the run.
 
 Then it prints the nvidia-smi line, one {"kernels": [...]} JSON line and,
 as the last line, {"ok": true, "device": {...}}.
@@ -45,18 +64,25 @@ as the last line, {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import gc
+import io
 import json
 import logging
 import math
+import os
 import re
+import shutil
 import socket
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
 
+ROOT = os.path.dirname(os.path.abspath(__file__))
 REPO_KERNEL = "tpumon/workload/ops/flash_attention.py"
 
 #: Hopper kernel → (source, TPU kernels it replaces as file:line).
@@ -76,12 +102,14 @@ KERNELS = {
 }
 
 #: (name, B, S, Sk, H, KV, D, causal). "main" is the medium microbatch of
-#: the main path; "long" is in the range where the JAX package streams;
-#: the last three hit the tile edges of the wgmma kernels (128-row q- and
-#: k-blocks, 64-row q tiles in dK/dV): S not a multiple of 128, S below
-#: one tile, and MHA (KV = H).
+#: the main path and "moe" the moe-small microbatch of the MoE path;
+#: "long" is in the range where the JAX package streams; the last three
+#: hit the tile edges of the wgmma kernels (128-row q- and k-blocks,
+#: 64-row q tiles in dK/dV): S not a multiple of 128, S below one tile,
+#: and MHA (KV = H).
 CASES = [
     ("main", 2, 4096, 4096, 16, 4, 128, True),
+    ("moe", 1, 4096, 4096, 8, 4, 64, True),
     ("rect", 1, 2000, 3000, 16, 4, 128, False),
     ("ragged64", 2, 1000, 1000, 8, 4, 64, True),
     ("long", 1, 16384, 16384, 4, 1, 128, True),
@@ -97,12 +125,25 @@ CASES = [
 #: H100, so 1e-2 leaves a margin of ~4x).
 LIMITS = {"o": 2e-2, "lse": 1e-4, "grad_rel_l2": 1e-2}
 
-MAIN_ARGV = [
+#: The model and shape of each path (the repo's on-chip configurations,
+#: BASELINE.md), then the run: 10 steps after the warm-up, windows of 5
+#: steps (two phase probes), and the serve page.
+DENSE_TRAIN = [
     "--preset", "medium", "--seq", "4096", "--batch", "8",
-    "--grad-accum", "4", "--attn", "flash", "--remat",
-    "--loss-chunk", "1024", "--steps", "10", "--stats-every", "5",
-    "--phase-stats", "--serve",
+    "--grad-accum", "4", "--attn", "flash", "--remat", "--loss-chunk", "1024",
 ]
+MOE_TRAIN = [
+    "--model", "moe", "--preset", "small", "--seq", "4096", "--batch", "8",
+    "--grad-accum", "8", "--attn", "flash", "--remat",
+]
+STEPS, STATS_EVERY = 10, 5
+RUN_ARGS = ["--steps", str(STEPS), "--stats-every", str(STATS_EVERY),
+            "--phase-stats", "--serve"]
+MAIN_ARGV = DENSE_TRAIN + RUN_ARGS
+MOE_ARGV = MOE_TRAIN + RUN_ARGS
+
+BENCH_ARGV = ["--batch", "2", "--heads", "16", "--kv-heads", "4",
+              "--head-dim", "128", "--seq", "4096"]
 
 #: Steps the profile phase traces (after the harness's warm-up step).
 PROFILE_STEPS = 3
@@ -375,57 +416,118 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def phase_main(torch) -> dict:
-    from tpumon.lifecycle.probe import step_snapshot_from_text
-    from tpumon.workload_torch import flops, harness
-    from tpumon.workload_torch.models.llama import LlamaConfig
-    from tpumon.workload_torch.ops import flash_attention as fa
+class _Scraper:
+    """Scrapes the harness's page on a free port every 0.5 s while the
+    ``with`` block runs, keeping each page that holds ``want``."""
 
-    port = _free_port()
-    url = f"http://127.0.0.1:{port}/metrics"
-    pages: list[str] = []
-    done = threading.Event()
+    def __init__(self, want: str) -> None:
+        self.port = _free_port()
+        self.want = want
+        self.pages: list[str] = []
+        self._done = threading.Event()
+        self._thread = threading.Thread(
+            target=self._loop, name="chip-smoke-scrape", daemon=True)
 
-    def scrape() -> None:
-        while not done.is_set():
+    def _loop(self) -> None:
+        url = f"http://127.0.0.1:{self.port}/metrics"
+        while not self._done.is_set():
             try:
                 with urllib.request.urlopen(url, timeout=5) as resp:
                     text = resp.read().decode()
-                if "tpu_step_duration_seconds" in text:
-                    pages.append(text)
+                if self.want in text:
+                    self.pages.append(text)
             except OSError:
                 pass  # the server is not up yet, or already closed
-            done.wait(0.5)
+            self._done.wait(0.5)
 
+    def __enter__(self) -> "_Scraper":
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._done.set()
+        self._thread.join(timeout=30)
+
+    def snapshots(self) -> list[dict]:
+        from tpumon.lifecycle.probe import step_snapshot_from_text
+
+        return [step_snapshot_from_text(p) for p in self.pages]
+
+
+@contextlib.contextmanager
+def _capture_runs(harness):
+    """Collects the RunResult of every harness.run that harness.main makes
+    inside the ``with`` block."""
+    run, results = harness.run, []
+
+    def recording_run(*args, **kwargs):
+        results.append(run(*args, **kwargs))
+        return results[-1]
+
+    harness.run = recording_run
+    try:
+        yield results
+    finally:
+        harness.run = run
+
+
+def _release(torch) -> None:
+    """Free what a finished phase left in the caching allocator."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def expected_launches(n_layers: int, grad_accum: int) -> dict:
+    """The launches a path's run implies: each layer's attention runs the
+    forward twice under --remat (the pass and its recompute) and each
+    backward kernel once, per microbatch; STEPS + 1 steps (the warm-up and
+    the timed ones) of ``grad_accum`` microbatches, plus one phase probe a
+    window on one microbatch (a forward, then a forward and backward)."""
+    steps, probes, L = STEPS + 1, STEPS // STATS_EVERY, n_layers
+    bwd = steps * grad_accum * L + probes * L
+    return {"flash_fwd": steps * grad_accum * 2 * L + probes * 3 * L,
+            "flash_dq": bwd, "flash_dkv": bwd}
+
+
+def drive_path(torch, name: str, argv: list[str]) -> dict:
+    """harness.main on one path with the launch counters zeroed just
+    before and read just after; the live page is scraped and parsed with
+    the lifecycle probe, the losses must be finite, and the counts must be
+    the ones the run implies. The model, batch, seq and grad_accum are the
+    ones ``argv`` names, read through the harness's own parser."""
+    from tpumon.workload_torch import flops, harness
+    from tpumon.workload_torch.ops import flash_attention as fa
+
+    args = harness.build_parser().parse_args(argv)
+    cfg, grad_accum = harness.model_config(args), args.grad_accum
+    batch, seq = args.batch, args.seq
     records = _LossRecords()
     log = logging.getLogger("tpumon.workload_torch.harness")
     log.addHandler(records)
-    scraper = threading.Thread(target=scrape, name="chip-smoke-scrape", daemon=True)
-    scraper.start()
-    argv = [*MAIN_ARGV, "--metrics-port", str(port)]
-    torch.cuda.reset_peak_memory_stats()
-    fa.reset_launches()
-    t0 = time.perf_counter()
-    try:
-        rc = harness.main(argv)
-    finally:
-        wall = time.perf_counter() - t0
-        counts = dict(fa.launches)
-        done.set()
-        scraper.join(timeout=30)
-        log.removeHandler(records)
+    _release(torch)
+    with _Scraper("tpu_step_duration_seconds") as scraper:
+        argv = [*argv, "--metrics-port", str(scraper.port)]
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            rc = harness.main(argv)
+        finally:
+            wall = time.perf_counter() - t0
+            counts = dict(fa.launches)
+            log.removeHandler(records)
     peak_mem = torch.cuda.max_memory_allocated()
     if rc != 0:
-        fail(f"harness.main returned {rc}")
+        fail(f"{name}: harness.main returned {rc}")
     if not records.records:
-        fail("harness.main logged no final loss line")
+        fail(f"{name}: harness.main logged no final loss line")
     rec = records.records[-1]
     first, last, steps_per_sec = rec.args[0], rec.args[1], rec.args[2]
     if not all(math.isfinite(x) for x in (first, last)):
-        fail(f"non-finite loss: {first} -> {last}")
-    if not pages:
-        fail("never scraped a page with tpu_step_* from the live run")
-    snaps = [step_snapshot_from_text(p) for p in pages]
+        fail(f"{name}: non-finite loss: {first} -> {last}")
+    if not scraper.pages:
+        fail(f"{name}: never scraped a page with tpu_step_* from the live run")
+    snaps = scraper.snapshots()
     snap = snaps[-1]
     # tpu_step_* (counter, duration, terminating, phases) and tpu_serve_*
     # (rate, queue, batch, TTFT, SLO) as the lifecycle plane reads them.
@@ -435,38 +537,131 @@ def phase_main(torch) -> dict:
         "serve_ttft_seconds", "serve_slo_attainment_ratio",
     ) if key not in snap]
     if missing:
-        fail(f"snapshot keys missing from the scraped page: {missing}")
+        fail(f"{name}: snapshot keys missing from the scraped page: {missing}")
     window_losses = sorted({(s["step"], s["loss"]) for s in snaps if "loss" in s})
     if not all(math.isfinite(loss) for _, loss in window_losses):
-        fail(f"non-finite window loss on the page: {window_losses}")
-    idle = [name for name, n in counts.items() if n <= 0]
+        fail(f"{name}: non-finite window loss on the page: {window_losses}")
+    idle = [kernel for kernel, n in counts.items() if n <= 0]
     if idle:
-        fail(f"kernels never launched on the main path: {idle}")
-    cfg = LlamaConfig.medium()
-    batch, seq = 8, 4096
-    mfu = flops.mfu(cfg, batch, seq, steps_per_sec, torch.device("cuda", 0))
-    # What the counts should be: each layer's attention runs the forward
-    # twice under --remat (the pass and its recompute) and each backward
-    # kernel once, per microbatch; 11 steps (warm-up + 10) of 4
-    # microbatches, plus 2 phase probes of one microbatch (a forward, then
-    # a forward and backward).
-    L = cfg.n_layers
-    expected = {"flash_fwd": 11 * 4 * 2 * L + 2 * 3 * L,
-                "flash_dq": 11 * 4 * L + 2 * L, "flash_dkv": 11 * 4 * L + 2 * L}
+        fail(f"{name}: kernels never launched on the path: {idle}")
+    expected = expected_launches(cfg.n_layers, grad_accum)
     if counts != expected:
-        fail(f"launch counts {counts} differ from the expected {expected}")
+        fail(f"{name}: launch counts {counts} differ from the expected {expected}")
+    L = cfg.n_layers
     result = {
-        "phase": "main", "argv": argv, "loss_first": first, "loss_last": last,
+        "phase": name, "argv": argv, "loss_first": first, "loss_last": last,
         "window_losses": window_losses, "steps_per_sec": steps_per_sec,
-        "tokens_per_sec": steps_per_sec * batch * seq, "mfu": mfu,
+        "tokens_per_sec": steps_per_sec * batch * seq,
+        "model_flops_per_step": flops.train_flops_per_step(cfg, batch, seq),
+        "mfu": flops.mfu(cfg, batch, seq, steps_per_sec, torch.device("cuda", 0)),
         "max_memory_allocated": peak_mem, "launches": counts,
         "launches_expected": expected,
-        "launches_per_step": {"flash_fwd": 4 * 2 * L, "flash_dq": 4 * L,
-                              "flash_dkv": 4 * L},
+        "launches_per_step": {"flash_fwd": grad_accum * 2 * L,
+                              "flash_dq": grad_accum * L,
+                              "flash_dkv": grad_accum * L},
         "wall_s": wall, "snapshot": snap,
     }
     emit(result)
     return result
+
+
+def phase_main(torch) -> dict:
+    return drive_path(torch, "main", MAIN_ARGV)
+
+
+def phase_moe(torch) -> dict:
+    return drive_path(torch, "moe", MOE_ARGV)
+
+
+def phase_checkpoint(torch) -> dict:
+    """Stop and resume the MoE path; see the module docstring."""
+    from tpumon.workload_torch import harness
+    from tpumon.workload_torch.checkpoint import STATE_FILE, CheckpointStore
+
+    def argv(steps: int, every: int, directory: str) -> list[str]:
+        return [*MOE_TRAIN, "--steps", str(steps), "--checkpoint-every",
+                str(every), "--checkpoint-dir", directory]
+
+    _release(torch)
+    # Inside the checkout (the checkpoints are ~1.8 GB a step at
+    # moe-small), and removed when the phase ends.
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_ckpt_") as tmp:
+        full_dir, resume_dir = os.path.join(tmp, "full"), os.path.join(tmp, "resume")
+        t0 = time.perf_counter()
+        with _capture_runs(harness) as runs:
+            if harness.main(argv(4, 2, full_dir)) != 0:
+                fail("checkpoint: the uninterrupted run failed")
+            state_bytes = os.path.getsize(os.path.join(full_dir, "4", STATE_FILE))
+            shutil.rmtree(full_dir)  # only its losses are needed
+            if harness.main(argv(2, 2, resume_dir)) != 0:
+                fail("checkpoint: the 2-step run failed")
+            with _Scraper("tpu_step_counter") as scraper:
+                rc = harness.main([*argv(4, 1, resume_dir),
+                                   "--metrics-port", str(scraper.port)])
+            if rc != 0:
+                fail("checkpoint: the resumed run failed")
+        kept = CheckpointStore(resume_dir).steps()
+        wall = time.perf_counter() - t0
+    full, part, cont = runs
+    if full.start_step != 0 or len(full.losses) != 4:
+        fail(f"checkpoint: uninterrupted run {full.start_step} / {full.losses}")
+    if not all(math.isfinite(x) for x in full.losses):
+        fail(f"checkpoint: non-finite loss {full.losses}")
+
+    def same(a: list, b: list) -> bool:
+        return len(a) == len(b) and all(
+            math.isclose(x, y, rel_tol=1e-6) for x, y in zip(a, b))
+
+    if not same(part.losses, full.losses[:2]):
+        fail(f"checkpoint: 2-step run {part.losses} != {full.losses[:2]}")
+    if cont.start_step != 2 or not same(cont.losses, full.losses[2:]):
+        fail(f"checkpoint: resumed at {cont.start_step} with {cont.losses}, "
+             f"the uninterrupted run had {full.losses[2:]}")
+    if kept != [3, 4]:
+        fail(f"checkpoint: kept steps {kept}, not the 2 newest [3, 4]")
+    # Pages scraped after the restore: their step counter must count on
+    # from the restored step 2 (3, 4), not restart at 0.
+    restored = [s for s in scraper.snapshots()
+                if "restore" in s.get("checkpoints", {})]
+    spans = [s for s in restored if "save" in s["checkpoints"]]
+    if not spans:
+        fail("checkpoint: no live page of the resumed run showed both "
+             "the save and the restore span")
+    steps_seen = sorted({int(s["step"]) for s in restored})
+    if steps_seen[0] < 2 or steps_seen[-1] <= 2:
+        fail(f"checkpoint: after the restore the page's step counter read "
+             f"{steps_seen}, not steps counting on from 2")
+    result = {
+        "phase": "checkpoint", "argv": argv(4, 2, "<dir>"),
+        "losses": full.losses, "part_losses": part.losses,
+        "resumed_losses": cont.losses, "start_step": cont.start_step,
+        "bitwise_equal": cont.losses == full.losses[2:]
+        and part.losses == full.losses[:2],
+        "steps_on_page": steps_seen, "checkpoints": spans[-1]["checkpoints"],
+        "state_bytes": state_bytes, "kept_steps": kept,
+        "steps_per_sec": {"full": full.steps_per_sec, "resumed": cont.steps_per_sec},
+        "wall_s": wall,
+    }
+    emit(result)
+    return result
+
+
+def phase_bench(torch) -> list[dict]:
+    from tpumon.workload_torch import bench_attention
+
+    _release(torch)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = bench_attention.main(BENCH_ARGV)
+    if rc != 0:
+        fail(f"bench: bench_attention.main returned {rc}")
+    rows = [json.loads(line) for line in out.getvalue().splitlines()]
+    for row in rows:
+        emit({"phase": "bench", "argv": BENCH_ARGV, **row})
+    flash = [r for r in rows if r["impl"] == "flash"]
+    if not flash or any("error" in r for r in flash):
+        fail(f"bench: the flash row failed: {flash}")
+    return rows
 
 
 def profile_summary(spans, wall_s: float, steps: int, top: int = 15) -> dict:
@@ -511,19 +706,19 @@ def profile_summary(spans, wall_s: float, steps: int, top: int = 15) -> dict:
     }
 
 
-def phase_profile(torch) -> dict:
-    """Trace the timed steps of the main path's argv (3 steps, no serve
-    page, no phase probe). The trace brackets the timed steps: the train
-    step the harness builds is wrapped to synchronise and start the
-    profiler before the first timed step, and to synchronise and stop it
-    after the last; the steps themselves run unchanged."""
+def phase_profile(torch, path: str, train_argv: list[str]) -> dict:
+    """Trace the timed steps of one path's argv (3 steps, no serve page,
+    no phase probe). The trace brackets the timed steps: the train step
+    the harness builds is wrapped to synchronise and start the profiler
+    before the first timed step, and to synchronise and stop it after the
+    last; the steps themselves run unchanged."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from tpumon.workload_torch import harness
 
-    argv = [a for a in MAIN_ARGV if a not in ("--phase-stats", "--serve")]
-    argv[argv.index("--steps") + 1] = str(PROFILE_STEPS)
+    _release(torch)
+    argv = [*train_argv, "--steps", str(PROFILE_STEPS)]
     prof = profile(activities=[ProfilerActivity.CUDA])
     make_train_step = harness.make_train_step
     calls = 0
@@ -554,31 +749,38 @@ def phase_profile(torch) -> dict:
     finally:
         harness.make_train_step = make_train_step
     if rc != 0:
-        fail(f"profile: harness.main returned {rc}")
+        fail(f"profile {path}: harness.main returned {rc}")
     if "t1" not in window:
-        fail(f"profile: the harness ran {calls} steps, not 1 + {PROFILE_STEPS}")
+        fail(f"profile {path}: the harness ran {calls} steps, not 1 + {PROFILE_STEPS}")
     spans = [(e.name, e.time_range.start, e.time_range.end)
              for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not spans:
-        fail("profile: the trace holds no device activity")
-    result = {"phase": "profile", "argv": argv,
+        fail(f"profile {path}: the trace holds no device activity")
+    result = {"phase": "profile", "path": path, "argv": argv,
               **profile_summary(spans, window["t1"] - window["t0"],
                                 PROFILE_STEPS)}
     missing = [k for k, ms in result["flash_ms_per_step"].items() if ms <= 0]
     if missing:
-        fail(f"profile: no device time for {missing} in the trace")
+        fail(f"profile {path}: no device time for {missing} in the trace")
     emit(result)
     return result
 
 
+PHASES = "env,build,kernels,main,moe,checkpoint,bench,profile"
+
+
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="env,build,kernels,main,profile")
+    parser.add_argument("--phases", default=PHASES,
+                        help=f"comma-separated subset of {PHASES}")
     parser.add_argument("--reps", type=int, default=10,
                         help="timed runs per kernel (median reported)")
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args(argv)
     phases = set(args.phases.split(","))
+    unknown = phases - set(PHASES.split(","))
+    if unknown:
+        parser.error(f"unknown phases {sorted(unknown)}")
 
     import torch
 
@@ -595,21 +797,32 @@ def main(argv: list[str] | None = None) -> int:
     if "build" in phases:
         phase_build()
     kernels = phase_kernels(torch, args.reps, args.seed) if "kernels" in phases else {}
-    main_run = phase_main(torch) if "main" in phases else None
+    main_run = phase_main(torch) if "main" in phases else {}
+    moe_run = phase_moe(torch) if "moe" in phases else {}
+    if "checkpoint" in phases:
+        phase_checkpoint(torch)
+    if "bench" in phases:
+        phase_bench(torch)
     if "profile" in phases:
-        phase_profile(torch)
+        phase_profile(torch, "main", DENSE_TRAIN)
+        phase_profile(torch, "moe", MOE_TRAIN)
     print(f"total: {time.perf_counter() - t0:.1f} s", flush=True)
 
     line = []
     for name, (source, replaces) in KERNELS.items():
         row = kernels.get(name, {}).get("main", {})
+        moe_row = kernels.get(name, {}).get("moe", {})
         line.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces[0], "replaces_all": replaces,
-            "launches": (main_run or {}).get("launches", {}).get(name, 0),
+            "launches": main_run.get("launches", {}).get(name, 0),
+            "launches_moe": moe_run.get("launches", {}).get(name, 0),
             "max_abs_err": row.get("max_abs_err"), "ms": row.get("ms"),
             "plain_ms": row.get("plain_ms"), "bound_ms": row.get("bound_ms"),
             "bound_by": row.get("bound_by"), "library_ms": row.get("library_ms"),
+            "moe_case": {key: moe_row.get(key) for key in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")},
             "passed": all(r["passed"] for r in kernels.get(name, {}).values())
             if name in kernels else None,
         })

@@ -148,7 +148,7 @@ def test_platform_cuda_raises_below_hopper(monkeypatch):
 @pytest.mark.parametrize(
     "flag",
     [["--dp", "2"], ["--sp", "2"], ["--pp", "2"], ["--ep", "2"],
-     ["--model", "moe"], ["--zero1"], ["--checkpoint-dir", "ckpt"],
+     ["--interleave", "2"], ["--zero1"], ["--num-processes", "2"],
      ["--coordinator", "host:1234"], ["--hlo-raw-dump", "raw.jsonl"]],
 )
 def test_later_slice_flags_fail_loudly(flag, capsys):
@@ -173,8 +173,10 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "optax", "tpumon.workload.")))
-print(len(names), bad)
-sys.exit(1 if bad or len(names) < 10 else 0)
+missing = {"tpumon.workload_torch." + m for m in (
+    "models.moe", "checkpoint", "bench_attention")} - set(names)
+print(len(names), bad, sorted(missing))
+sys.exit(1 if bad or missing or len(names) < 13 else 0)
 """
 
 

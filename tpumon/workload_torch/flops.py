@@ -2,7 +2,7 @@
 
 ``forward_flops`` and ``train_flops_per_step`` are the reference's
 accounting (``tpumon/workload/flops.py``), copied: they count the matmul
-FLOPs one optimizer step of ``models.llama`` executes, attention at the
+FLOPs one optimizer step of ``models.llama`` or ``models.moe`` executes, attention at the
 full S×S the additive-mask implementation computes, backward = 2× forward.
 
 The peak table is keyed on ``torch.cuda.get_device_name()`` and holds only
@@ -58,9 +58,12 @@ def peak_hbm_bytes_per_device(device) -> float | None:
 
 
 def forward_flops(cfg, batch: int, seq: int) -> float:
-    """Matmul FLOPs of one forward pass of models.llama (2·m·n·k per
-    matmul as executed: GQA-narrow K/V projections, full-S² attention,
-    SwiGLU FFN, unembed)."""
+    """Matmul FLOPs of one forward pass of models.llama / models.moe
+    (2·m·n·k per matmul as executed: GQA-narrow K/V projections, full-S²
+    attention, SwiGLU FFN scaled by top_k routed experts plus the router
+    for MoE, unembed). The MoE count is the reference's: it leaves out the
+    dispatch and combine products and the capacity padding, which the
+    dense-einsum routing executes but a model does not need."""
     B, S = batch, seq
     D = cfg.dim
     H, KV, HD = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -68,7 +71,12 @@ def forward_flops(cfg, batch: int, seq: int) -> float:
     L = cfg.n_layers
     qkvo = 2 * B * S * D * (H * HD) * 2 + 2 * B * S * D * (KV * HD) * 2
     attn = 2 * B * S * S * H * HD * 2  # scores + probs·V
-    ffn = 6 * B * S * D * F
+    n_experts_active = getattr(cfg, "top_k", None)
+    if n_experts_active is not None:  # MoE: routed SwiGLU + router
+        ffn = 6 * B * S * D * F * n_experts_active
+        ffn += 2 * B * S * D * cfg.n_experts  # router logits
+    else:
+        ffn = 6 * B * S * D * F
     unembed = 2 * B * S * D * cfg.vocab
     return float(L * (qkvo + attn + ffn) + unembed)
 

@@ -1,10 +1,12 @@
-"""Training harness of the port: the dense Llama train step on one card.
+"""Training harness of the port: the dense Llama and MoE train steps on one card.
 
 The counterpart of ``tpumon/workload/harness.py`` for the single-device
-dense path: next-token cross-entropy, optional strided gradient
-accumulation, remat and a chunked loss, AdamW with optax's defaults, and
-the windowed loop that publishes ``tpu_step_*`` (and, with ``--serve``,
-``tpu_serve_*``) on ``--metrics-port`` for the monitor to read.
+paths: next-token cross-entropy (plus the weighted GShard aux loss for
+MoE), optional strided gradient accumulation, remat and a chunked loss,
+AdamW with optax's defaults, the windowed loop that publishes
+``tpu_step_*`` (and, with ``--serve``, ``tpu_serve_*``) on
+``--metrics-port`` for the monitor to read, and a checkpointed loop
+(``--checkpoint-dir``) that resumes from the newest saved step.
 
 PyTorch runs eagerly, so there is no jit: parameters and optimizer state
 are updated in place, and the loop reads the loss on the host once per
@@ -12,6 +14,8 @@ stats window. ``--attn flash`` runs attention on the hand-written Hopper
 kernels of ``ops/flash_attention.py``.
 
 CLI:  python -m tpumon.workload_torch.harness --steps 20
+      python -m tpumon.workload_torch.harness --model moe --preset small
+      python -m tpumon.workload_torch.harness --checkpoint-dir ckpt --steps 6
       (``--platform cpu`` runs on the host; the default is the card)
 """
 
@@ -28,10 +32,14 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from tpumon.workload_torch import flops as flops_mod
+from tpumon.workload_torch.models import moe as moe_mod
 from tpumon.workload_torch.models.llama import LlamaConfig, from_jax_params, init_params
+from tpumon.workload_torch.models.moe import Moe, MoeConfig
 from tpumon.workload_torch.platform import PLATFORMS, resolve_device
 
 log = logging.getLogger(__name__)
+
+AUX_LOSS_WEIGHT = 0.01  # GShard load-balancing loss weight (MoE only)
 
 
 def _chunk_nll_sum(xc, unembed_w, tc, dtype):
@@ -58,13 +66,20 @@ def _chunked_nll(x, unembed_w, targets, chunk, dtype):
 
 def loss_fn(model, tokens, attn_impl=None, remat=False, loss_chunk=0):
     """Next-token cross-entropy; inputs [B, S], targets are the shift-by-1.
-    ``loss_chunk`` fuses the unembed projection into the loss in sequence
-    chunks of that many tokens (:func:`_chunked_nll`)."""
+    A :class:`Moe` adds ``AUX_LOSS_WEIGHT`` × its aux loss. ``loss_chunk``
+    (dense model only) fuses the unembed projection into the loss in
+    sequence chunks of that many tokens (:func:`_chunked_nll`)."""
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    if isinstance(model, Moe):
+        logits, aux = model(inputs, attn_impl, remat)
+        return _mean_nll(logits, targets) + AUX_LOSS_WEIGHT * aux
     if loss_chunk:
         x = model(inputs, attn_impl, remat, unembed=False)
         return _chunked_nll(x, model.unembed, targets, loss_chunk, model.cfg.dtype)
-    logits = model(inputs, attn_impl, remat)
+    return _mean_nll(model(inputs, attn_impl, remat), targets)
+
+
+def _mean_nll(logits, targets):
     logp = torch.log_softmax(logits, dim=-1)
     return -logp.gather(-1, targets[..., None]).mean()
 
@@ -219,14 +234,21 @@ def _record_serve_window(serve, batch: int, n_steps: int, window_s: float) -> No
     )
 
 
-def _model_from(params, cfg, device):
+def _build_model(cfg, params, generator, device):
+    """The seeded model for ``cfg``'s family, or ``params`` (a model, or
+    the reference's parameter tree as numpy arrays) on ``device``."""
+    is_moe = isinstance(cfg, MoeConfig)
+    if params is None:
+        return (moe_mod.init_params if is_moe else init_params)(cfg, generator)
     if isinstance(params, torch.nn.Module):
         return params.to(device)
-    return from_jax_params(cfg, params, device)
+    return (moe_mod.from_jax_params if is_moe else from_jax_params)(
+        cfg, params, device
+    )
 
 
 def run(
-    cfg: LlamaConfig,
+    cfg: LlamaConfig | MoeConfig,
     *,
     steps: int = 10,
     batch: int = 8,
@@ -237,6 +259,8 @@ def run(
     loss_chunk: int = 0,
     seed: int = 0,
     attn: str = "xla",
+    checkpoint_dir: str | None = None,
+    checkpoint_every: int = 0,
     stats=None,
     stats_every: int = 20,
     phase_stats: bool = False,
@@ -247,11 +271,13 @@ def run(
 ) -> RunResult:
     """Build and run the train step; returns losses + throughput.
 
-    ``device=None`` means the card (``cuda``); pass ``"cpu"`` for the
-    host. ``attn="flash"`` runs attention on the flash kernels. ``params``
-    (a :class:`Llama` or the reference's parameter tree as numpy arrays)
-    and ``tokens`` ([batch, seq + 1] integers) replace the seeded ones, so
-    a test can give this run and the reference the same weights and data.
+    ``cfg`` is a :class:`LlamaConfig` or a :class:`MoeConfig`, and picks
+    the model. ``device=None`` means the card (``cuda``); pass ``"cpu"``
+    for the host. ``attn="flash"`` runs attention on the flash kernels.
+    ``params`` (a model, or the reference's parameter tree as numpy
+    arrays) and ``tokens`` ([batch, seq + 1] integers) replace the seeded
+    ones, so a test can give this run and the reference the same weights
+    and data.
 
     The token batch is fixed and reused every step. A warm-up step runs
     outside the timing. ``stats`` (a :class:`stats.WorkloadStats`) turns
@@ -259,6 +285,11 @@ def run(
     the loss (one host sync per window) and records the window's steps/s;
     ``phase_stats`` adds one instrumented step per window, and ``serve``
     (a :class:`serve.ServeStats`) the request-level view of each window.
+
+    ``checkpoint_dir`` runs the checkpointed loop instead
+    (:func:`_run_checkpointed`): it resumes from the newest step saved
+    there and runs on to global step ``steps``, saving every
+    ``checkpoint_every`` steps and at the end.
     """
     device = resolve_device(torch.device(device or "cuda").type)
     # f32 products must be f32, as on the reference, not TF32.
@@ -279,14 +310,23 @@ def run(
     if loss_chunk:
         if loss_chunk < 1:
             raise ValueError(f"loss_chunk must be >= 1, got {loss_chunk}")
+        if isinstance(cfg, MoeConfig):
+            raise ValueError(
+                "loss_chunk fuses the dense model's unembed into the loss; "
+                "it does not compose with MoE"
+            )
         if seq % loss_chunk:
             raise ValueError(
                 f"seq ({seq}) must divide by loss_chunk ({loss_chunk})"
             )
+    if serve is not None and checkpoint_dir is not None:
+        # The checkpointed loop records per step; the serving window
+        # shape assumes the windowed loop.
+        raise ValueError("serve telemetry composes with the windowed "
+                         "loop, not checkpoint_dir")
 
     generator = torch.Generator(device=device).manual_seed(seed)
-    model = (init_params(cfg, generator) if params is None
-             else _model_from(params, cfg, device))
+    model = _build_model(cfg, params, generator, device)
     if tokens is None:
         tokens = torch.randint(
             0, cfg.vocab, (batch, seq + 1), generator=generator, device=device
@@ -322,6 +362,12 @@ def run(
     if stats is not None and phase_stats:
         phase_probe = _make_phase_probe(
             model, optimizer, attn_impl, remat, loss_chunk, grad_accum
+        )
+    if checkpoint_dir is not None:
+        return _run_checkpointed(
+            step, model, optimizer, tokens, steps, checkpoint_dir,
+            checkpoint_every, cfg=cfg, batch=batch, seq=seq, device=device,
+            stats=stats, phase_probe=phase_probe, with_grad_norm=with_grad_norm,
         )
 
     # Warm-up outside the timed window.
@@ -361,6 +407,87 @@ def run(
         model_flops_per_step=flops_per_step,
         mfu=flops_mod.mfu(cfg, batch, seq, steps_per_sec, device),
         grad_norm=(gnorm.item() if with_grad_norm else None),
+    )
+
+
+def _run_checkpointed(
+    step, model, optimizer, tokens, steps, checkpoint_dir, checkpoint_every,
+    *, cfg, batch, seq, device, stats=None, phase_probe=None,
+    with_grad_norm=False,
+) -> RunResult:
+    """Checkpoint/resume loop around the train step.
+
+    Separate from the windowed loop on purpose: it reads the loss every
+    step (one host sync each) and touches disk, so the traffic
+    generator's loop keeps its sync-free timing. It restores the newest
+    saved step (a failed restore raises), runs global steps
+    ``start_step .. steps - 1`` with one loss each, saves every
+    ``checkpoint_every`` steps and at the end (never a step already
+    saved), keeps the 2 newest, and runs one phase probe at the end.
+    """
+    from tpumon.workload_torch.checkpoint import CheckpointStore
+
+    store = CheckpointStore(checkpoint_dir)
+    start_step = 0
+    latest = store.latest_step()
+    if latest is not None:
+        restore_t0 = time.perf_counter()
+        store.restore(latest, model, optimizer, device)
+        start_step = latest
+        if stats is not None:
+            # The restore span and the training-global step offset the
+            # lifecycle plane reads (tpu_step_checkpoint_seconds{op=
+            # "restore"} is the restore-storm signature).
+            stats.record_checkpoint("restore", time.perf_counter() - restore_t0)
+            stats.set_start_step(start_step)
+        log.info("resumed from %s at step %d", checkpoint_dir, latest)
+
+    losses: list[float] = []
+    timed, timed_steps = 0.0, 0
+    saved_at = start_step if latest is not None else -1
+    gnorm = None
+    for i in range(start_step, steps):
+        t0 = time.perf_counter()
+        loss, gnorm = step(tokens)
+        losses.append(loss.item())  # one host sync per step
+        dt = time.perf_counter() - t0
+        if i > start_step:  # the first iteration is the warm-up
+            timed += dt
+            timed_steps += 1
+            if stats is not None:
+                stats.record(losses[-1], 1, dt)
+        elif stats is not None:
+            # The warm-up step still happened: it advances the global step
+            # counter (seconds=0 publishes no rate).
+            stats.record(losses[-1], 1, 0.0)
+        done = i + 1
+        if (checkpoint_every and done % checkpoint_every == 0) or done == steps:
+            if done != saved_at:
+                save_t0 = time.perf_counter()
+                store.save(done, model, optimizer)
+                saved_at = done
+                if stats is not None:
+                    stats.record_checkpoint("save", time.perf_counter() - save_t0)
+        if phase_probe is not None and done == steps:
+            # One instrumented step at the end of the run: this loop
+            # already syncs every step, so once is the honest budget.
+            try:
+                stats.record_phases(phase_probe(tokens))
+            except Exception:
+                # Telemetry must never kill the traffic generator.
+                log.exception("phase probe failed")
+    if not losses:
+        log.info("checkpoint at %s already covers %d steps; nothing to run",
+                 checkpoint_dir, steps)
+    # 0.0, not inf, when no step ran outside the warm-up: no throughput.
+    steps_per_sec = timed_steps / timed if timed > 0 else 0.0
+    return RunResult(
+        losses=losses,
+        steps_per_sec=steps_per_sec,
+        start_step=start_step,
+        model_flops_per_step=flops_mod.train_flops_per_step(cfg, batch, seq),
+        mfu=flops_mod.mfu(cfg, batch, seq, steps_per_sec, device),
+        grad_norm=(gnorm.item() if with_grad_norm and gnorm is not None else None),
     )
 
 
@@ -416,17 +543,13 @@ _LATER = {
     "microbatches": ("pipeline parallelism", 9, 2),
     "interleave": ("pipeline parallelism", 9, 1),
     "ep": ("expert parallelism", 10, 1),
-    "model": ("MoE", 6, "llama"),
-    "capacity_factor": ("MoE", 6, None),
-    "checkpoint_dir": ("checkpoint/resume", 5, None),
-    "checkpoint_every": ("checkpoint/resume", 5, 0),
     "coordinator": ("multi-host", 11, None),
     "num_processes": ("multi-host", 11, 1),
     "process_id": ("multi-host", 11, None),
 }
 
 
-def _parser() -> argparse.ArgumentParser:
+def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="tpumon-workload-torch")
     parser.add_argument("--steps", type=int, default=10)
     parser.add_argument("--batch", type=int, default=8)
@@ -439,17 +562,31 @@ def _parser() -> argparse.ArgumentParser:
         "main path's model at seq 4096 (pair with --attn flash, --remat "
         "and --grad-accum); llama3-8b is Llama-3-8B's shape",
     )
-    parser.add_argument("--model", choices=("llama", "moe"), default="llama")
+    parser.add_argument(
+        "--model", choices=("llama", "moe"), default="llama",
+        help="moe takes the presets tiny and small (moe-small: 0.153B, 8 "
+        "experts top-2; pair with --seq 4096 --attn flash --remat)",
+    )
     for axis in ("dp", "tp", "sp", "pp", "ep"):
         parser.add_argument(f"--{axis}", type=int, default=1)
     parser.add_argument("--sp-layout", choices=("contiguous", "zigzag"),
                         default="contiguous")
     parser.add_argument("--microbatches", type=int, default=2)
     parser.add_argument("--interleave", type=int, default=1)
-    parser.add_argument("--capacity-factor", type=float, default=None)
+    parser.add_argument(
+        "--capacity-factor", type=float, default=None,
+        help="MoE expert capacity factor (default: the preset's 2.0)",
+    )
     parser.add_argument("--zero1", action="store_true")
-    parser.add_argument("--checkpoint-dir", default=None)
-    parser.add_argument("--checkpoint-every", type=int, default=0)
+    parser.add_argument(
+        "--checkpoint-dir", default=None,
+        help="save to and resume from this directory (one subdirectory "
+        "per step, the 2 newest kept); --steps counts global steps",
+    )
+    parser.add_argument(
+        "--checkpoint-every", type=int, default=0,
+        help="save every this many steps as well as at the end (0 = end only)",
+    )
     parser.add_argument("--hlo-raw-dump", default=None)
     parser.add_argument("--coordinator", default=None)
     parser.add_argument("--num-processes", type=int, default=1)
@@ -524,8 +661,28 @@ def _parser() -> argparse.ArgumentParser:
     return parser
 
 
+def model_config(args: argparse.Namespace) -> LlamaConfig | MoeConfig:
+    """The config that ``--model``, ``--preset`` and ``--capacity-factor``
+    of parsed :func:`build_parser` arguments name."""
+    if args.model == "moe":
+        moe_presets = {"tiny": MoeConfig.tiny, "small": MoeConfig.small}
+        if args.preset not in moe_presets:
+            log.warning("--model moe has tiny/small presets; ignoring "
+                        "--preset %s", args.preset)
+        cfg = moe_presets.get(args.preset, MoeConfig.tiny)()
+        if args.capacity_factor is not None:
+            cfg = dataclasses.replace(cfg, capacity_factor=args.capacity_factor)
+        return cfg
+    return {
+        "tiny": LlamaConfig.tiny,
+        "small": LlamaConfig.small,
+        "medium": LlamaConfig.medium,
+        "llama3-8b": LlamaConfig.llama3_8b,
+    }[args.preset]()
+
+
 def main(argv: list[str] | None = None) -> int:
-    parser = _parser()
+    parser = build_parser()
     args = parser.parse_args(argv)
     for dest, (what, item, default) in _LATER.items():
         if getattr(args, dest) != default:
@@ -537,14 +694,13 @@ def main(argv: list[str] | None = None) -> int:
     if args.serve and not args.metrics_port:
         parser.error("--serve publishes tpu_serve_* on the metrics "
                      "port; it needs --metrics-port")
+    if args.serve and args.checkpoint_dir:
+        parser.error("--serve composes with the windowed loop, not "
+                     "--checkpoint-dir")
+    if args.capacity_factor is not None and args.model != "moe":
+        parser.error("--capacity-factor requires --model moe")
     logging.basicConfig(level=logging.INFO, format="%(levelname)s %(message)s")
-
-    cfg = {
-        "tiny": LlamaConfig.tiny,
-        "small": LlamaConfig.small,
-        "medium": LlamaConfig.medium,
-        "llama3-8b": LlamaConfig.llama3_8b,
-    }[args.preset]()
+    cfg = model_config(args)
     device = resolve_device(args.platform)
 
     server = None
@@ -598,6 +754,8 @@ def main(argv: list[str] | None = None) -> int:
             remat=args.remat,
             loss_chunk=args.loss_chunk,
             attn=args.attn,
+            checkpoint_dir=args.checkpoint_dir,
+            checkpoint_every=args.checkpoint_every,
             stats=stats,
             stats_every=args.stats_every,
             phase_stats=args.phase_stats,
@@ -607,8 +765,8 @@ def main(argv: list[str] | None = None) -> int:
         log.info(
             "loss %.4f → %.4f | %.2f steps/s | %.1f GFLOP/step | MFU %s | "
             "device=%s",
-            result.losses[0],
-            result.losses[-1],
+            result.losses[0] if result.losses else float("nan"),
+            result.losses[-1] if result.losses else float("nan"),
             result.steps_per_sec,
             result.model_flops_per_step / 1e9,
             f"{result.mfu:.2%}" if result.mfu is not None else "n/a (no peak)",

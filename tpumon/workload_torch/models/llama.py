@@ -97,6 +97,53 @@ def _param(shape, device) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape, dtype=torch.float32, device=device))
 
 
+def causal_mask(seq: int, device=None) -> torch.Tensor:
+    """Additive causal mask [seq, seq] f32: -1e9 above the diagonal."""
+    return torch.triu(
+        torch.full((seq, seq), -1e9, dtype=torch.float32, device=device),
+        diagonal=1,
+    )
+
+
+def plain_attention(q, k, v, mask):
+    """The plain attention core: q [B,S,H,D], k/v [B,S,KV,D] → [B,S,H,D]
+    in v's dtype. K/V heads are repeated up to H, the scores are f32
+    (bf16 products are exact in f32, as the reference's
+    preferred_element_type=float32) plus the additive ``mask``, and the
+    probabilities are cast to v's dtype before the second product."""
+    S, H, HD = q.shape[1], q.shape[2], q.shape[3]
+    rep = H // k.shape[2]
+    k = k.repeat_interleave(rep, dim=2)
+    v = v.repeat_interleave(rep, dim=2)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    scores = scores / math.sqrt(HD) + mask[:S, :S]
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def attention(layer: nn.Module, x, freqs, mask, attn_impl=None):
+    """A layer's attention sublayer on the normed input x [B,S,D]: the
+    q/k/v projections, RoPE, the core, the output projection. It reads
+    ``layer.cfg`` (heads, kv heads, head_dim, dtype) and the weights
+    ``layer.wq``/``wk``/``wv``/``wo``; the dense and the MoE layers both
+    hold them under these names."""
+    cfg = layer.cfg
+    B, S, _ = x.shape
+    H, KV, HD = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = (x @ layer.wq.to(cfg.dtype)).reshape(B, S, H, HD)
+    k = (x @ layer.wk.to(cfg.dtype)).reshape(B, S, KV, HD)
+    v = (x @ layer.wv.to(cfg.dtype)).reshape(B, S, KV, HD)
+    q = apply_rope(q, freqs[:S])
+    k = apply_rope(k, freqs[:S])
+    if attn_impl is not None:
+        # Pluggable causal attention q [B,S,H,D], k/v [B,S,KV,D]; the
+        # impl resolves the grouped-query sharing itself.
+        out = attn_impl(q, k, v)
+    else:
+        out = plain_attention(q, k, v, mask)
+    return out.reshape(B, S, H * HD) @ layer.wo.to(cfg.dtype)
+
+
 class Block(nn.Module):
     """One decoder layer: x + attn(norm(x)), then + mlp(norm(x))."""
 
@@ -106,31 +153,6 @@ class Block(nn.Module):
         for name, shape in _layer_shapes(cfg).items():
             setattr(self, name, _param(shape, device))
 
-    def attention(self, x, freqs, mask, attn_impl=None):
-        cfg = self.cfg
-        B, S, _ = x.shape
-        H, KV, HD = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-        q = (x @ self.wq.to(cfg.dtype)).reshape(B, S, H, HD)
-        k = (x @ self.wk.to(cfg.dtype)).reshape(B, S, KV, HD)
-        v = (x @ self.wv.to(cfg.dtype)).reshape(B, S, KV, HD)
-        q = apply_rope(q, freqs[:S])
-        k = apply_rope(k, freqs[:S])
-        if attn_impl is not None:
-            # Pluggable causal attention q [B,S,H,D], k/v [B,S,KV,D]; the
-            # impl resolves the grouped-query sharing itself.
-            out = attn_impl(q, k, v).reshape(B, S, H * HD)
-        else:
-            rep = H // KV
-            k = k.repeat_interleave(rep, dim=2)
-            v = v.repeat_interleave(rep, dim=2)
-            # f32 scores (bf16 products are exact in f32), as the
-            # reference's preferred_element_type=float32.
-            scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
-            scores = scores / math.sqrt(HD) + mask[:S, :S]
-            probs = torch.softmax(scores, dim=-1).to(cfg.dtype)
-            out = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(B, S, H * HD)
-        return out @ self.wo.to(cfg.dtype)
-
     def mlp(self, x):
         dtype = self.cfg.dtype
         gate = x @ self.w_gate.to(dtype)
@@ -138,7 +160,7 @@ class Block(nn.Module):
         return (nn.functional.silu(gate) * up) @ self.w_down.to(dtype)
 
     def forward(self, h, freqs, mask, attn_impl=None):
-        h = h + self.attention(rms_norm(h, self.attn_norm), freqs, mask, attn_impl)
+        h = h + attention(self, rms_norm(h, self.attn_norm), freqs, mask, attn_impl)
         return h + self.mlp(rms_norm(h, self.mlp_norm))
 
 
@@ -175,12 +197,7 @@ class Llama(nn.Module):
         S = tokens.shape[1]
         x = self.embed.to(cfg.dtype)[tokens]
         freqs = rope_freqs(cfg.head_dim, cfg.max_seq, device=x.device)
-        mask = None
-        if attn_impl is None:
-            mask = torch.triu(
-                torch.full((S, S), -1e9, dtype=torch.float32, device=x.device),
-                diagonal=1,
-            )
+        mask = causal_mask(S, x.device) if attn_impl is None else None
         for block in self.blocks:
             if remat:
                 x = checkpoint(block, x, freqs, mask, attn_impl, use_reentrant=False)
@@ -192,14 +209,9 @@ class Llama(nn.Module):
         return (x @ self.unembed.to(cfg.dtype)).float()
 
 
-def init_params(
-    cfg: LlamaConfig, generator: torch.Generator, device=None
-) -> Llama:
-    """A :class:`Llama` with the reference's initialization: normal(0.02)
-    f32 weights, ones for the norms. ``device`` defaults to the
-    generator's device."""
-    device = generator.device if device is None else torch.device(device)
-    model = Llama(cfg, device)
+def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """The reference's initialization, in place: normal(0.02) f32
+    weights, ones for the norms. Returns ``model``."""
     with torch.no_grad():
         for name, p in model.named_parameters():
             if name.endswith("norm"):
@@ -207,6 +219,16 @@ def init_params(
             else:
                 p.normal_(0.0, 0.02, generator=generator)
     return model
+
+
+def init_params(
+    cfg: LlamaConfig, generator: torch.Generator, device=None
+) -> Llama:
+    """A :class:`Llama` with the reference's initialization
+    (:func:`init_weights`). ``device`` defaults to the generator's
+    device."""
+    device = generator.device if device is None else torch.device(device)
+    return init_weights(Llama(cfg, device), generator)
 
 
 def _copy_into(p: nn.Parameter, value, name: str) -> None:
@@ -218,17 +240,23 @@ def _copy_into(p: nn.Parameter, value, name: str) -> None:
     p.copy_(torch.from_numpy(arr))
 
 
-def from_jax_params(cfg: LlamaConfig, tree, device=None) -> Llama:
-    """Build a :class:`Llama` from the reference's parameter pytree as
-    numpy arrays (``embed``, ``layers`` stacked on a leading L axis,
-    ``final_norm``, ``unembed``)."""
-    model = Llama(cfg, device)
+def load_jax_tree(model: nn.Module, tree, layer_params) -> nn.Module:
+    """Copy the reference's parameter pytree (numpy arrays: ``embed``,
+    ``layers`` stacked on a leading L axis with the keys
+    ``layer_params``, ``final_norm``, ``unembed``) into ``model``, whose
+    layers are ``model.blocks``. Returns ``model``."""
     layers = tree["layers"]
     with torch.no_grad():
         _copy_into(model.embed, tree["embed"], "embed")
         for i, block in enumerate(model.blocks):
-            for name in LAYER_PARAMS:
+            for name in layer_params:
                 _copy_into(getattr(block, name), layers[name][i], f"layers.{name}[{i}]")
         _copy_into(model.final_norm, tree["final_norm"], "final_norm")
         _copy_into(model.unembed, tree["unembed"], "unembed")
     return model
+
+
+def from_jax_params(cfg: LlamaConfig, tree, device=None) -> Llama:
+    """Build a :class:`Llama` from the reference's parameter pytree as
+    numpy arrays (:func:`load_jax_tree`)."""
+    return load_jax_tree(Llama(cfg, device), tree, LAYER_PARAMS)
