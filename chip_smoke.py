@@ -16,7 +16,8 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
 3. kernels    each kernel against its plain PyTorch version on the card,
               at the main path's attention shape (medium microbatch: B=2,
               S=4096, H=16, KV=4, D=128, causal), at the MoE path's (B=1,
-              S=4096, H=8, KV=4, D=64, causal), at non-causal Sk != S and
+              S=4096, H=8, KV=4, D=64, causal), at one mesh rank's (B=1,
+              S=4096, H=8, KV=2, D=128, causal), at non-causal Sk != S and
               ragged D=64 cases, at a long causal case (S=16384) where
               the JAX package takes its streamed kernels, and at the tile
               edges (S=4000, S=48, MHA). Prints one JSON line per kernel
@@ -56,6 +57,22 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
               idle share over the profiled steps (1 - union of
               device-activity intervals / wall time). It measures only; a
               failure in it fails the run.
+9. mesh       the main argv at --dp 2 --tp 2 --zero1 (2 windows of 1 step,
+              --phase-stats, --grad-norm, --hlo-raw-dump) through
+              harness.main, which starts the four ranks itself (over gloo
+              when they share a card, nccl when each has its own). Fails
+              unless the backend is the rule's, every rank's losses are
+              finite, the first step's loss and grad norm match the
+              single-device step on the same weights and tokens on this
+              card (|Δ| <= 5e-3, rel <= 0.02), each rank's launches and
+              counted collectives equal what the run implies (the
+              formula in collective_counters.py), and rank 0's page
+              carries the collective families, a wait fraction in [0, 1]
+              and dp=2, tp=2. Prints the window step, steps/s, tokens/s,
+              MFU, each rank's peak memory and their sum,
+              the collectives per op and step (rank 0's raw dump), the
+              wait fraction and the wall time; MFU is over the distinct
+              cards the ranks use.
 
 Then it prints the nvidia-smi line, one {"kernels": [...]} JSON line and,
 as the last line, {"ok": true, "device": {...}}.
@@ -102,7 +119,8 @@ KERNELS = {
 }
 
 #: (name, B, S, Sk, H, KV, D, causal). "main" is the medium microbatch of
-#: the main path and "moe" the moe-small microbatch of the MoE path;
+#: the main path, "moe" the moe-small microbatch of the MoE path and
+#: "tp2" one rank's microbatch of the mesh path (medium at tp = 2);
 #: "long" is in the range where the JAX package streams; the last three
 #: hit the tile edges of the wgmma kernels (128-row q- and k-blocks,
 #: 64-row q tiles in dK/dV): S not a multiple of 128, S below one tile,
@@ -110,6 +128,7 @@ KERNELS = {
 CASES = [
     ("main", 2, 4096, 4096, 16, 4, 128, True),
     ("moe", 1, 4096, 4096, 8, 4, 64, True),
+    ("tp2", 1, 4096, 4096, 8, 2, 128, True),
     ("rect", 1, 2000, 3000, 16, 4, 128, False),
     ("ragged64", 2, 1000, 1000, 8, 4, 64, True),
     ("long", 1, 16384, 16384, 4, 1, 128, True),
@@ -141,6 +160,16 @@ RUN_ARGS = ["--steps", str(STEPS), "--stats-every", str(STATS_EVERY),
             "--phase-stats", "--serve"]
 MAIN_ARGV = DENSE_TRAIN + RUN_ARGS
 MOE_ARGV = MOE_TRAIN + RUN_ARGS
+
+#: The mesh path: the dense train step at dp=2 × tp=2 with ZeRO-1, two
+#: windows of one step (each with a phase probe), the grad norm every step
+#: for the parity check, and the raw collective dump.
+MESH_TRAIN = [*DENSE_TRAIN, "--dp", "2", "--tp", "2", "--zero1"]
+MESH_STEPS, MESH_STATS_EVERY = 2, 1
+MESH_ARGV = [*MESH_TRAIN, "--steps", str(MESH_STEPS), "--stats-every",
+             str(MESH_STATS_EVERY), "--phase-stats", "--grad-norm"]
+#: The dryrun's dense-parity tolerances (__graft_entry__.py).
+PARITY = {"loss_abs": 5e-3, "grad_norm_rel": 0.02}
 
 BENCH_ARGV = ["--batch", "2", "--heads", "16", "--kv-heads", "4",
               "--head-dim", "128", "--seq", "4096"]
@@ -477,13 +506,17 @@ def _release(torch) -> None:
     torch.cuda.empty_cache()
 
 
-def expected_launches(n_layers: int, grad_accum: int) -> dict:
-    """The launches a path's run implies: each layer's attention runs the
-    forward twice under --remat (the pass and its recompute) and each
-    backward kernel once, per microbatch; STEPS + 1 steps (the warm-up and
-    the timed ones) of ``grad_accum`` microbatches, plus one phase probe a
-    window on one microbatch (a forward, then a forward and backward)."""
-    steps, probes, L = STEPS + 1, STEPS // STATS_EVERY, n_layers
+def expected_launches(n_layers: int, grad_accum: int, steps: int = STEPS,
+                      stats_every: int = STATS_EVERY) -> dict:
+    """The launches a path's run implies (on each rank of a mesh, where
+    ``grad_accum`` microbatches split the rank's rows): each layer's
+    attention runs the forward twice under --remat (the pass and its
+    recompute) and each backward kernel once, per microbatch; ``steps`` + 1
+    steps (the warm-up and the timed ones) of ``grad_accum`` microbatches,
+    plus one phase probe a window on one microbatch (a forward, then a
+    forward and backward)."""
+    probes, L = steps // stats_every, n_layers
+    steps += 1
     bwd = steps * grad_accum * L + probes * L
     return {"flash_fwd": steps * grad_accum * 2 * L + probes * 3 * L,
             "flash_dq": bwd, "flash_dkv": bwd}
@@ -766,7 +799,203 @@ def phase_profile(torch, path: str, train_argv: list[str]) -> dict:
     return result
 
 
-PHASES = "env,build,kernels,main,moe,checkpoint,bench,profile"
+class _RankReports(logging.Handler):
+    """Collects the per-rank reports the launching process of a mesh logs
+    ("rank %d report %s", the report as JSON)."""
+
+    def __init__(self) -> None:
+        super().__init__()
+        self.reports: dict[int, dict] = {}
+
+    def emit(self, record: logging.LogRecord) -> None:
+        if str(record.msg).startswith("rank %d report"):
+            self.reports[record.args[0]] = json.loads(record.args[1])
+
+
+def _raw_segments(lines: list[dict], per_step: dict, per_probe: dict,
+                  steps: int, stats_every: int) -> list[tuple[str, list]]:
+    """Split rank 0's raw collective dump (one line per call, in call
+    order) into the warm-up, each timed step and each phase probe, by
+    their counts."""
+    def size(counts):
+        return sum(counts.values())
+
+    order = [("warmup", size(per_step))]
+    for i in range(1, steps + 1):
+        order.append((f"step{i}", size(per_step)))
+        if i % stats_every == 0 or i == steps:
+            order.append((f"probe{i}", size(per_probe)))
+    out, at = [], 0
+    for name, n in order:
+        out.append((name, lines[at:at + n]))
+        at += n
+    if at != len(lines):
+        fail(f"mesh: the raw dump holds {len(lines)} calls, the formula {at}")
+    return out
+
+
+def phase_mesh(torch) -> dict:
+    """The dense train step at dp=2 × tp=2 with ZeRO-1 through
+    harness.main (it starts the four ranks itself), with the page scraped
+    and parsed, each rank's launches and collectives held to what the run
+    implies, and the first step's loss and grad norm held to the
+    single-device step on the same weights and tokens on this card."""
+    from prometheus_client.parser import text_string_to_metric_families
+
+    from tpumon.workload_torch import flops, harness
+    from tpumon.workload_torch.collective_counters import (
+        expected_per_probe,
+        expected_per_step,
+    )
+    from tpumon.workload_torch.ops import flash_attention as fa
+
+    args = harness.build_parser().parse_args(MESH_ARGV)
+    cfg = harness.model_config(args)
+    dp, tp, world = args.dp, args.tp, args.dp * args.tp
+    backend = "nccl" if torch.cuda.device_count() >= world else "gloo"
+
+    # The single-device step on the same seed's weights and tokens.
+    _release(torch)
+    t0 = time.perf_counter()
+    single = harness.run(
+        cfg, steps=0, batch=args.batch, seq=args.seq, grad_accum=args.grad_accum,
+        remat=args.remat, loss_chunk=args.loss_chunk, attn=args.attn,
+        with_grad_norm=True, device="cuda",
+    )
+    single_s = time.perf_counter() - t0
+    single_loss, single_gnorm = single.losses[0], single.grad_norms[0]
+    del single
+    _release(torch)
+
+    reports = _RankReports()
+    log = logging.getLogger("tpumon.workload_torch.harness")
+    log.addHandler(reports)
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_mesh_") as tmp, \
+            _Scraper("tpu_step_collective_wait_fraction") as scraper:
+        raw_path = os.path.join(tmp, "collectives.jsonl")
+        argv = [*MESH_ARGV, "--metrics-port", str(scraper.port),
+                "--hlo-raw-dump", raw_path]
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            rc = harness.main(argv)
+        finally:
+            wall = time.perf_counter() - t0
+            log.removeHandler(reports)
+        with open(raw_path) as f:
+            raw = [json.loads(line) for line in f]
+    if rc != 0:
+        fail(f"mesh: harness.main returned {rc}")
+    ranks = reports.reports
+    if sorted(ranks) != list(range(world)):
+        fail(f"mesh: reports from ranks {sorted(ranks)}, not 0..{world - 1}")
+
+    shape = dict(n_layers=cfg.n_layers, dp=dp, tp=tp, remat=args.remat,
+                 loss_chunk=args.loss_chunk, seq=args.seq, zero1=args.zero1)
+    per_step = expected_per_step(grad_accum=args.grad_accum,
+                                 grad_norm=args.grad_norm, **shape)
+    per_probe = expected_per_probe(**shape)
+    probes = MESH_STEPS // MESH_STATS_EVERY
+    want_counts = {op: (MESH_STEPS + 1) * per_step[op] + probes * per_probe[op]
+                   for op in per_step if per_step[op] or per_probe[op]}
+    want_launches = expected_launches(cfg.n_layers, args.grad_accum,
+                                      MESH_STEPS, MESH_STATS_EVERY)
+    bad = []
+    for rank, rep in sorted(ranks.items()):
+        if rep["backend"] != backend:
+            bad.append(f"rank {rank} backend {rep['backend']}, the rule names {backend}")
+        if not all(math.isfinite(x) for x in rep["losses"] + rep["grad_norms"]):
+            bad.append(f"rank {rank} non-finite {rep['losses']} {rep['grad_norms']}")
+        if rep["launches"] != want_launches:
+            bad.append(f"rank {rank} launches {rep['launches']} != {want_launches}")
+        if rep["collectives"]["counts"] != want_counts:
+            bad.append(f"rank {rank} collectives {rep['collectives']['counts']} "
+                       f"!= {want_counts}")
+    first = ranks[0]
+    loss_gap = abs(first["losses"][0] - single_loss)
+    gnorm_rel = abs(first["grad_norms"][0] - single_gnorm) / single_gnorm
+    if loss_gap > PARITY["loss_abs"] or gnorm_rel > PARITY["grad_norm_rel"]:
+        bad.append(f"parity: loss {first['losses'][0]} vs {single_loss} "
+                   f"(|Δ| {loss_gap:.3g}), grad norm {first['grad_norms'][0]} vs "
+                   f"{single_gnorm} (rel {gnorm_rel:.3g}) over {PARITY}")
+    if bad:
+        fail("mesh: " + "; ".join(bad))
+
+    if not scraper.pages:
+        fail("mesh: never scraped rank 0's page with the wait fraction")
+    page = scraper.pages[-1]
+    snap = scraper.snapshots()[-1]
+    families = {f.name: f for f in text_string_to_metric_families(page)}
+    missing = [name for name in (
+        "workload_collective_ops", "workload_collective_op_latency_microseconds",
+        "workload_collective_op_latency_samples", "workload_collective_op_bytes",
+        "workload_hlo_log_events") if name not in families]
+    if missing:
+        fail(f"mesh: families missing from rank 0's page: {missing}")
+    wait = snap.get("collective_wait_fraction")
+    if wait is None or not 0.0 <= wait <= 1.0:
+        fail(f"mesh: collective wait fraction {wait} not in [0, 1]")
+    if snap.get("axes", {}).get("dp") != dp or snap["axes"].get("tp") != tp:
+        fail(f"mesh: the page's axes read {snap.get('axes')}")
+
+    # Per op and timed step, from rank 0's raw dump (call order).
+    segments = _raw_segments(raw, per_step, per_probe, MESH_STEPS, MESH_STATS_EVERY)
+    timed = [lines for name, lines in segments if name.startswith("step")]
+    per_op: dict[str, dict] = {}
+    for lines in timed:
+        for line in lines:
+            row = per_op.setdefault(line["op"], {"calls": 0, "bytes": 0, "us": 0.0})
+            row["calls"] += 1
+            row["bytes"] += line["bytes"]
+            row["us"] += line["us"]
+    per_op = {op: {k: v / len(timed) for k, v in row.items()}
+              for op, row in per_op.items()}
+    # The same calls grouped by payload: the data all-reduce's gradient
+    # bucket, the layers' activation all-reduces, the loss's small ones.
+    by_size: dict[tuple, list] = {}
+    for lines in timed:
+        for line in lines:
+            row = by_size.setdefault((line["op"], line["bytes"]), [0, 0.0])
+            row[0] += 1
+            row[1] += line["us"]
+    by_size_rows = sorted(
+        ({"op": op, "bytes": nbytes, "calls_per_step": n / len(timed),
+          "us_per_step": us / len(timed)}
+         for (op, nbytes), (n, us) in by_size.items()),
+        key=lambda r: -r["us_per_step"])
+    step_s = snap["step_seconds"]
+    # Rank r runs on card r % count; ranks that share a card share its peak.
+    cards = [torch.device("cuda", r % torch.cuda.device_count()) for r in range(world)]
+    peaks = {rank: rep["peak_memory_bytes"] for rank, rep in sorted(ranks.items())}
+    batch, seq = args.batch, args.seq
+    result = {
+        "phase": "mesh", "argv": MESH_ARGV, "backend": backend,
+        "ranks_share_card": torch.cuda.device_count() < world,
+        "window_step_s": step_s, "steps_per_sec": 1.0 / step_s,
+        "tokens_per_sec": batch * seq / step_s,
+        "cards": len(set(cards)),
+        "mfu": flops.mfu(cfg, batch, seq, 1.0 / step_s, cards),
+        "loop_steps_per_sec": first["steps_per_sec"],
+        "loss_first": first["losses"][0], "loss_last": first["losses"][-1],
+        "grad_norm_first": first["grad_norms"][0],
+        "single_loss": single_loss, "single_grad_norm": single_gnorm,
+        "parity": {"loss_abs": loss_gap, "grad_norm_rel": gnorm_rel,
+                   "limits": PARITY},
+        "single_device_s": single_s,
+        "peak_memory_bytes": peaks, "peak_memory_sum": sum(peaks.values()),
+        "moment_bytes": {rank: rep["moment_bytes"] for rank, rep in sorted(ranks.items())},
+        "launches": first["launches"], "launches_expected": want_launches,
+        "collectives": first["collectives"], "collectives_per_step": per_step,
+        "collectives_per_probe": per_probe, "per_op_per_step": per_op,
+        "per_payload_per_step": by_size_rows,
+        "collective_wait_fraction": wait, "phases": snap.get("phases"),
+        "wall_s": wall,
+    }
+    emit(result)
+    return result
+
+
+PHASES = "env,build,kernels,main,moe,checkpoint,bench,profile,mesh"
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -806,23 +1035,24 @@ def main(argv: list[str] | None = None) -> int:
     if "profile" in phases:
         phase_profile(torch, "main", DENSE_TRAIN)
         phase_profile(torch, "moe", MOE_TRAIN)
+    mesh_run = phase_mesh(torch) if "mesh" in phases else {}
     print(f"total: {time.perf_counter() - t0:.1f} s", flush=True)
 
     line = []
     for name, (source, replaces) in KERNELS.items():
         row = kernels.get(name, {}).get("main", {})
-        moe_row = kernels.get(name, {}).get("moe", {})
+        keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
         line.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces[0], "replaces_all": replaces,
             "launches": main_run.get("launches", {}).get(name, 0),
             "launches_moe": moe_run.get("launches", {}).get(name, 0),
+            "launches_mesh_rank0": mesh_run.get("launches", {}).get(name, 0),
             "max_abs_err": row.get("max_abs_err"), "ms": row.get("ms"),
             "plain_ms": row.get("plain_ms"), "bound_ms": row.get("bound_ms"),
             "bound_by": row.get("bound_by"), "library_ms": row.get("library_ms"),
-            "moe_case": {key: moe_row.get(key) for key in (
-                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms")},
+            **{f"{case}_case": {key: kernels.get(name, {}).get(case, {}).get(key)
+                                for key in keys} for case in ("moe", "tp2")},
             "passed": all(r["passed"] for r in kernels.get(name, {}).values())
             if name in kernels else None,
         })

@@ -138,6 +138,42 @@ def test_cli_resumes(tmp_path, caplog):
     assert CheckpointStore(tmp_path / "ckpt").steps() == [2, 3]
 
 
+def test_zero1_mesh_resume_replays_exactly(tmp_path):
+    """dp=2×tp=2 with ZeRO-1 (the reference's
+    ``test_zero1_resume_replays_exactly``): every rank saves and restores
+    its own shard, and the resumed losses equal the uninterrupted run's
+    bit for bit. A store of another layout refuses the steps."""
+    import types
+
+    from tpumon.workload_torch.checkpoint import MESH_FILE, rank_file
+    from tpumon.workload_torch.parallel import checks, launch
+
+    kw = dict(batch=8, seq=32, zero1=True, seed=3)
+
+    def job(steps, directory, every=0):
+        return dict(cfg=LlamaConfig.tiny(), dp=2, tp=2, kwargs=dict(
+            steps=steps, checkpoint_dir=str(tmp_path / directory),
+            checkpoint_every=every, **kw))
+
+    ranks = launch.spawn(checks.run_jobs, 4, str(tmp_path / "rendezvous"), (
+        [job(4, "f"), job(2, "r", every=2), job(4, "r")],))
+    for full, part, cont in ranks:
+        assert full["start_step"] == 0 and len(full["losses"]) == 4
+        assert part["losses"] == full["losses"][:2]
+        assert cont["start_step"] == 2
+        assert cont["losses"] == full["losses"][2:]  # exact, not approx
+    assert ranks[0][0]["losses"] == ranks[3][0]["losses"]
+    step = tmp_path / "r" / "4"
+    assert sorted(os.listdir(step)) == sorted(
+        [MESH_FILE] + [rank_file(r) for r in range(4)])
+    plain_dp = CheckpointStore(tmp_path / "r", zero1=False, mesh=types.SimpleNamespace(
+        dp=2, tp=2, rank=0))
+    with pytest.raises(ValueError, match="dp=2 tp=2 zero1=True"):
+        plain_dp.restore(4, None, None, "cpu")
+    with pytest.raises(ValueError, match="needs the same dp×tp×zero1"):
+        _run(tmp_path / "r", steps=5)  # one device
+
+
 @pytest.mark.cuda
 def test_resume_replays_on_card(tmp_path):
     """On the card, through the flash kernels (head_dim 64): the resumed

@@ -1,0 +1,147 @@
+"""The port's collective counters (``tpumon/workload_torch/collective_counters.py``),
+the counterpart of ``tpumon/workload/hlo_counters.py``.
+
+The families must carry the reference's names and labels (those
+``tpumon/families.py`` registers), be absent until they have a sample, and
+parse; the counts a mesh run issues must equal the formula written beside
+the counters (``expected_per_step``/``expected_per_probe``), on every
+rank; ``--hlo-raw-dump`` writes one JSON line per recorded call.
+"""
+
+import json
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from tpumon.workload_torch.collective_counters import (  # noqa: E402
+    RAW_LIMIT,
+    CollectiveCounters,
+    CountersCollector,
+    expected_per_probe,
+    expected_per_step,
+)
+from tpumon.workload_torch.models.llama import LlamaConfig  # noqa: E402
+from tpumon.workload_torch.models.moe import MoeConfig  # noqa: E402
+from tpumon.workload_torch.parallel import checks, launch  # noqa: E402
+
+CPU = torch.device("cpu")
+
+
+def _render(counters) -> str:
+    from prometheus_client import generate_latest
+    from prometheus_client.registry import CollectorRegistry
+
+    registry = CollectorRegistry()
+    registry.register(CountersCollector(counters))
+    return generate_latest(registry).decode()
+
+
+def test_families_absent_until_sampled_then_parse_with_registered_names():
+    from prometheus_client.parser import text_string_to_metric_families
+
+    from tpumon.families import WORKLOAD_FAMILIES
+
+    counters = CollectiveCounters()
+    assert _render(counters) == ""  # absent, not zero
+    for op, nbytes in (("all-reduce", 64), ("all-reduce", 32), ("all-gather", 16)):
+        with counters.span(op, nbytes, CPU):
+            pass
+    parsed = {f.name: f for f in text_string_to_metric_families(_render(counters))}
+    names = {name + "_total" for name in parsed}
+    assert names == {
+        "workload_collective_ops_total", "workload_hlo_log_events_total",
+        "workload_collective_op_latency_microseconds_total",
+        "workload_collective_op_latency_samples_total",
+        "workload_collective_op_bytes_total",
+    }
+    assert names <= set(WORKLOAD_FAMILIES)
+
+    def by_op(name):
+        return {s.labels["op"]: s.value for s in parsed[name].samples
+                if s.name.endswith("_total")}
+
+    assert by_op("workload_collective_ops") == {"all-reduce": 2, "all-gather": 1}
+    assert by_op("workload_collective_op_bytes") == {"all-reduce": 96, "all-gather": 16}
+    assert by_op("workload_collective_op_latency_samples") == {"all-reduce": 2, "all-gather": 1}
+    assert all(v >= 0 for v in by_op("workload_collective_op_latency_microseconds").values())
+    events = [s.value for s in parsed["workload_hlo_log_events"].samples
+              if s.name.endswith("_total")]
+    assert events == [3]
+
+
+def test_unknown_op_is_refused():
+    with pytest.raises(ValueError, match="unknown collective op"):
+        with CollectiveCounters().span("broadcast", 4, CPU):
+            pass
+
+
+def test_raw_dump_writes_one_line_per_call(tmp_path):
+    path = tmp_path / "raw.jsonl"
+    counters = CollectiveCounters(raw_path=str(path), rank=3)
+    for n in range(RAW_LIMIT + 5):
+        with counters.span("all-gather" if n % 2 else "all-reduce", 8 * n, CPU):
+            pass
+    counters.close()
+    lines = [json.loads(line) for line in path.read_text().splitlines()]
+    assert len(lines) == RAW_LIMIT  # the reference's cap
+    assert [line["op"] for line in lines[:3]] == ["all-reduce", "all-gather", "all-reduce"]
+    assert [line["bytes"] for line in lines[:3]] == [0, 8, 16]
+    assert all(line["rank"] == 3 and line["us"] >= 0 for line in lines)
+
+
+#: name -> (cfg, dp, tp, run kwargs, windowed with the phase probe).
+CASES = {
+    "dense_plain": (LlamaConfig.tiny(), 2, 2, {}, False),
+    "dense_all": (LlamaConfig.tiny(), 2, 2, dict(
+        remat=True, loss_chunk=16, grad_accum=2, zero1=True,
+        with_grad_norm=True), False),
+    "dense_dp4_zero1": (LlamaConfig.tiny(), 4, 1, dict(zero1=True), False),
+    "dense_probe": (LlamaConfig.tiny(), 2, 2, dict(
+        remat=True, loss_chunk=16, zero1=True, stats_every=1,
+        phase_stats=True), True),
+    "moe_remat": (MoeConfig.tiny(), 2, 2, dict(remat=True, grad_accum=2), False),
+    "moe_probe": (MoeConfig.tiny(), 2, 2, dict(
+        grad_accum=2, stats_every=1, phase_stats=True), True),
+}
+STEPS, BATCH, SEQ = 2, 4, 32
+
+
+@pytest.fixture(scope="module")
+def counted(tmp_path_factory):
+    jobs = [dict(cfg=cfg, dp=dp, tp=tp, stats=windowed,
+                 kwargs=dict(steps=STEPS, batch=BATCH, seq=SEQ, **kw))
+            for cfg, dp, tp, kw, windowed in CASES.values()]
+    ranks = launch.spawn(checks.run_jobs, 4,
+                         str(tmp_path_factory.mktemp("counted") / "rendezvous"),
+                         (jobs,))
+    return {name: [r[i] for r in ranks] for i, name in enumerate(CASES)}
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_counts_equal_the_formula(counted, case):
+    """Every rank issues the formula's collectives: the warm-up and the
+    timed steps, plus one phase probe a window."""
+    cfg, dp, tp, kw, windowed = CASES[case]
+    shape = dict(n_layers=cfg.n_layers, dp=dp, tp=tp, remat=kw.get("remat", False),
+                 loss_chunk=kw.get("loss_chunk", 0), seq=SEQ,
+                 zero1=kw.get("zero1", False), moe=isinstance(cfg, MoeConfig))
+    step = expected_per_step(grad_accum=kw.get("grad_accum", 1),
+                             grad_norm=kw.get("with_grad_norm", False), **shape)
+    probe = expected_per_probe(**shape)
+    probes = STEPS if windowed else 0
+    want = {op: (STEPS + 1) * step[op] + probes * probe[op] for op in step}
+    want = {op: n for op, n in want.items() if n}
+    for rank in counted[case]:
+        assert rank["counts"] == want
+
+
+def test_formula_at_the_card_path():
+    """The medium train step of ``chip_smoke.py``'s mesh phase, per rank
+    and step: 4 chunks × (fwd 1 + 24 + 8, bwd 24 + 1 + 8 + 12, data 1)
+    all-reduces plus the grad norm's one, and ZeRO-1's one all-gather."""
+    cfg = LlamaConfig.medium()
+    step = expected_per_step(n_layers=cfg.n_layers, dp=2, tp=2, grad_accum=4,
+                             remat=True, loss_chunk=1024, seq=4096, zero1=True,
+                             grad_norm=True)
+    assert step == {"all-reduce": 4 * (33 + 45 + 1) + 1, "all-gather": 1}

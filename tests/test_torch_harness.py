@@ -147,9 +147,9 @@ def test_platform_cuda_raises_below_hopper(monkeypatch):
 
 @pytest.mark.parametrize(
     "flag",
-    [["--dp", "2"], ["--sp", "2"], ["--pp", "2"], ["--ep", "2"],
-     ["--interleave", "2"], ["--zero1"], ["--num-processes", "2"],
-     ["--coordinator", "host:1234"], ["--hlo-raw-dump", "raw.jsonl"]],
+    [["--sp-layout", "zigzag"], ["--sp", "2"], ["--pp", "2"], ["--ep", "2"],
+     ["--interleave", "2"], ["--microbatches", "4"], ["--num-processes", "2"],
+     ["--coordinator", "host:1234"], ["--process-id", "1"]],
 )
 def test_later_slice_flags_fail_loudly(flag, capsys):
     with pytest.raises(SystemExit) as exc:
@@ -174,7 +174,8 @@ for name in names:
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "optax", "tpumon.workload.")))
 missing = {"tpumon.workload_torch." + m for m in (
-    "models.moe", "checkpoint", "bench_attention")} - set(names)
+    "models.moe", "checkpoint", "bench_attention", "parallel.mesh",
+    "collective_counters")} - set(names)
 print(len(names), bad, sorted(missing))
 sys.exit(1 if bad or missing or len(names) < 13 else 0)
 """

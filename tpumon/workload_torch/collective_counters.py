@@ -1,0 +1,264 @@
+"""Collective-op counters of the port, at its own call sites.
+
+The counterpart of ``tpumon/workload/hlo_counters.py``. The reference
+counts the collectives XLA runs from libtpu's HLO logger; a CUDA program
+has no such logger, so the port counts the collectives it issues itself:
+every one goes through ``parallel/mesh.py``, which wraps each call in
+:meth:`CollectiveCounters.span`. The ops carry the XLA names the monitor
+already knows (``all-reduce``, ``all-gather``; later slices add
+``reduce-scatter``, ``all-to-all`` and ``collective-permute``).
+
+Each call adds one to its op's count and its payload (numel × element
+size) to the op's bytes. Its latency on the card is a pair of CUDA events
+around the call on the current stream; the events are read in
+:meth:`flush`, which the train loop calls after its one host sync a
+window, so counting adds no sync of its own. On the CPU the call blocks,
+and its latency is ``perf_counter`` around it.
+
+:func:`counters_families` renders the reference's families with the
+reference's names and labels; each is absent, not zero, until it has a
+sample. :func:`expected_per_step` and :func:`expected_per_probe` are the
+counts the train step issues, from its shape and options.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import threading
+import time
+from collections import Counter
+
+import torch
+
+#: The XLA collective names the port counts under.
+OPS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+       "collective-permute")
+
+#: Lines the raw dump keeps, as the reference's ``raw_limit``.
+RAW_LIMIT = 4096
+
+
+class CollectiveCounters:
+    """Counts, bytes and latency of the collectives one rank issues.
+    Thread-safe: the train loop writes, the metrics page reads.
+
+    ``raw_path`` writes one JSON line per recorded collective (op, bytes,
+    µs, rank), up to :data:`RAW_LIMIT` lines (``--hlo-raw-dump``)."""
+
+    def __init__(self, raw_path: str | None = None, rank: int = 0) -> None:
+        self._lock = threading.Lock()
+        self._counts: Counter[str] = Counter()  # guarded-by: self._lock
+        self._bytes: Counter[str] = Counter()  # guarded-by: self._lock
+        self._latency_us: Counter[str] = Counter()  # guarded-by: self._lock
+        self._latency_samples: Counter[str] = Counter()  # guarded-by: self._lock
+        self._events = 0  # guarded-by: self._lock
+        #: (op, nbytes, start event, end event) on the card, read by flush().
+        self._pending: list = []  # train-loop thread only
+        self._rank = rank
+        self._raw_path = raw_path
+        self._raw_file = None
+        self._raw_count = 0
+
+    @contextlib.contextmanager
+    def span(self, op: str, nbytes: int, device: torch.device):
+        """Count one ``op`` call of ``nbytes`` payload around the ``with``
+        body, which issues it on ``device``."""
+        if op not in OPS:
+            raise ValueError(f"unknown collective op {op!r} (one of {OPS})")
+        with self._lock:
+            self._counts[op] += 1
+            self._bytes[op] += int(nbytes)
+            self._events += 1
+        if device.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            yield
+            end.record()
+            self._pending.append((op, nbytes, start, end))
+        else:
+            t0 = time.perf_counter()
+            yield
+            self._add_latency(op, nbytes, (time.perf_counter() - t0) * 1e6)
+
+    def flush(self) -> None:
+        """Read the CUDA events of the calls since the last flush. Call it
+        after a host sync: the events are then complete, and reading them
+        does not wait."""
+        pending, self._pending = self._pending, []
+        for op, nbytes, start, end in pending:
+            end.synchronize()
+            self._add_latency(op, nbytes, start.elapsed_time(end) * 1e3)
+
+    def _add_latency(self, op: str, nbytes: int, us: float) -> None:
+        with self._lock:
+            self._latency_us[op] += us
+            self._latency_samples[op] += 1
+            if self._raw_path is not None and self._raw_count < RAW_LIMIT:
+                if self._raw_file is None:
+                    self._raw_file = open(self._raw_path, "w")
+                self._raw_file.write(json.dumps(
+                    {"op": op, "bytes": int(nbytes), "us": us, "rank": self._rank}
+                ) + "\n")
+                self._raw_file.flush()
+                self._raw_count += 1
+
+    def total_latency_us(self) -> float:
+        """Summed latency of the flushed calls, µs."""
+        with self._lock:
+            return float(sum(self._latency_us.values()))
+
+    def close(self) -> None:
+        with self._lock:
+            self._raw_path = None
+            if self._raw_file is not None:
+                self._raw_file.close()
+                self._raw_file = None
+
+    def detailed_snapshot(self) -> dict:
+        """Counts, bytes and latency by op, and the calls recorded."""
+        with self._lock:
+            return {
+                "counts": dict(self._counts),
+                "events": self._events,
+                "bytes": dict(self._bytes),
+                "latency_us": dict(self._latency_us),
+                "latency_samples": dict(self._latency_samples),
+            }
+
+
+def counters_families(counters: CollectiveCounters):
+    """The reference's ``workload_collective_*`` families from one
+    snapshot (a scrape never shows more latency samples than calls)."""
+    from prometheus_client.core import CounterMetricFamily
+
+    detail = counters.detailed_snapshot()
+    if not detail["events"]:
+        return
+    ops = CounterMetricFamily(
+        "workload_collective_ops_total",
+        "Collective ops this rank issued at the port's own call sites, by "
+        "op (XLA op names).",
+        labels=("op",),
+    )
+    for op, n in sorted(detail["counts"].items()):
+        ops.add_metric((op,), n)
+    yield ops
+    events = CounterMetricFamily(
+        "workload_hlo_log_events_total",
+        "Collective calls recorded by the port's counters (the libtpu HLO "
+        "logger's event count has no CUDA source).",
+    )
+    events.add_metric((), detail["events"])
+    yield events
+    if detail["latency_us"]:
+        lat = CounterMetricFamily(
+            "workload_collective_op_latency_microseconds_total",
+            "Summed per-op latency of this rank's collectives: CUDA events "
+            "around each call on the card, wall time on the CPU (correlate "
+            "with accelerator_collective_latency_microseconds).",
+            labels=("op",),
+        )
+        samples = CounterMetricFamily(
+            "workload_collective_op_latency_samples_total",
+            "Calls whose latency was read, by op — the denominator for "
+            "average-latency queries.",
+            labels=("op",),
+        )
+        for op, us in sorted(detail["latency_us"].items()):
+            lat.add_metric((op,), us)
+            samples.add_metric((op,), detail["latency_samples"][op])
+        yield lat
+        yield samples
+    by = CounterMetricFamily(
+        "workload_collective_op_bytes_total",
+        "Summed per-op payload bytes (numel × element size) of this "
+        "rank's collectives.",
+        labels=("op",),
+    )
+    for op, n in sorted(detail["bytes"].items()):
+        by.add_metric((op,), n)
+    yield by
+
+
+class CountersCollector:
+    """Registry adapter: ``registry.register(CountersCollector(c))``."""
+
+    def __init__(self, counters: CollectiveCounters) -> None:
+        self._counters = counters
+
+    def collect(self):
+        return counters_families(self._counters)
+
+
+def _pass_counts(n_layers: int, dp: int, tp: int, remat: bool,
+                 loss_chunk: int, seq: int, moe: bool) -> tuple[int, int]:
+    """(forward, backward) all-reduces of one microbatch's loss and
+    gradient, before the gradients' data all-reduce.
+
+    Under tp: forward, the vocab-sharded embedding (1), the two row
+    splits of each layer (``wo`` and ``w_down``, or the experts'
+    ``w_down``: 2 L), and two per cross-entropy call (the max, then the
+    sum-exp with the target's logit), one call per loss chunk; backward,
+    the two column splits' inputs of each layer (2 L) and the unembed's
+    input (1), and a checkpointed loss chunk runs its two forward
+    all-reduces again. An MoE layer on dp > 1 adds the data mean of its
+    aux-loss statistics (1 a layer, forward).
+
+    ``--remat`` recomputes each layer in the backward, and torch's
+    checkpoint stops a recompute once it has every tensor the backward
+    saved: a dense layer's last saved tensor is ``w_down``'s input, so its
+    recompute stops before that row split's all-reduce (1 a layer under
+    tp), while an MoE layer saves the reduced expert output for the
+    combine (2 under tp) and recomputes its aux statistics (1 on dp > 1).
+    """
+    fwd = bwd = 0
+    if tp > 1:
+        ce_calls = seq // loss_chunk if loss_chunk else 1
+        fwd += 1 + 2 * n_layers + 2 * ce_calls
+        bwd += 2 * n_layers + 1
+        if loss_chunk:
+            bwd += 2 * ce_calls
+        if remat:
+            bwd += (2 if moe else 1) * n_layers
+    if moe and dp > 1:
+        fwd += n_layers
+        if remat:
+            bwd += n_layers
+    return fwd, bwd
+
+
+def expected_per_step(*, n_layers: int, dp: int, tp: int, grad_accum: int,
+                      remat: bool, loss_chunk: int, seq: int, zero1: bool,
+                      grad_norm: bool, moe: bool = False) -> dict[str, int]:
+    """The collectives one optimizer step issues on each rank: the
+    microbatches' model all-reduces, one data all-reduce of the gradients
+    (and the loss) per microbatch, one model all-reduce of the split
+    leaves' squared norms under ``grad_norm``, and ZeRO-1's one all-gather
+    of the updated slices."""
+    fwd, bwd = _pass_counts(n_layers, dp, tp, remat, loss_chunk, seq, moe)
+    all_reduce = grad_accum * (fwd + bwd + (dp > 1))
+    all_reduce += int(grad_norm and tp > 1)
+    return {"all-reduce": all_reduce, "all-gather": int(zero1)}
+
+
+def expected_per_probe(*, n_layers: int, dp: int, tp: int, remat: bool,
+                       loss_chunk: int, seq: int, zero1: bool,
+                       moe: bool = False) -> dict[str, int]:
+    """The collectives one phase probe issues on each rank: a forward, a
+    forward and backward with the data all-reduce of its gradients, and
+    the optimizer update (ZeRO-1's all-gather), on one microbatch."""
+    fwd, bwd = _pass_counts(n_layers, dp, tp, remat, loss_chunk, seq, moe)
+    return {"all-reduce": 2 * fwd + bwd + (dp > 1), "all-gather": int(zero1)}
+
+
+__all__ = [
+    "OPS",
+    "RAW_LIMIT",
+    "CollectiveCounters",
+    "CountersCollector",
+    "counters_families",
+    "expected_per_probe",
+    "expected_per_step",
+]

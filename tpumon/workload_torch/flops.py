@@ -86,12 +86,28 @@ def train_flops_per_step(cfg, batch: int, seq: int) -> float:
     return 3.0 * forward_flops(cfg, batch, seq)
 
 
-def mfu(cfg, batch: int, seq: int, steps_per_sec: float, device) -> float | None:
-    """Model FLOPs utilization in [0, 1] on one device, or None when the
-    device's peak is unknown (CPU) or throughput wasn't measured."""
+def peak_flops_total(devices) -> float | None:
+    """Summed peak of the distinct devices in ``devices`` (one device, or
+    the devices of a mesh's ranks): ranks that share a card share its
+    peak. None when any peak is unknown."""
+    if isinstance(devices, (str, torch.device)):
+        devices = [devices]
+    distinct = {torch.device(d) for d in devices}
+    distinct = {torch.device(d.type, d.index or 0) if d.type == "cuda" else d
+                for d in distinct}
+    peaks = [peak_flops_per_device(d) for d in distinct]
+    if not peaks or any(p is None for p in peaks):
+        return None
+    return float(sum(peaks))
+
+
+def mfu(cfg, batch: int, seq: int, steps_per_sec: float, devices) -> float | None:
+    """Model FLOPs utilization in [0, 1] over the distinct devices of
+    ``devices`` (:func:`peak_flops_total`), or None when a peak is unknown
+    (CPU) or throughput wasn't measured."""
     if not steps_per_sec or steps_per_sec <= 0 or not math.isfinite(steps_per_sec):
         return None
-    peak = peak_flops_per_device(device)
+    peak = peak_flops_total(devices)
     if peak is None:
         return None
     return train_flops_per_step(cfg, batch, seq) * steps_per_sec / peak
@@ -103,6 +119,7 @@ __all__ = [
     "forward_flops",
     "mfu",
     "peak_flops_per_device",
+    "peak_flops_total",
     "peak_hbm_bytes_per_device",
     "train_flops_per_step",
 ]

@@ -1,21 +1,27 @@
-"""Training harness of the port: the dense Llama and MoE train steps on one card.
+"""Training harness of the port: the dense Llama and MoE train steps, on
+one card or on a dp×tp mesh of processes.
 
 The counterpart of ``tpumon/workload/harness.py`` for the single-device
-paths: next-token cross-entropy (plus the weighted GShard aux loss for
-MoE), optional strided gradient accumulation, remat and a chunked loss,
-AdamW with optax's defaults, the windowed loop that publishes
-``tpu_step_*`` (and, with ``--serve``, ``tpu_serve_*``) on
-``--metrics-port`` for the monitor to read, and a checkpointed loop
-(``--checkpoint-dir``) that resumes from the newest saved step.
+and dp×tp paths: next-token cross-entropy (plus the weighted GShard aux
+loss for MoE), optional strided gradient accumulation, remat and a
+chunked loss, AdamW with optax's defaults (or its ZeRO-1 form), the
+windowed loop that publishes ``tpu_step_*`` (and, with ``--serve``,
+``tpu_serve_*``; on a mesh, the collective counters and the wait
+fraction) on ``--metrics-port`` for the monitor to read, and a
+checkpointed loop (``--checkpoint-dir``) that resumes from the newest
+saved step.
 
 PyTorch runs eagerly, so there is no jit: parameters and optimizer state
 are updated in place, and the loop reads the loss on the host once per
 stats window. ``--attn flash`` runs attention on the hand-written Hopper
-kernels of ``ops/flash_attention.py``.
+kernels of ``ops/flash_attention.py``. ``--dp``/``--tp`` start one
+process per mesh position (``parallel/launch.py``); rank 0 owns the page
+and the final log line.
 
 CLI:  python -m tpumon.workload_torch.harness --steps 20
       python -m tpumon.workload_torch.harness --model moe --preset small
       python -m tpumon.workload_torch.harness --checkpoint-dir ckpt --steps 6
+      python -m tpumon.workload_torch.harness --dp 2 --tp 2 --zero1
       (``--platform cpu`` runs on the host; the default is the card)
 """
 
@@ -23,6 +29,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import logging
 import os
 import sys
@@ -33,8 +40,14 @@ from torch.utils.checkpoint import checkpoint
 
 from tpumon.workload_torch import flops as flops_mod
 from tpumon.workload_torch.models import moe as moe_mod
-from tpumon.workload_torch.models.llama import LlamaConfig, from_jax_params, init_params
+from tpumon.workload_torch.models.llama import (
+    Llama,
+    LlamaConfig,
+    from_jax_params,
+    init_params,
+)
 from tpumon.workload_torch.models.moe import Moe, MoeConfig
+from tpumon.workload_torch.parallel import mesh as mesh_mod
 from tpumon.workload_torch.platform import PLATFORMS, resolve_device
 
 log = logging.getLogger(__name__)
@@ -42,24 +55,48 @@ log = logging.getLogger(__name__)
 AUX_LOSS_WEIGHT = 0.01  # GShard load-balancing loss weight (MoE only)
 
 
-def _chunk_nll_sum(xc, unembed_w, tc, dtype):
+def _vocab_parallel_nll(logits, targets, mesh):
+    """Per-token NLL [..., 1] f32 of logits [..., vocab/tp] that hold the
+    rank's block of the vocabulary: the row max and the sum of exps
+    all-reduce over model, and the target's logit comes from the rank
+    that holds it (the others add zero)."""
+    rows = logits.shape[-1]
+    m = logits.detach().amax(dim=-1, keepdim=True)
+    mesh_mod.all_reduce(m, mesh, "model", op="max")
+    local = targets[..., None] - mesh.coords["model"] * rows
+    inside = ((local >= 0) & (local < rows)).to(logits.dtype)
+    picked = logits.gather(-1, local.clamp(0, rows - 1)) * inside
+    sums = torch.cat([torch.exp(logits - m).sum(dim=-1, keepdim=True), picked], -1)
+    sums = mesh_mod.reduce_from_model(sums, mesh)
+    return torch.log(sums[..., :1]) + m - sums[..., 1:]
+
+
+def _split_vocab(mesh) -> bool:
+    return mesh is not None and mesh.tp > 1
+
+
+def _chunk_nll_sum(xc, unembed_w, tc, dtype, mesh=None):
     logits = (xc @ unembed_w.to(dtype)).float()
+    if _split_vocab(mesh):
+        return _vocab_parallel_nll(logits, tc, mesh).sum()
     logp = torch.log_softmax(logits, dim=-1)
     return -logp.gather(-1, tc[..., None]).sum()
 
 
-def _chunked_nll(x, unembed_w, targets, chunk, dtype):
+def _chunked_nll(x, unembed_w, targets, chunk, dtype, mesh=None):
     """Mean next-token NLL with the unembed fused into the loss, one
     sequence chunk at a time: x [B,S,D] (final-norm hidden), targets
     [B,S] → scalar f32. Each chunk is checkpointed, so the backward
     recomputes its logits and the full [B, S, vocab] f32 logits never
-    exist at once."""
+    exist at once. Under tp, x is the unembed column split's input and
+    each chunk's loss is the vocab-parallel one."""
     B, S, _ = x.shape
+    x = mesh_mod.copy_to_model(x, mesh)
     total = x.new_zeros((), dtype=torch.float32)
     for i in range(0, S, chunk):
         total = total + checkpoint(
             _chunk_nll_sum, x[:, i:i + chunk], unembed_w,
-            targets[:, i:i + chunk], dtype, use_reentrant=False,
+            targets[:, i:i + chunk], dtype, mesh, use_reentrant=False,
         )
     return total / (B * S)
 
@@ -68,18 +105,24 @@ def loss_fn(model, tokens, attn_impl=None, remat=False, loss_chunk=0):
     """Next-token cross-entropy; inputs [B, S], targets are the shift-by-1.
     A :class:`Moe` adds ``AUX_LOSS_WEIGHT`` × its aux loss. ``loss_chunk``
     (dense model only) fuses the unembed projection into the loss in
-    sequence chunks of that many tokens (:func:`_chunked_nll`)."""
+    sequence chunks of that many tokens (:func:`_chunked_nll`). Under the
+    model's mesh the loss is the rank's data shard's, from vocab-sharded
+    logits."""
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    mesh = model.mesh
     if isinstance(model, Moe):
         logits, aux = model(inputs, attn_impl, remat)
-        return _mean_nll(logits, targets) + AUX_LOSS_WEIGHT * aux
+        return _mean_nll(logits, targets, mesh) + AUX_LOSS_WEIGHT * aux
     if loss_chunk:
         x = model(inputs, attn_impl, remat, unembed=False)
-        return _chunked_nll(x, model.unembed, targets, loss_chunk, model.cfg.dtype)
-    return _mean_nll(model(inputs, attn_impl, remat), targets)
+        return _chunked_nll(x, model.unembed, targets, loss_chunk,
+                            model.cfg.dtype, mesh)
+    return _mean_nll(model(inputs, attn_impl, remat), targets, mesh)
 
 
-def _mean_nll(logits, targets):
+def _mean_nll(logits, targets, mesh=None):
+    if _split_vocab(mesh):
+        return _vocab_parallel_nll(logits, targets, mesh).mean()
     logp = torch.log_softmax(logits, dim=-1)
     return -logp.gather(-1, targets[..., None]).mean()
 
@@ -90,6 +133,57 @@ def make_optimizer(params) -> torch.optim.Optimizer:
     return torch.optim.AdamW(
         params, lr=1e-3, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4,
     )
+
+
+def _param_specs(model) -> dict[str, int]:
+    return mesh_mod.MOE_PARAM_SPECS if isinstance(model, Moe) else mesh_mod.PARAM_SPECS
+
+
+def build_optimizer(named_params, model, zero1: bool = False):
+    """:func:`make_optimizer` over ``named_params`` (``model``'s, or
+    copies in the same order), or under ``zero1`` its ZeRO-1 form over
+    ``model``'s mesh (:class:`parallel.mesh.Zero1`)."""
+    named_params = list(named_params)
+    if zero1:
+        return mesh_mod.Zero1(named_params, model.mesh, make_optimizer,
+                              _param_specs(model))
+    return make_optimizer([p for _, p in named_params])
+
+
+def _moment_bytes(model, optimizer) -> dict[str, int]:
+    """Bytes of the AdamW moments this process holds, by parameter (under
+    ZeRO-1 the state is keyed by the rank's slices)."""
+    if isinstance(optimizer, mesh_mod.Zero1):
+        held = zip(optimizer.names, optimizer.shards)
+    else:
+        held = model.named_parameters()
+    return {name: sum(v.numel() * v.element_size()
+                      for k, v in optimizer.state.get(t, {}).items()
+                      if k in ("exp_avg", "exp_avg_sq"))
+            for name, t in held}
+
+
+def _data_mean_grads(params, chunk_losses, mesh):
+    """The data all-reduce of one flat bucket per accumulation chunk:
+    ``chunk_losses`` yields each chunk's loss after its backward, whose
+    gradients (and the loss) go into one all-reduce over ``data``; the
+    sums add up across chunks. Leaves each ``.grad`` as a view of the
+    bucket, the mean over data ranks and chunks, and returns the loss's
+    mean."""
+    total, chunks = None, 0
+    for loss in chunk_losses:
+        flat = torch.cat([p.grad.reshape(-1) for p in params] + [loss.reshape(1)])
+        for p in params:
+            p.grad = None
+        mesh_mod.all_reduce(flat, mesh, "data")
+        total = flat if total is None else total.add_(flat)
+        chunks += 1
+    total.div_(mesh.dp * chunks)
+    offset = 0
+    for p in params:
+        p.grad = total[offset:offset + p.numel()].view_as(p)
+        offset += p.numel()
+    return total[-1]
 
 
 def make_train_step(
@@ -106,28 +200,51 @@ def make_train_step(
     many strided chunks (chunk a takes rows a, a+A, a+2A, …, as the
     reference does) and averages their gradients before the one update.
     ``grad_norm`` is the global gradient L2 norm when ``with_grad_norm``,
-    else NaN (the whole-tree reduction is opt-in)."""
+    else NaN (the whole-tree reduction is opt-in).
+
+    On the model's mesh, ``tokens`` are the rank's data shard. With dp > 1
+    each chunk's gradients (and loss) go through one all-reduce over
+    ``data`` (one burst per chunk, the cadence the reference's docstring
+    gives), and the loss is the mean over the data ranks. Under tp the
+    grad norm adds the split leaves' squares over ``model`` (one
+    all-reduce); replicated leaves count once."""
     params = list(model.parameters())
+    mesh = model.mesh
+    split = [mesh_mod.split_dim(name, _param_specs(model)) is not None
+             for name, _ in model.named_parameters()]
 
     def grad_of(tokens):
         loss = loss_fn(model, tokens, attn_impl, remat, loss_chunk)
         loss.backward()
         return loss.detach()
 
+    def chunks_of(tokens):
+        B = tokens.shape[0]
+        return tokens.reshape(B // grad_accum, grad_accum, -1).transpose(0, 1)
+
+    def grad_norm():
+        if mesh is None or mesh.tp == 1:
+            return torch.linalg.vector_norm(
+                torch.stack([torch.linalg.vector_norm(p.grad) for p in params])
+            )
+        sq = torch.stack([torch.linalg.vector_norm(p.grad) ** 2 for p in params])
+        mask = torch.tensor(split, device=sq.device)
+        split_sq = mesh_mod.all_reduce(sq[mask].sum().reshape(1), mesh, "model")
+        return torch.sqrt(split_sq[0] + sq[~mask].sum())
+
     def step(tokens):
         optimizer.zero_grad(set_to_none=True)
-        if grad_accum == 1:
+        if mesh is not None and mesh.dp > 1:
+            chunks = [tokens] if grad_accum == 1 else chunks_of(tokens)
+            loss = _data_mean_grads(params, (grad_of(c) for c in chunks), mesh)
+        elif grad_accum == 1:
             loss = grad_of(tokens)
         else:
-            B = tokens.shape[0]
-            chunks = tokens.reshape(B // grad_accum, grad_accum, -1).transpose(0, 1)
-            loss = sum(grad_of(chunk) for chunk in chunks) / grad_accum
+            loss = sum(grad_of(chunk) for chunk in chunks_of(tokens)) / grad_accum
             for p in params:
                 p.grad.div_(grad_accum)
         if with_grad_norm:
-            gnorm = torch.linalg.vector_norm(
-                torch.stack([torch.linalg.vector_norm(p.grad) for p in params])
-            )
+            gnorm = grad_norm()
         else:
             gnorm = torch.full((), float("nan"), device=loss.device)
         optimizer.step()
@@ -149,11 +266,16 @@ class RunResult:
     start_step: int = 0
     #: Model FLOPs per optimizer step (flops.train_flops_per_step).
     model_flops_per_step: float = 0.0
-    #: Model FLOPs utilization vs the device's published bf16 peak; None
-    #: when the peak is unknown (CPU) or throughput absent.
+    #: Model FLOPs utilization vs the published bf16 peak of the run's
+    #: distinct cards; None when the peak is unknown (CPU) or throughput
+    #: absent.
     mfu: float | None = None
     #: Global gradient L2 norm at the final step (with_grad_norm only).
     grad_norm: float | None = None
+    #: The grad norm beside each entry of ``losses`` (with_grad_norm only).
+    grad_norms: list[float] = dataclasses.field(default_factory=list)
+    #: Bytes of the AdamW moments this process holds, by parameter.
+    moment_bytes: dict[str, int] = dataclasses.field(default_factory=dict)
 
 
 def _clone_optimizer_state(state_dict: dict) -> dict:
@@ -166,7 +288,7 @@ def _clone_optimizer_state(state_dict: dict) -> dict:
 
 
 def _make_phase_probe(model, optimizer, attn_impl, remat, loss_chunk,
-                      grad_accum: int = 1):
+                      grad_accum: int = 1, zero1: bool = False):
     """One instrumented step split into timed fwd / fwd+bwd / optimizer
     phases (``--phase-stats``), run at most once per stats window. It
     leaves the live parameters, their ``.grad`` and the optimizer state
@@ -176,10 +298,16 @@ def _make_phase_probe(model, optimizer, attn_impl, remat, loss_chunk,
 
     Under ``grad_accum > 1`` the probe times ONE strided chunk and scales
     fwd/bwd by the chunk count, as the reference does: the real step
-    never runs a full-batch backward."""
+    never runs a full-batch backward.
+
+    On a mesh every rank runs it in lockstep: it issues the step's
+    collectives (the grad pass ends with the data all-reduce of its
+    gradients, and a ZeRO-1 update with its all-gather)."""
     params = list(model.parameters())
+    names = [name for name, _ in model.named_parameters()]
     chunks = max(1, int(grad_accum))
     device = params[0].device
+    mesh = model.mesh
 
     def clock() -> float:
         if device.type == "cuda":
@@ -196,11 +324,16 @@ def _make_phase_probe(model, optimizer, attn_impl, remat, loss_chunk,
         t0 = clock()
         loss = loss_fn(model, tokens, attn_impl, remat, loss_chunk)
         grads = torch.autograd.grad(loss, params)
+        if mesh is not None and mesh.dp > 1:
+            flat = torch.cat([g.reshape(-1) for g in grads])
+            mesh_mod.all_reduce(flat, mesh, "data").div_(mesh.dp)
+            grads = [g.view_as(p) for g, p in
+                     zip(flat.split([p.numel() for p in params]), params)]
         grad_s = clock() - t0
         scratch = [p.detach().clone().requires_grad_(True) for p in params]
         for s, g in zip(scratch, grads):
             s.grad = g
-        opt = make_optimizer(scratch)
+        opt = build_optimizer(zip(names, scratch), model, zero1)
         opt.load_state_dict(_clone_optimizer_state(optimizer.state_dict()))
         t0 = clock()
         opt.step()
@@ -234,17 +367,27 @@ def _record_serve_window(serve, batch: int, n_steps: int, window_s: float) -> No
     )
 
 
-def _build_model(cfg, params, generator, device):
+def _build_model(cfg, params, generator, device, mesh=None):
     """The seeded model for ``cfg``'s family, or ``params`` (a model, or
-    the reference's parameter tree as numpy arrays) on ``device``."""
+    the reference's parameter tree as numpy arrays) on ``device``. On a
+    ``mesh`` every rank builds the full model from the same seed (or
+    tree) and keeps its slice (``parallel.mesh.shard_params``)."""
     is_moe = isinstance(cfg, MoeConfig)
     if params is None:
-        return (moe_mod.init_params if is_moe else init_params)(cfg, generator)
-    if isinstance(params, torch.nn.Module):
-        return params.to(device)
-    return (moe_mod.from_jax_params if is_moe else from_jax_params)(
-        cfg, params, device
-    )
+        full = (moe_mod.init_params if is_moe else init_params)(cfg, generator)
+    elif isinstance(params, torch.nn.Module):
+        full = params.to(device)
+    else:
+        full = (moe_mod.from_jax_params if is_moe else from_jax_params)(
+            cfg, params, device
+        )
+    if mesh is None:
+        return full
+    model = (Moe if is_moe else Llama)(cfg, device, mesh)
+    specs = _param_specs(model)
+    with torch.no_grad():
+        model.load_state_dict(mesh_mod.shard_params(full.state_dict(), mesh, specs))
+    return model
 
 
 def run(
@@ -253,11 +396,15 @@ def run(
     steps: int = 10,
     batch: int = 8,
     seq: int | None = None,
+    dp: int = 1,
+    tp: int = 1,
     grad_accum: int = 1,
     remat: bool = False,
     with_grad_norm: bool = False,
     loss_chunk: int = 0,
+    zero1: bool = False,
     seed: int = 0,
+    mesh=None,
     attn: str = "xla",
     checkpoint_dir: str | None = None,
     checkpoint_every: int = 0,
@@ -279,19 +426,33 @@ def run(
     ones, so a test can give this run and the reference the same weights
     and data.
 
+    ``dp``/``tp`` > 1 run this process as one rank of a dp×tp mesh
+    (``mesh``: this rank's ``parallel.mesh.Mesh``, made from the started
+    process group when not given; it also sets the device): every rank
+    draws the full weights and tokens and keeps its Megatron slice and its
+    contiguous block of ``batch // dp`` rows. The losses, the grad norm,
+    the FLOPs and the tokens a step are global. ``zero1`` shards the AdamW
+    moments over ``data`` (ZeRO-1; needs dp > 1).
+
     The token batch is fixed and reused every step. A warm-up step runs
     outside the timing. ``stats`` (a :class:`stats.WorkloadStats`) turns
     on the windowed telemetry: every ``stats_every`` steps the loop reads
-    the loss (one host sync per window) and records the window's steps/s;
-    ``phase_stats`` adds one instrumented step per window, and ``serve``
-    (a :class:`serve.ServeStats`) the request-level view of each window.
+    the loss (one host sync per window) and records the window's steps/s
+    and, on a mesh, the collective-wait fraction; ``phase_stats`` adds one
+    instrumented step per window, and ``serve`` (a
+    :class:`serve.ServeStats`) the request-level view of each window. On
+    a mesh every rank passes the same ``stats_every`` and ``phase_stats``
+    (the windows and probes issue collectives in lockstep).
 
     ``checkpoint_dir`` runs the checkpointed loop instead
     (:func:`_run_checkpointed`): it resumes from the newest step saved
     there and runs on to global step ``steps``, saving every
     ``checkpoint_every`` steps and at the end.
     """
-    device = resolve_device(torch.device(device or "cuda").type)
+    if mesh is not None:
+        dp, tp, device = mesh.dp, mesh.tp, mesh.device
+    requested = torch.device(device or "cuda")
+    device = resolve_device(requested.type, requested.index or 0)
     # f32 products must be f32, as on the reference, not TF32.
     torch.backends.cuda.matmul.allow_tf32 = False
     seq = seq or cfg.max_seq
@@ -303,10 +464,20 @@ def run(
         raise ValueError(f"unknown attn impl: {attn!r}")
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
+    if batch % dp:
+        raise ValueError(f"batch ({batch}) must divide by dp ({dp})")
+    if dp > 1 and (batch // dp) % grad_accum:
+        raise ValueError(
+            f"per-data-shard batch ({batch // dp}) must divide by "
+            f"grad_accum ({grad_accum})"
+        )
     if batch % grad_accum:
         raise ValueError(
             f"batch ({batch}) must divide by grad_accum ({grad_accum})"
         )
+    if zero1 and dp < 2:
+        raise ValueError("zero1 shards optimizer state over dp; it needs a "
+                         "mesh with dp > 1")
     if loss_chunk:
         if loss_chunk < 1:
             raise ValueError(f"loss_chunk must be >= 1, got {loss_chunk}")
@@ -325,8 +496,11 @@ def run(
         raise ValueError("serve telemetry composes with the windowed "
                          "loop, not checkpoint_dir")
 
+    if mesh is None and dp * tp > 1:
+        mesh = mesh_mod.make_mesh(dp, tp, device=device)
+
     generator = torch.Generator(device=device).manual_seed(seed)
-    model = _build_model(cfg, params, generator, device)
+    model = _build_model(cfg, params, generator, device, mesh)
     if tokens is None:
         tokens = torch.randint(
             0, cfg.vocab, (batch, seq + 1), generator=generator, device=device
@@ -338,7 +512,10 @@ def run(
                 f"tokens must be [batch, seq + 1] = {(batch, seq + 1)}, got "
                 f"{tuple(tokens.shape)}"
             )
-    optimizer = make_optimizer(model.parameters())
+    if mesh is not None:
+        rows = batch // dp
+        tokens = tokens[mesh.coords["data"] * rows:][:rows]
+    optimizer = build_optimizer(model.named_parameters(), model, zero1)
 
     attn_impl = None
     if attn == "flash":
@@ -350,29 +527,68 @@ def run(
         with_grad_norm=with_grad_norm, loss_chunk=loss_chunk,
     )
 
+    run_devices = [device] if mesh is None else mesh_mod.rank_devices(mesh)
     flops_per_step = flops_mod.train_flops_per_step(cfg, batch, seq)
     if stats is not None:
         stats.configure(
             flops_per_step=flops_per_step,
             tokens_per_step=batch * seq,
-            peak_flops_total=flops_mod.peak_flops_per_device(device),
-            axes={"dp": 1, "tp": 1, "sp": 1, "pp": 1, "ep": 1},
+            peak_flops_total=flops_mod.peak_flops_total(run_devices),
+            axes={"dp": dp, "tp": tp, "sp": 1, "pp": 1, "ep": 1},
         )
     phase_probe = None
     if stats is not None and phase_stats:
         phase_probe = _make_phase_probe(
-            model, optimizer, attn_impl, remat, loss_chunk, grad_accum
+            model, optimizer, attn_impl, remat, loss_chunk, grad_accum, zero1
         )
+    result = RunResult(losses=[], steps_per_sec=0.0, dp=dp, tp=tp,
+                       model_flops_per_step=flops_per_step)
     if checkpoint_dir is not None:
-        return _run_checkpointed(
+        _run_checkpointed(
             step, model, optimizer, tokens, steps, checkpoint_dir,
-            checkpoint_every, cfg=cfg, batch=batch, seq=seq, device=device,
-            stats=stats, phase_probe=phase_probe, with_grad_norm=with_grad_norm,
+            checkpoint_every, result, stats=stats, phase_probe=phase_probe,
+            with_grad_norm=with_grad_norm, zero1=zero1,
         )
+    else:
+        _run_windowed(step, model, tokens, steps, result, stats=stats,
+                      stats_every=stats_every, phase_probe=phase_probe,
+                      serve=serve, batch=batch, with_grad_norm=with_grad_norm)
+    result.mfu = flops_mod.mfu(cfg, batch, seq, result.steps_per_sec, run_devices)
+    result.moment_bytes = _moment_bytes(model, optimizer)
+    return result
+
+
+def _run_windowed(step, model, tokens, steps, result, *, stats, stats_every,
+                  phase_probe, serve, batch, with_grad_norm) -> None:
+    """The traffic generator's loop: a warm-up step, then ``steps`` timed
+    steps that sync once per stats window. Fills ``result``'s losses,
+    grad norms and steps/s.
+
+    On a mesh each window also records the collective-wait fraction: the
+    latency the rank's counters read over the window, over the window's
+    wall time (the reference's formula over the one rank whose calls the
+    counters time). The phase probe's own collectives are kept out of the
+    next window's numerator, as the reference does."""
+    mesh = model.mesh
+    counters = None if mesh is None else mesh.counters
+    wait_base: list[float] = []
+
+    def record_wait(window_s: float) -> None:
+        if counters is None:
+            return
+        counters.flush()
+        cur = counters.total_latency_us()
+        if wait_base and window_s > 0:
+            stats.record_collective_wait(
+                max(0.0, cur - wait_base[0]) / 1e6 / window_s
+            )
+        wait_base[:] = [cur]  # window_s <= 0 seeds the baseline only
 
     # Warm-up outside the timed window.
     loss, gnorm = step(tokens)
-    losses = [loss.item()]
+    result.losses.append(loss.item())
+    if with_grad_norm:
+        result.grad_norms.append(gnorm.item())
 
     t0 = time.perf_counter()
     if stats is None:
@@ -380,6 +596,7 @@ def run(
             loss, gnorm = step(tokens)
     else:
         window_t0, done = t0, 0
+        record_wait(0.0)
         for i in range(1, steps + 1):
             loss, gnorm = step(tokens)
             if i % max(stats_every, 1) == 0 or i == steps:
@@ -388,34 +605,36 @@ def run(
                 stats.record(lv, i - done, now - window_t0)
                 if serve is not None:
                     _record_serve_window(serve, batch, i - done, now - window_t0)
+                record_wait(now - window_t0)
                 if phase_probe is not None:
                     try:
                         stats.record_phases(phase_probe(tokens))
                     except Exception:
+                        if mesh is not None:
+                            raise  # the other ranks are inside its collectives
                         # Telemetry must never kill the traffic generator.
                         log.exception("phase probe failed")
                         phase_probe = None
+                    record_wait(0.0)
                 window_t0, done = time.perf_counter(), i
     # The barrier is a host read of the last loss.
     final_loss = loss.item()
     elapsed = time.perf_counter() - t0
-    losses.append(final_loss)
-    steps_per_sec = steps / elapsed if elapsed > 0 else float("inf")
-    return RunResult(
-        losses=losses,
-        steps_per_sec=steps_per_sec,
-        model_flops_per_step=flops_per_step,
-        mfu=flops_mod.mfu(cfg, batch, seq, steps_per_sec, device),
-        grad_norm=(gnorm.item() if with_grad_norm else None),
-    )
+    if counters is not None:
+        counters.flush()
+    result.losses.append(final_loss)
+    result.steps_per_sec = steps / elapsed if elapsed > 0 else float("inf")
+    if with_grad_norm:
+        result.grad_norms.append(gnorm.item())
+        result.grad_norm = result.grad_norms[-1]
 
 
 def _run_checkpointed(
     step, model, optimizer, tokens, steps, checkpoint_dir, checkpoint_every,
-    *, cfg, batch, seq, device, stats=None, phase_probe=None,
-    with_grad_norm=False,
-) -> RunResult:
-    """Checkpoint/resume loop around the train step.
+    result, *, stats=None, phase_probe=None, with_grad_norm=False,
+    zero1=False,
+) -> None:
+    """Checkpoint/resume loop around the train step; fills ``result``.
 
     Separate from the windowed loop on purpose: it reads the loss every
     step (one host sync each) and touches disk, so the traffic
@@ -423,11 +642,16 @@ def _run_checkpointed(
     saved step (a failed restore raises), runs global steps
     ``start_step .. steps - 1`` with one loss each, saves every
     ``checkpoint_every`` steps and at the end (never a step already
-    saved), keeps the 2 newest, and runs one phase probe at the end.
+    saved), keeps the 2 newest, and runs one phase probe at the end. On a
+    mesh every rank saves and restores its own shard
+    (:class:`checkpoint.CheckpointStore`); a resume needs the same
+    dp×tp×zero1.
     """
     from tpumon.workload_torch.checkpoint import CheckpointStore
 
-    store = CheckpointStore(checkpoint_dir)
+    mesh = model.mesh
+    store = CheckpointStore(checkpoint_dir, mesh=mesh, zero1=zero1)
+    device = next(model.parameters()).device
     start_step = 0
     latest = store.latest_step()
     if latest is not None:
@@ -442,15 +666,18 @@ def _run_checkpointed(
             stats.set_start_step(start_step)
         log.info("resumed from %s at step %d", checkpoint_dir, latest)
 
-    losses: list[float] = []
+    losses = result.losses
     timed, timed_steps = 0.0, 0
     saved_at = start_step if latest is not None else -1
-    gnorm = None
     for i in range(start_step, steps):
         t0 = time.perf_counter()
         loss, gnorm = step(tokens)
         losses.append(loss.item())  # one host sync per step
         dt = time.perf_counter() - t0
+        if with_grad_norm:
+            result.grad_norms.append(gnorm.item())
+        if mesh is not None:
+            mesh.counters.flush()
         if i > start_step:  # the first iteration is the warm-up
             timed += dt
             timed_steps += 1
@@ -474,21 +701,18 @@ def _run_checkpointed(
             try:
                 stats.record_phases(phase_probe(tokens))
             except Exception:
+                if mesh is not None:
+                    raise  # the other ranks are inside its collectives
                 # Telemetry must never kill the traffic generator.
                 log.exception("phase probe failed")
     if not losses:
         log.info("checkpoint at %s already covers %d steps; nothing to run",
                  checkpoint_dir, steps)
     # 0.0, not inf, when no step ran outside the warm-up: no throughput.
-    steps_per_sec = timed_steps / timed if timed > 0 else 0.0
-    return RunResult(
-        losses=losses,
-        steps_per_sec=steps_per_sec,
-        start_step=start_step,
-        model_flops_per_step=flops_mod.train_flops_per_step(cfg, batch, seq),
-        mfu=flops_mod.mfu(cfg, batch, seq, steps_per_sec, device),
-        grad_norm=(gnorm.item() if with_grad_norm and gnorm is not None else None),
-    )
+    result.steps_per_sec = timed_steps / timed if timed > 0 else 0.0
+    result.start_step = start_step
+    if result.grad_norms:
+        result.grad_norm = result.grad_norms[-1]
 
 
 def _install_sigterm_marker(stats, grace_s: float | None = None) -> None:
@@ -533,10 +757,6 @@ def _install_sigterm_marker(stats, grace_s: float | None = None) -> None:
 #: the ROADMAP.md queue-1 item that ports each. Given a non-default value
 #: they fail; they are never silently ignored.
 _LATER = {
-    "dp": ("mesh, dp/tp and ZeRO-1", 7, 1),
-    "tp": ("mesh, dp/tp and ZeRO-1", 7, 1),
-    "zero1": ("mesh, dp/tp and ZeRO-1", 7, False),
-    "hlo_raw_dump": ("collective counters", 7, None),
     "sp": ("ring sequence parallelism", 8, 1),
     "sp_layout": ("ring sequence parallelism", 8, "contiguous"),
     "pp": ("pipeline parallelism", 9, 1),
@@ -577,7 +797,12 @@ def build_parser() -> argparse.ArgumentParser:
         "--capacity-factor", type=float, default=None,
         help="MoE expert capacity factor (default: the preset's 2.0)",
     )
-    parser.add_argument("--zero1", action="store_true")
+    parser.add_argument(
+        "--zero1", action="store_true",
+        help="ZeRO-1: each data rank keeps and steps the AdamW moments of "
+        "1/dp of every parameter and all-gathers the updated slices; needs "
+        "--dp > 1",
+    )
     parser.add_argument(
         "--checkpoint-dir", default=None,
         help="save to and resume from this directory (one subdirectory "
@@ -587,7 +812,11 @@ def build_parser() -> argparse.ArgumentParser:
         "--checkpoint-every", type=int, default=0,
         help="save every this many steps as well as at the end (0 = end only)",
     )
-    parser.add_argument("--hlo-raw-dump", default=None)
+    parser.add_argument(
+        "--hlo-raw-dump", default=None,
+        help="write one JSON line per collective rank 0 issues (op, bytes, "
+        "µs, rank) to this file, up to 4096 lines",
+    )
     parser.add_argument("--coordinator", default=None)
     parser.add_argument("--num-processes", type=int, default=1)
     parser.add_argument("--process-id", type=int, default=None)
@@ -610,6 +839,12 @@ def build_parser() -> argparse.ArgumentParser:
         help="fuse the unembed projection into the loss in sequence "
         "chunks of this many tokens (0 = off): the [B,S,vocab] f32 "
         "logits never materialize",
+    )
+    parser.add_argument(
+        "--grad-norm",
+        action="store_true",
+        help="compute the global gradient L2 norm every step (under --tp, "
+        "one more all-reduce over model) and report it",
     )
     parser.add_argument(
         "--attn",
@@ -656,7 +891,9 @@ def build_parser() -> argparse.ArgumentParser:
         choices=PLATFORMS,
         default="cuda",
         help="where to run: the card (default; raises when there is no "
-        "Hopper card) or the host cpu",
+        "Hopper card) or the host cpu. --dp/--tp start one process per "
+        "mesh position: over nccl when each has a card of its own, over "
+        "gloo when they share one or run on the host",
     )
     return parser
 
@@ -682,6 +919,39 @@ def model_config(args: argparse.Namespace) -> LlamaConfig | MoeConfig:
 
 
 def main(argv: list[str] | None = None) -> int:
+    """The CLI. With ``--dp``/``--tp`` > 1 and no ``RANK`` in the
+    environment it starts one process per mesh position
+    (``parallel.launch``), each of which re-enters it as its rank, and
+    returns the worst of their exit codes; with ``RANK`` set (by that
+    launcher or an ``env://`` one) it runs as that rank."""
+    return _main(sys.argv[1:] if argv is None else list(argv))
+
+
+def _rank_process(argv: list[str], env: dict, results) -> None:
+    """A spawned rank: :func:`main` with the launcher's environment; its
+    report goes back on ``results``."""
+    os.environ.update(env)
+    sys.exit(_main(argv, results))
+
+
+def _launch_mesh(argv: list[str], args, world: int) -> int:
+    """The launching process of a mesh: it checks the platform, builds
+    the kernels once (the ranks must not race one ``nvcc`` each), starts
+    the ranks and logs each rank's report."""
+    from tpumon.workload_torch.parallel import launch
+
+    device = resolve_device(args.platform)
+    if device.type == "cuda" and args.attn == "flash":
+        from tpumon.workload_torch.ops import _build
+
+        _build.build()
+    rc, reports = launch.launch(_rank_process, argv, world)
+    for rank in sorted(reports):
+        log.info("rank %d report %s", rank, json.dumps(reports[rank]))
+    return rc
+
+
+def _main(argv: list[str], results=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
     for dest, (what, item, default) in _LATER.items():
@@ -699,14 +969,57 @@ def main(argv: list[str] | None = None) -> int:
                      "--checkpoint-dir")
     if args.capacity_factor is not None and args.model != "moe":
         parser.error("--capacity-factor requires --model moe")
-    logging.basicConfig(level=logging.INFO, format="%(levelname)s %(message)s")
+    if args.dp < 1 or args.tp < 1:
+        parser.error("--dp and --tp must be >= 1")
+    if args.zero1 and args.dp < 2:
+        parser.error("--zero1 shards the optimizer state over dp; it needs "
+                     "--dp > 1")
+    world = args.dp * args.tp
+    as_rank = world > 1 and "RANK" in os.environ
+    rank = int(os.environ["RANK"]) if as_rank else 0
+    logging.basicConfig(
+        level=logging.INFO,
+        format="%(levelname)s " + (f"rank{rank} " if as_rank else "") + "%(message)s",
+    )
+    if world > 1 and not as_rank:
+        return _launch_mesh(argv, args, world)
     cfg = model_config(args)
-    device = resolve_device(args.platform)
+
+    mesh = None
+    counters = None
+    if world > 1:
+        import torch.distributed as dist
+
+        from tpumon.workload_torch.collective_counters import CollectiveCounters
+
+        if int(os.environ["WORLD_SIZE"]) != world:
+            raise ValueError(f"WORLD_SIZE={os.environ['WORLD_SIZE']} but "
+                             f"--dp*--tp is {world}")
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+        device = mesh_mod.rank_device(args.platform, rank)
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+        dist.init_process_group(
+            mesh_mod.backend_for(world, device), init_method="env://",
+            rank=rank, world_size=world,
+        )
+        counters = CollectiveCounters(
+            raw_path=args.hlo_raw_dump if rank == 0 else None, rank=rank)
+        mesh = mesh_mod.make_mesh(args.dp, args.tp, device=device,
+                                  counters=counters)
+    else:
+        device = resolve_device(args.platform)
 
     server = None
     stats = None
     serve_stats = None
-    if args.metrics_port:
+    if args.metrics_port and rank != 0:
+        # The windows and phase probes issue collectives, so every rank
+        # runs them; only rank 0 publishes.
+        from tpumon.workload_torch.stats import WorkloadStats
+
+        stats = WorkloadStats()
+    elif args.metrics_port:
         from prometheus_client.registry import CollectorRegistry
 
         from tpumon.exporter.server import (
@@ -718,6 +1031,10 @@ def main(argv: list[str] | None = None) -> int:
         from tpumon.workload_torch.stats import StatsCollector, WorkloadStats
 
         registry = CollectorRegistry()
+        if counters is not None:
+            from tpumon.workload_torch.collective_counters import CountersCollector
+
+            registry.register(CountersCollector(counters))
         stats = WorkloadStats()
         registry.register(StatsCollector(stats))
         if args.serve:
@@ -744,7 +1061,12 @@ def main(argv: list[str] | None = None) -> int:
         log.info("workload counters at %s/metrics", server.url)
         _install_sigterm_marker(stats)
 
+    from tpumon.workload_torch.ops import flash_attention as fa
+
     try:
+        fa.reset_launches()
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
         result = run(
             cfg,
             steps=args.steps,
@@ -752,7 +1074,10 @@ def main(argv: list[str] | None = None) -> int:
             seq=args.seq,
             grad_accum=args.grad_accum,
             remat=args.remat,
+            with_grad_norm=args.grad_norm,
             loss_chunk=args.loss_chunk,
+            zero1=args.zero1,
+            mesh=mesh,
             attn=args.attn,
             checkpoint_dir=args.checkpoint_dir,
             checkpoint_every=args.checkpoint_every,
@@ -762,19 +1087,44 @@ def main(argv: list[str] | None = None) -> int:
             serve=serve_stats,
             device=device,
         )
-        log.info(
-            "loss %.4f → %.4f | %.2f steps/s | %.1f GFLOP/step | MFU %s | "
-            "device=%s",
-            result.losses[0] if result.losses else float("nan"),
-            result.losses[-1] if result.losses else float("nan"),
-            result.steps_per_sec,
-            result.model_flops_per_step / 1e9,
-            f"{result.mfu:.2%}" if result.mfu is not None else "n/a (no peak)",
-            torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
-        )
+        if rank == 0:
+            log.info(
+                "loss %.4f → %.4f | %.2f steps/s | %.1f GFLOP/step | MFU %s | "
+                "mesh dp=%d tp=%d | device=%s",
+                result.losses[0] if result.losses else float("nan"),
+                result.losses[-1] if result.losses else float("nan"),
+                result.steps_per_sec,
+                result.model_flops_per_step / 1e9,
+                f"{result.mfu:.2%}" if result.mfu is not None else "n/a (no peak)",
+                result.dp,
+                result.tp,
+                torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
+            )
+        if mesh is not None:
+            report = {
+                "rank": rank, "coords": mesh.coords, "backend": mesh.backend,
+                "device": str(device), "losses": result.losses,
+                "grad_norms": result.grad_norms,
+                "steps_per_sec": result.steps_per_sec, "mfu": result.mfu,
+                "start_step": result.start_step,
+                "peak_memory_bytes": (torch.cuda.max_memory_allocated(device)
+                                      if device.type == "cuda" else None),
+                "launches": dict(fa.launches),
+                "collectives": counters.detailed_snapshot(),
+                "moment_bytes": sum(result.moment_bytes.values()),
+            }
+            log.info("collectives %s", report["collectives"]["counts"])
+            if results is not None:
+                results.put((rank, report))
     finally:
         if server is not None:
             server.close()
+        if counters is not None:
+            counters.close()
+        if mesh is not None:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
     return 0
 
 

@@ -23,6 +23,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from tpumon.workload_torch.ops.core import apply_rope, rms_norm, rope_freqs
+from tpumon.workload_torch.parallel import mesh as mesh_mod
 
 
 @dataclass(frozen=True)
@@ -124,12 +125,16 @@ def plain_attention(q, k, v, mask):
 def attention(layer: nn.Module, x, freqs, mask, attn_impl=None):
     """A layer's attention sublayer on the normed input x [B,S,D]: the
     q/k/v projections, RoPE, the core, the output projection. It reads
-    ``layer.cfg`` (heads, kv heads, head_dim, dtype) and the weights
+    ``layer.cfg`` (head_dim, dtype), ``layer.mesh`` and the weights
     ``layer.wq``/``wk``/``wv``/``wo``; the dense and the MoE layers both
-    hold them under these names."""
+    hold them under these names. Under tp the weights hold the rank's
+    heads (the heads are read off their widths), the projections' input
+    is a column split's and the output projection a row split."""
     cfg = layer.cfg
     B, S, _ = x.shape
-    H, KV, HD = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    HD = cfg.head_dim
+    H, KV = layer.wq.shape[1] // HD, layer.wk.shape[1] // HD
+    x = mesh_mod.copy_to_model(x, layer.mesh)
     q = (x @ layer.wq.to(cfg.dtype)).reshape(B, S, H, HD)
     k = (x @ layer.wk.to(cfg.dtype)).reshape(B, S, KV, HD)
     v = (x @ layer.wv.to(cfg.dtype)).reshape(B, S, KV, HD)
@@ -141,42 +146,92 @@ def attention(layer: nn.Module, x, freqs, mask, attn_impl=None):
         out = attn_impl(q, k, v)
     else:
         out = plain_attention(q, k, v, mask)
-    return out.reshape(B, S, H * HD) @ layer.wo.to(cfg.dtype)
+    out = out.reshape(B, S, H * HD) @ layer.wo.to(cfg.dtype)
+    return mesh_mod.reduce_from_model(out, layer.mesh)
+
+
+def check_tp(cfg, tp: int) -> None:
+    """Raise unless ``tp`` splits the heads, the kv heads, the FFN and the
+    vocabulary evenly."""
+    for field in ("n_heads", "n_kv_heads", "ffn_dim", "vocab"):
+        if getattr(cfg, field) % tp:
+            raise ValueError(
+                f"{field} ({getattr(cfg, field)}) must divide by tp ({tp})"
+            )
+
+
+def _tp(mesh) -> int:
+    return 1 if mesh is None else mesh.tp
 
 
 class Block(nn.Module):
-    """One decoder layer: x + attn(norm(x)), then + mlp(norm(x))."""
+    """One decoder layer: x + attn(norm(x)), then + mlp(norm(x)). Under a
+    ``mesh`` with tp > 1 it holds the rank's slices (Megatron splits)."""
 
-    def __init__(self, cfg: LlamaConfig, device=None) -> None:
+    def __init__(self, cfg: LlamaConfig, device=None, mesh=None) -> None:
         super().__init__()
         self.cfg = cfg
+        self.mesh = mesh
         for name, shape in _layer_shapes(cfg).items():
+            shape = mesh_mod.local_shape(name, shape, mesh_mod.PARAM_SPECS, _tp(mesh))
             setattr(self, name, _param(shape, device))
 
     def mlp(self, x):
         dtype = self.cfg.dtype
+        x = mesh_mod.copy_to_model(x, self.mesh)
         gate = x @ self.w_gate.to(dtype)
         up = x @ self.w_up.to(dtype)
-        return (nn.functional.silu(gate) * up) @ self.w_down.to(dtype)
+        out = (nn.functional.silu(gate) * up) @ self.w_down.to(dtype)
+        return mesh_mod.reduce_from_model(out, self.mesh)
 
     def forward(self, h, freqs, mask, attn_impl=None):
         h = h + attention(self, rms_norm(h, self.attn_norm), freqs, mask, attn_impl)
         return h + self.mlp(rms_norm(h, self.mlp_norm))
 
 
+def embed_tokens(model: nn.Module, tokens: torch.Tensor) -> torch.Tensor:
+    """tokens [B, S] → x [B, S, dim] in ``cfg.dtype``. Under tp the rank
+    holds a contiguous block of the vocabulary's rows: it looks up the
+    ids in its block, zeroes the others, and the rows sum over model."""
+    w = model.embed.to(model.cfg.dtype)
+    if _tp(model.mesh) == 1:
+        return w[tokens]
+    rows = w.shape[0]
+    local = tokens - model.mesh.coords["model"] * rows
+    inside = (local >= 0) & (local < rows)
+    x = w[local.clamp(0, rows - 1)] * inside[..., None].to(w.dtype)
+    return mesh_mod.reduce_from_model(x, model.mesh)
+
+
+def unembed_logits(model: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """Final-norm hidden x [B, S, dim] → f32 logits [B, S, vocab] (the
+    rank's vocabulary columns under tp)."""
+    x = mesh_mod.copy_to_model(x, model.mesh)
+    return (x @ model.unembed.to(model.cfg.dtype)).float()
+
+
 class Llama(nn.Module):
     """The decoder. Parameters are allocated uninitialized: build it with
-    :func:`init_params` or :func:`from_jax_params`."""
+    :func:`init_params` or :func:`from_jax_params`. ``mesh`` (a
+    ``parallel.mesh.Mesh``, None on one device) makes it the rank's
+    Megatron slice: local heads ``H/tp`` and ``KV/tp``, FFN ``ffn_dim/tp``
+    and vocabulary ``vocab/tp``; fill it with ``parallel.mesh.shard_params``
+    of a full model's state."""
 
-    def __init__(self, cfg: LlamaConfig, device=None) -> None:
+    def __init__(self, cfg: LlamaConfig, device=None, mesh=None) -> None:
         super().__init__()
+        check_tp(cfg, _tp(mesh))
         self.cfg = cfg
-        self.embed = _param((cfg.vocab, cfg.dim), device)
+        self.mesh = mesh
+        specs, tp = mesh_mod.PARAM_SPECS, _tp(mesh)
+        self.embed = _param(
+            mesh_mod.local_shape("embed", (cfg.vocab, cfg.dim), specs, tp), device)
         self.blocks = nn.ModuleList(
-            Block(cfg, device) for _ in range(cfg.n_layers)
+            Block(cfg, device, mesh) for _ in range(cfg.n_layers)
         )
         self.final_norm = _param((cfg.dim,), device)
-        self.unembed = _param((cfg.dim, cfg.vocab), device)
+        self.unembed = _param(
+            mesh_mod.local_shape("unembed", (cfg.dim, cfg.vocab), specs, tp), device)
 
     def forward(
         self,
@@ -185,7 +240,8 @@ class Llama(nn.Module):
         remat: bool = False,
         unembed: bool = True,
     ) -> torch.Tensor:
-        """tokens [B, S] → logits [B, S, vocab] float32.
+        """tokens [B, S] → logits [B, S, vocab] float32 (the rank's
+        vocabulary columns under tp).
 
         ``unembed=False`` returns the final-norm hidden states [B, S, dim]
         (cfg.dtype) for losses that fuse the unembed projection with the
@@ -195,7 +251,7 @@ class Llama(nn.Module):
         """
         cfg = self.cfg
         S = tokens.shape[1]
-        x = self.embed.to(cfg.dtype)[tokens]
+        x = embed_tokens(self, tokens)
         freqs = rope_freqs(cfg.head_dim, cfg.max_seq, device=x.device)
         mask = causal_mask(S, x.device) if attn_impl is None else None
         for block in self.blocks:
@@ -206,7 +262,7 @@ class Llama(nn.Module):
         x = rms_norm(x, self.final_norm)
         if not unembed:
             return x
-        return (x @ self.unembed.to(cfg.dtype)).float()
+        return unembed_logits(self, x)
 
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:

@@ -28,6 +28,7 @@ from torch.utils.checkpoint import checkpoint
 
 from tpumon.workload_torch.models import llama as _llama
 from tpumon.workload_torch.ops.core import rms_norm, rope_freqs
+from tpumon.workload_torch.parallel import mesh as mesh_mod
 
 
 @dataclass(frozen=True)
@@ -137,15 +138,23 @@ def route_tokens(x, router, cfg: MoeConfig):
     return dispatch, combine, probs
 
 
-def expert_ffn(x, dispatch, combine, w_gate, w_up, w_down, cfg: MoeConfig):
+def expert_ffn(x, dispatch, combine, w_gate, w_up, w_down, cfg: MoeConfig,
+               mesh=None):
     """Dispatch → expert SwiGLU → combine, as dense einsums over the
     static capacity axis in ``cfg.dtype``: x [B,S,D], dispatch/combine
-    [B,S,E,C], banks [E,D,F] / [E,F,D] → out [B,S,D]."""
+    [B,S,E,C], banks [E,D,F] / [E,F,D] → out [B,S,D].
+
+    Under tp the banks hold the rank's slice of the FFN dim: x enters as a
+    column split's input, and the experts' outputs sum over model before
+    the combine, so the replicated router's gradient through the combine
+    weights is whole on every rank."""
     dtype = cfg.dtype
+    x = mesh_mod.copy_to_model(x, mesh)
     xin = torch.einsum("bsec,bsd->ebcd", dispatch.to(dtype), x)
     gate = torch.einsum("ebcd,edf->ebcf", xin, w_gate.to(dtype))
     up = torch.einsum("ebcd,edf->ebcf", xin, w_up.to(dtype))
     y = torch.einsum("ebcf,efd->ebcd", F.silu(gate) * up, w_down.to(dtype))
+    y = mesh_mod.reduce_from_model(y, mesh)
     return torch.einsum("bsec,ebcd->bsd", combine.to(dtype), y)
 
 
@@ -153,21 +162,31 @@ class MoeBlock(nn.Module):
     """One layer: x + attn(norm(x)), then + moe(norm(x)); returns the
     layer's output and its aux loss."""
 
-    def __init__(self, cfg: MoeConfig, device=None) -> None:
+    def __init__(self, cfg: MoeConfig, device=None, mesh=None) -> None:
         super().__init__()
         self.cfg = cfg
+        self.mesh = mesh
         for name, shape in _layer_shapes(cfg).items():
+            shape = mesh_mod.local_shape(
+                name, shape, mesh_mod.MOE_PARAM_SPECS, _llama._tp(mesh))
             setattr(self, name, _llama._param(shape, device))
 
     def moe_mlp(self, x):
         """x [B,S,D] → (out [B,S,D], GShard aux loss, a f32 scalar)."""
         cfg = self.cfg
         dispatch, combine, probs = route_tokens(x, self.router, cfg)
-        # E · Σ_e mean-fraction-routed(e) · mean-prob(e).
+        # E · Σ_e mean-fraction-routed(e) · mean-prob(e), both means over
+        # the whole batch: on a data-parallel mesh they average over the
+        # data ranks (the rows are equal shards).
         frac = dispatch.sum(dim=-1).mean(dim=(0, 1))  # [E]
-        aux = cfg.n_experts * (frac / cfg.top_k * probs.mean(dim=(0, 1))).sum()
+        prob = probs.mean(dim=(0, 1))
+        if self.mesh is not None and self.mesh.dp > 1:
+            frac, prob = mesh_mod.mean_over_data(
+                torch.cat([frac, prob]), self.mesh).split(cfg.n_experts)
+        aux = cfg.n_experts * (frac / cfg.top_k * prob).sum()
         out = expert_ffn(
-            x, dispatch, combine, self.w_gate, self.w_up, self.w_down, cfg
+            x, dispatch, combine, self.w_gate, self.w_up, self.w_down, cfg,
+            self.mesh,
         )
         return out, aux
 
@@ -181,21 +200,30 @@ class MoeBlock(nn.Module):
 
 class Moe(nn.Module):
     """The MoE decoder. Parameters are allocated uninitialized: build it
-    with :func:`init_params` or :func:`from_jax_params`."""
+    with :func:`init_params` or :func:`from_jax_params`. ``mesh`` makes it
+    the rank's slice, as :class:`models.llama.Llama`'s does, with the
+    expert banks split on the FFN dim and the router replicated
+    (``moe_param_specs`` at ep = 1)."""
 
-    def __init__(self, cfg: MoeConfig, device=None) -> None:
+    def __init__(self, cfg: MoeConfig, device=None, mesh=None) -> None:
         super().__init__()
+        tp = _llama._tp(mesh)
+        _llama.check_tp(cfg, tp)
         self.cfg = cfg
-        self.embed = _llama._param((cfg.vocab, cfg.dim), device)
+        self.mesh = mesh
+        specs = mesh_mod.MOE_PARAM_SPECS
+        self.embed = _llama._param(
+            mesh_mod.local_shape("embed", (cfg.vocab, cfg.dim), specs, tp), device)
         self.blocks = nn.ModuleList(
-            MoeBlock(cfg, device) for _ in range(cfg.n_layers)
+            MoeBlock(cfg, device, mesh) for _ in range(cfg.n_layers)
         )
         self.final_norm = _llama._param((cfg.dim,), device)
-        self.unembed = _llama._param((cfg.dim, cfg.vocab), device)
+        self.unembed = _llama._param(
+            mesh_mod.local_shape("unembed", (cfg.dim, cfg.vocab), specs, tp), device)
 
     def forward(self, tokens: torch.Tensor, attn_impl=None, remat: bool = False):
-        """tokens [B, S] → (logits [B, S, vocab] f32, aux loss f32 scalar,
-        the mean over layers).
+        """tokens [B, S] → (logits [B, S, vocab] f32 (the rank's vocabulary
+        columns under tp), aux loss f32 scalar, the mean over layers).
 
         ``remat=True`` checkpoints each layer's whole body, routing
         included, as the reference's ``jax.checkpoint(block)``: the
@@ -204,7 +232,7 @@ class Moe(nn.Module):
         """
         cfg = self.cfg
         S = tokens.shape[1]
-        x = self.embed.to(cfg.dtype)[tokens]
+        x = _llama.embed_tokens(self, tokens)
         freqs = rope_freqs(cfg.head_dim, cfg.max_seq, device=x.device)
         mask = _llama.causal_mask(S, x.device) if attn_impl is None else None
         aux = x.new_zeros((), dtype=torch.float32)
@@ -217,7 +245,7 @@ class Moe(nn.Module):
                 x, layer_aux = block(x, freqs, mask, attn_impl)
             aux = aux + layer_aux
         x = rms_norm(x, self.final_norm)
-        return (x @ self.unembed.to(cfg.dtype)).float(), aux / cfg.n_layers
+        return _llama.unembed_logits(self, x), aux / cfg.n_layers
 
 
 def init_params(cfg: MoeConfig, generator: torch.Generator, device=None) -> Moe:

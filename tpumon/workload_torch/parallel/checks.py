@@ -1,0 +1,97 @@
+"""What the mesh tests run on every rank (``launch.spawn`` targets).
+
+Each function runs inside one rank of a CPU gloo group and returns plain
+Python and numpy values for the test to compare; the tests start them
+here, in the package, because ``spawn`` imports its target by name in a
+fresh interpreter.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from tpumon.workload_torch import harness
+from tpumon.workload_torch.models import moe as moe_mod
+from tpumon.workload_torch.parallel import mesh as mesh_mod
+from tpumon.workload_torch.stats import WorkloadStats
+
+
+def run_jobs(rank: int, world: int, jobs: list[dict]) -> list[dict]:
+    """``harness.run`` once per job on a fresh dp×tp mesh: each job is
+    ``{"cfg", "dp", "tp", "kwargs"}`` (``kwargs`` go to ``run``, device
+    cpu), plus ``"stats": True`` to pass a fresh ``WorkloadStats`` (the
+    windowed loop) and ``"routes": True`` to record every MoE layer's
+    dispatch tensors; ``{"pair": True}`` runs :func:`copy_reduce_pair`.
+    Returns each job's losses, grad norms, moment bytes by parameter and
+    collective counts, and the routes when asked."""
+    out = []
+    for job in jobs:
+        if job.get("pair"):
+            out.append(copy_reduce_pair(rank, world))
+            continue
+        mesh = mesh_mod.make_mesh(job["dp"], job["tp"], device=torch.device("cpu"))
+        routes: list[np.ndarray] = []
+        route_tokens = moe_mod.route_tokens
+        if job.get("routes"):
+            def recording(x, router, cfg):
+                dispatch, combine, probs = route_tokens(x, router, cfg)
+                routes.append(dispatch.detach().numpy().copy())
+                return dispatch, combine, probs
+
+            moe_mod.route_tokens = recording
+        kwargs = dict(job["kwargs"])
+        if job.get("stats"):
+            kwargs["stats"] = WorkloadStats()
+        try:
+            result = harness.run(job["cfg"], mesh=mesh, device="cpu", **kwargs)
+        finally:
+            moe_mod.route_tokens = route_tokens
+        out.append({
+            "losses": result.losses,
+            "grad_norms": result.grad_norms,
+            "start_step": result.start_step,
+            "moment_bytes": result.moment_bytes,
+            "counts": mesh.counters.detailed_snapshot()["counts"],
+            "routes": routes,
+        })
+    return out
+
+
+def copy_reduce_pair(rank: int, world: int, seed: int = 0) -> dict:
+    """The Megatron f/g pair on a dp×tp = 2×2 mesh against the unsplit
+    product, in f32: x [4, 8] @ w1 [8, 6] (column split) @ w2 [6, 10]
+    (row split). Returns the max abs error of the output, of dx, and of
+    the rank's slices of dw1 and dw2."""
+    mesh = mesh_mod.make_mesh(2, 2, device=torch.device("cpu"))
+    rng = np.random.default_rng(seed)
+    x, w1, w2, g = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                    for s in ((4, 8), (8, 6), (6, 10), (4, 10)))
+    full = [t.clone().requires_grad_(True) for t in (x, w1, w2)]
+    ((full[0] @ full[1] @ full[2]) * g).sum().backward()
+    want = (x @ w1 @ w2).detach()
+
+    m = mesh.coords["model"]
+    xs = x.clone().requires_grad_(True)
+    w1s = w1.chunk(2, dim=1)[m].clone().requires_grad_(True)
+    w2s = w2.chunk(2, dim=0)[m].clone().requires_grad_(True)
+    out = mesh_mod.reduce_from_model(mesh_mod.copy_to_model(xs, mesh) @ w1s @ w2s, mesh)
+    (out * g).sum().backward()
+    return {
+        "out": (out.detach() - want).abs().max().item(),
+        "dx": (xs.grad - full[0].grad).abs().max().item(),
+        "dw1": (w1s.grad - full[1].grad.chunk(2, dim=1)[m]).abs().max().item(),
+        "dw2": (w2s.grad - full[2].grad.chunk(2, dim=0)[m]).abs().max().item(),
+        "counts": mesh.counters.detailed_snapshot()["counts"],
+    }
+
+
+def fail_on_rank(rank: int, world: int, bad: int) -> None:
+    """Rank ``bad`` raises; the others wait in a barrier it never joins,
+    so only the launcher can end them."""
+    if rank == bad:
+        raise RuntimeError(f"rank {rank} fails on purpose")
+    torch.distributed.barrier()
+
+
+__all__ = ["copy_reduce_pair", "fail_on_rank", "run_jobs"]

@@ -1,0 +1,404 @@
+"""Process mesh, Megatron splits, ZeRO-1 and the port's collectives.
+
+The counterpart of ``tpumon/workload/parallel/mesh.py``. The reference
+lays devices out on a named ``jax.sharding.Mesh`` and lets GSPMD insert
+the collectives; here each mesh position is one process, each axis one
+``torch.distributed`` process group, and every collective is an explicit
+call in this module, wrapped in the rank's
+:class:`~tpumon.workload_torch.collective_counters.CollectiveCounters`
+so the page counts all of them.
+
+Axes, outermost first, in the reference's order (``AXES``): ``data``
+(batch; gradients all-reduce over it), ``stage``, ``expert``, ``seq`` and
+``model`` (Megatron tensor parallelism: heads and FFN columns split,
+output projections split by rows, the vocabulary split in the embedding
+and the unembed). Ranks are laid out like ``reshape(dp, pp, ep, sp, tp)``,
+so model peers are adjacent ranks. An axis of size 1 has no group, and a
+collective over it is the identity: no call, nothing counted.
+
+The backend rule: ``nccl`` when each rank has a card of its own, ``gloo``
+when ranks share a card or run on the CPU (gloo stages CUDA tensors
+through the host). Rank r uses card ``r % device_count``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from tpumon.workload_torch.collective_counters import CollectiveCounters
+from tpumon.workload_torch.platform import resolve_device
+
+log = logging.getLogger(__name__)
+
+AXES = ("data", "stage", "expert", "seq", "model")
+
+
+def layout(dp: int, tp: int, sp: int = 1, pp: int = 1, ep: int = 1) -> np.ndarray:
+    """The ranks of a dp×pp×ep×sp×tp mesh on a grid in :data:`AXES` order."""
+    return np.arange(dp * pp * ep * sp * tp).reshape(dp, pp, ep, sp, tp)
+
+
+def axis_groups(grid: np.ndarray, axis: str) -> list[list[int]]:
+    """The rank lists of ``axis``'s groups: ranks that share every other
+    coordinate, in grid order."""
+    i = AXES.index(axis)
+    return np.moveaxis(grid, i, -1).reshape(-1, grid.shape[i]).tolist()
+
+
+def backend_for(world_size: int, device: torch.device) -> str:
+    """``nccl`` when the host has a card for every rank, else ``gloo``."""
+    if device.type == "cuda" and torch.cuda.device_count() >= world_size:
+        backend = "nccl"
+    else:
+        backend = "gloo"
+    log.info("backend %s: %d ranks on %s (%d CUDA devices)", backend,
+             world_size, device.type, torch.cuda.device_count())
+    return backend
+
+
+def rank_device(platform: str, rank: int) -> torch.device:
+    """Rank ``rank``'s device: the host, or card ``rank % device_count``
+    (raises when a card is asked for and there is none)."""
+    if platform == "cpu":
+        return resolve_device("cpu")
+    if not torch.cuda.is_available():
+        return resolve_device("cuda")  # raises, naming what is missing
+    return resolve_device("cuda", rank % torch.cuda.device_count())
+
+
+def rank_devices(mesh: "Mesh") -> list[torch.device]:
+    """The device of every rank of ``mesh`` (ranks may share a card)."""
+    world = int(np.prod(list(mesh.shape.values())))
+    return [rank_device(mesh.device.type, r) for r in range(world)]
+
+
+@dataclasses.dataclass(eq=False)
+class Mesh:
+    """One rank's view of the mesh: the axis sizes, its coordinates, its
+    card, and the process group of each axis it is on (None for an axis
+    of size 1)."""
+
+    shape: dict[str, int]
+    coords: dict[str, int]
+    rank: int
+    device: torch.device
+    backend: str
+    groups: dict[str, object]
+    counters: CollectiveCounters
+
+    @property
+    def dp(self) -> int:
+        return self.shape["data"]
+
+    @property
+    def tp(self) -> int:
+        return self.shape["model"]
+
+
+def make_mesh(dp: int, tp: int, sp: int = 1, pp: int = 1, ep: int = 1, *,
+              device: torch.device, counters: CollectiveCounters | None = None
+              ) -> Mesh:
+    """This rank's :class:`Mesh` over the initialized default process
+    group, whose world must be exactly the mesh. Every rank creates every
+    axis group, in the same order, as ``new_group`` requires."""
+    if not dist.is_initialized():
+        raise RuntimeError("make_mesh needs an initialized process group "
+                           "(harness.main starts one per rank)")
+    world = dist.get_world_size()
+    total = dp * tp * sp * pp * ep
+    if total > world:
+        raise ValueError(
+            f"mesh dp={dp} pp={pp} ep={ep} sp={sp} tp={tp} needs {total} "
+            f"ranks, have {world}"
+        )
+    if total < world:
+        raise ValueError(f"mesh of {total} ranks in a world of {world}: "
+                         "start one process per mesh position")
+    rank = dist.get_rank()
+    grid = layout(dp, tp, sp, pp, ep)
+    where = np.argwhere(grid == rank)[0]
+    groups: dict[str, object] = {}
+    for axis, size in zip(AXES, grid.shape):
+        groups[axis] = None
+        if size == 1:
+            continue
+        for ranks in axis_groups(grid, axis):
+            group = dist.new_group(ranks)
+            if rank in ranks:
+                groups[axis] = group
+    return Mesh(
+        shape=dict(zip(AXES, grid.shape)),
+        coords={axis: int(c) for axis, c in zip(AXES, where)},
+        rank=rank, device=torch.device(device), backend=dist.get_backend(),
+        groups=groups, counters=counters or CollectiveCounters(rank=rank),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Megatron splits
+# ---------------------------------------------------------------------------
+
+#: The dim of each dense parameter split over ``model`` (``param_specs``):
+#: column splits on the output dim, row splits on the input dim, the
+#: vocabulary in embed and unembed. Parameters not named are replicated.
+PARAM_SPECS: dict[str, int] = {
+    "embed": 0, "unembed": 1,
+    "wq": 1, "wk": 1, "wv": 1, "wo": 0,
+    "w_gate": 1, "w_up": 1, "w_down": 0,
+}
+
+#: The MoE model's (``moe_param_specs`` at ep = 1): expert banks
+#: [E, D, F] / [E, F, D] split on the FFN dim; the router is replicated.
+MOE_PARAM_SPECS: dict[str, int] = {
+    **PARAM_SPECS, "w_gate": 2, "w_up": 2, "w_down": 1,
+}
+
+
+def split_dim(name: str, specs: dict[str, int]) -> int | None:
+    """The dim of parameter ``name`` (a state-dict key) split over model."""
+    return specs.get(name.rsplit(".", 1)[-1])
+
+
+def local_shape(name: str, shape, specs: dict[str, int], tp: int) -> tuple:
+    """``shape`` with the split dim of ``name`` divided by ``tp``."""
+    shape = list(shape)
+    dim = split_dim(name, specs)
+    if dim is not None and tp > 1:
+        if shape[dim] % tp:
+            raise ValueError(f"{name}: dim {dim} ({shape[dim]}) must divide "
+                             f"by tp ({tp})")
+        shape[dim] //= tp
+    return tuple(shape)
+
+
+def shard_params(tree: dict, mesh: Mesh, specs: dict[str, int]) -> dict:
+    """The rank's slice of each parameter of the full ``tree`` (a state
+    dict that every rank drew from the same seed, as the reference's
+    multi-process ``shard_tree`` does)."""
+    tp, coord = mesh.tp, mesh.coords["model"]
+    out = {}
+    for name, value in tree.items():
+        dim = split_dim(name, specs)
+        if dim is not None and tp > 1:
+            value = value.chunk(tp, dim=dim)[coord]
+        out[name] = value.clone()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Collectives (counted)
+# ---------------------------------------------------------------------------
+
+_REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+
+def all_reduce(t: torch.Tensor, mesh: Mesh, axis: str, op: str = "sum") -> torch.Tensor:
+    """All-reduce ``t`` in place over ``axis``; returns ``t``."""
+    group = mesh.groups[axis]
+    if group is None:
+        return t
+    with mesh.counters.span("all-reduce", t.numel() * t.element_size(), t.device):
+        dist.all_reduce(t, op=_REDUCE_OPS[op], group=group)
+    return t
+
+
+def all_gather(t: torch.Tensor, mesh: Mesh, axis: str) -> list[torch.Tensor]:
+    """Every rank's ``t`` over ``axis``, in rank order (the list form,
+    which gloo takes for CUDA tensors)."""
+    group = mesh.groups[axis]
+    if group is None:
+        return [t]
+    out = [torch.empty_like(t) for _ in range(mesh.shape[axis])]
+    with mesh.counters.span("all-gather", t.numel() * t.element_size(), t.device):
+        dist.all_gather(out, t.contiguous(), group=group)
+    return out
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Megatron's f: identity forward, all-reduce over model backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.clone(memory_format=torch.contiguous_format),
+                          ctx.mesh, "model"), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """Megatron's g: all-reduce over model forward, identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return all_reduce(x.clone(memory_format=torch.contiguous_format),
+                          mesh, "model")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _MeanOverData(torch.autograd.Function):
+    """The mean over data ranks forward; identity backward, which is the
+    mean of the ranks' upstream gradients when, as for a loss term that
+    every data rank computes from the same reduced value, they agree."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        out = all_reduce(x.clone(memory_format=torch.contiguous_format),
+                         mesh, "data")
+        return out.div_(mesh.dp)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def mean_over_data(x: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
+    """The mean over data ranks of a statistic of the rank's rows that a
+    loss term needs over the whole batch (the MoE aux loss's routed
+    fractions and mean probabilities)."""
+    if mesh is None or mesh.groups["data"] is None:
+        return x
+    return _MeanOverData.apply(x, mesh)
+
+
+def copy_to_model(x: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
+    """The input of a column split (its gradient sums over model)."""
+    if mesh is None or mesh.groups["model"] is None:
+        return x
+    return _CopyToModel.apply(x, mesh)
+
+
+def reduce_from_model(x: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
+    """The sum over model of a row split's partial outputs."""
+    if mesh is None or mesh.groups["model"] is None:
+        return x
+    return _ReduceFromModel.apply(x, mesh)
+
+
+# ---------------------------------------------------------------------------
+# ZeRO-1
+# ---------------------------------------------------------------------------
+
+
+def zero1_dim(shape, skip: int | None, dp: int) -> int | None:
+    """The dim ZeRO-1 shards a leaf on: the first not split over model
+    that divides by ``dp``; None keeps the leaf whole."""
+    return next((i for i, n in enumerate(shape) if i != skip and n % dp == 0),
+                None)
+
+
+class Zero1:
+    """ZeRO-1 (``zero1_shard_opt_state``): each data rank keeps the
+    optimizer state of 1/dp of every leaf and steps the inner optimizer
+    on that slice, then one all-gather over ``data`` of the updated slices
+    (one flat bucket) writes every rank's slices back into the
+    parameters, which stay replicated over data. A leaf with no divisible
+    dim is stepped whole on every data rank.
+
+    It exposes what the harness and the checkpoint use of a torch
+    optimizer: ``zero_grad``, ``step``, ``state_dict``, ``load_state_dict``,
+    ``param_groups`` and ``state``."""
+
+    def __init__(self, named_params, mesh: Mesh, make_inner,
+                 specs: dict[str, int]) -> None:
+        if mesh.dp < 2:
+            raise ValueError("zero1 shards optimizer state over dp; it "
+                             "needs a mesh with dp > 1")
+        self.mesh = mesh
+        self.names, self.params, self.dims, self.shards = [], [], [], []
+        dp, d = mesh.dp, mesh.coords["data"]
+        for name, p in named_params:
+            dim = zero1_dim(p.shape, split_dim(name, specs), dp)
+            if dim is None:
+                shard = p
+            else:
+                n = p.shape[dim] // dp
+                shard = p.detach().narrow(dim, d * n, n).clone()
+            self.names.append(name)
+            self.params.append(p)
+            self.dims.append(dim)
+            self.shards.append(shard)
+        self.inner = make_inner(self.shards)
+
+    @property
+    def param_groups(self):
+        return self.inner.param_groups
+
+    @property
+    def state(self):
+        return self.inner.state
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        for p in self.params:
+            p.grad = None
+        self.inner.zero_grad(set_to_none=set_to_none)
+
+    def _slices(self, t, dim):
+        n = t.shape[dim] // self.mesh.dp
+        return [t.narrow(dim, r * n, n) for r in range(self.mesh.dp)]
+
+    @torch.no_grad()
+    def step(self) -> None:
+        d = self.mesh.coords["data"]
+        for p, dim, shard in zip(self.params, self.dims, self.shards):
+            if dim is not None:
+                shard.grad = self._slices(p.grad, dim)[d].contiguous()
+        self.inner.step()
+        sharded = [(p, dim, s) for p, dim, s in
+                   zip(self.params, self.dims, self.shards) if dim is not None]
+        if not sharded:
+            return
+        flat = torch.cat([s.reshape(-1) for _, _, s in sharded])
+        for r, part in enumerate(all_gather(flat, self.mesh, "data")):
+            offset = 0
+            for p, dim, s in sharded:
+                n = s.numel()
+                self._slices(p, dim)[r].copy_(part[offset:offset + n].view_as(s))
+                offset += n
+
+    def state_dict(self) -> dict:
+        return self.inner.state_dict()
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        """Load the inner optimizer's state; the slices are read again
+        from the parameters (restore them first)."""
+        d = self.mesh.coords["data"]
+        for p, dim, shard in zip(self.params, self.dims, self.shards):
+            if dim is not None:
+                shard.copy_(self._slices(p, dim)[d])
+        self.inner.load_state_dict(state)
+
+
+__all__ = [
+    "AXES",
+    "MOE_PARAM_SPECS",
+    "PARAM_SPECS",
+    "Mesh",
+    "Zero1",
+    "all_gather",
+    "all_reduce",
+    "axis_groups",
+    "backend_for",
+    "copy_to_model",
+    "layout",
+    "local_shape",
+    "make_mesh",
+    "mean_over_data",
+    "rank_device",
+    "rank_devices",
+    "reduce_from_model",
+    "shard_params",
+    "split_dim",
+    "zero1_dim",
+]

@@ -12,8 +12,8 @@ import torch
 PLATFORMS = ("cuda", "cpu")
 
 
-def resolve_device(platform: str = "cuda") -> torch.device:
-    """``cuda`` → the first CUDA device (capability ≥ 9.0), ``cpu`` → the
+def resolve_device(platform: str = "cuda", index: int = 0) -> torch.device:
+    """``cuda`` → CUDA device ``index`` (capability ≥ 9.0), ``cpu`` → the
     host. Raises RuntimeError when a card is asked for and cannot serve."""
     if platform == "cpu":
         return torch.device("cpu")
@@ -24,11 +24,11 @@ def resolve_device(platform: str = "cuda") -> torch.device:
             "platform 'cuda' requested but torch sees no CUDA device; pass "
             "--platform cpu (device='cpu') to run on the host"
         )
-    capability = torch.cuda.get_device_capability(0)
+    capability = torch.cuda.get_device_capability(index)
     if capability < (9, 0):
         raise RuntimeError(
             f"platform 'cuda' needs a Hopper card (capability >= 9.0) for "
-            f"the flash kernels; {torch.cuda.get_device_name(0)} is "
+            f"the flash kernels; {torch.cuda.get_device_name(index)} is "
             f"{capability[0]}.{capability[1]}"
         )
-    return torch.device("cuda", 0)
+    return torch.device("cuda", index)
