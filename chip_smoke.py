@@ -19,8 +19,10 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
               S=4096, H=8, KV=4, D=64, causal), at one mesh rank's (B=1,
               S=4096, H=8, KV=2, D=128, causal), at non-causal Sk != S and
               ragged D=64 cases, at a long causal case (S=16384) where
-              the JAX package takes its streamed kernels, and at the tile
-              edges (S=4000, S=48, MHA). Prints one JSON line per kernel
+              the JAX package takes its streamed kernels, at the tile
+              edges (S=4000, S=48, MHA), and at the ring path's zigzag
+              stripes (B=2, S=Sk=1024, H=8, KV=2, D=128, non-causal and
+              causal). Prints one JSON line per kernel
               and case: errors beside their limits, the kernel's time
               (CUDA events, median), the plain version's, the library
               call's where one computes the same function, and the bound
@@ -73,6 +75,12 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
               the collectives per op and step (rank 0's raw dump), the
               wait fraction and the wall time; MFU is over the distinct
               cards the ranks use.
+10. ring      the dense argv without --loss-chunk (the reference refuses
+              it with sp) at --tp 2 --sp 2 --sp-layout zigzag: the same
+              run and checks as mesh (the single-device step also without
+              --loss-chunk), with each rank's launches and counts from its
+              own seq coordinate (parallel/ring.py), sp=2 on the page and
+              the permutes (op="collective-permute") among its families.
 
 Then it prints the nvidia-smi line, one {"kernels": [...]} JSON line and,
 as the last line, {"ok": true, "device": {...}}.
@@ -121,10 +129,12 @@ KERNELS = {
 #: (name, B, S, Sk, H, KV, D, causal). "main" is the medium microbatch of
 #: the main path, "moe" the moe-small microbatch of the MoE path and
 #: "tp2" one rank's microbatch of the mesh path (medium at tp = 2);
-#: "long" is in the range where the JAX package streams; the last three
-#: hit the tile edges of the wgmma kernels (128-row q- and k-blocks,
-#: 64-row q tiles in dK/dV): S not a multiple of 128, S below one tile,
-#: and MHA (KV = H).
+#: "long" is in the range where the JAX package streams; "ragged4000",
+#: "small48" and "mha" hit the tile edges of the wgmma kernels (128-row
+#: q- and k-blocks, 64-row q tiles in dK/dV): S not a multiple of 128, S
+#: below one tile, and MHA (KV = H). "zz" and "zzc" are one stripe pair of
+#: the ring path (medium at tp=2×sp=2 zigzag, microbatch B=2: 1024-row
+#: stripes): the full pairs of every hop and the causal self pairs.
 CASES = [
     ("main", 2, 4096, 4096, 16, 4, 128, True),
     ("moe", 1, 4096, 4096, 8, 4, 64, True),
@@ -135,6 +145,8 @@ CASES = [
     ("ragged4000", 1, 4000, 4000, 16, 4, 128, True),
     ("small48", 2, 48, 48, 4, 2, 64, True),
     ("mha", 2, 2048, 2048, 8, 8, 128, True),
+    ("zz", 2, 1024, 1024, 8, 2, 128, False),
+    ("zzc", 2, 1024, 1024, 8, 2, 128, True),
 ]
 
 #: Limits: O and lse max-abs; dQ/dK/dV relative L2 (bf16 wgmma products
@@ -167,6 +179,13 @@ MOE_ARGV = MOE_TRAIN + RUN_ARGS
 MESH_TRAIN = [*DENSE_TRAIN, "--dp", "2", "--tp", "2", "--zero1"]
 MESH_STEPS, MESH_STATS_EVERY = 2, 1
 MESH_ARGV = [*MESH_TRAIN, "--steps", str(MESH_STEPS), "--stats-every",
+             str(MESH_STATS_EVERY), "--phase-stats", "--grad-norm"]
+#: The ring path: the dense train step at tp=2 × sp=2 on the zigzag ring
+#: (without --loss-chunk, which the reference refuses under sp), run and
+#: checked as the mesh path.
+RING_TRAIN = [*(a for a in DENSE_TRAIN if a not in ("--loss-chunk", "1024")),
+              "--tp", "2", "--sp", "2", "--sp-layout", "zigzag"]
+RING_ARGV = [*RING_TRAIN, "--steps", str(MESH_STEPS), "--stats-every",
              str(MESH_STATS_EVERY), "--phase-stats", "--grad-norm"]
 #: The dryrun's dense-parity tolerances (__graft_entry__.py).
 PARITY = {"loss_abs": 5e-3, "grad_norm_rel": 0.02}
@@ -507,15 +526,17 @@ def _release(torch) -> None:
 
 
 def expected_launches(n_layers: int, grad_accum: int, steps: int = STEPS,
-                      stats_every: int = STATS_EVERY) -> dict:
+                      stats_every: int = STATS_EVERY, calls: int = 1) -> dict:
     """The launches a path's run implies (on each rank of a mesh, where
     ``grad_accum`` microbatches split the rank's rows): each layer's
-    attention runs the forward twice under --remat (the pass and its
-    recompute) and each backward kernel once, per microbatch; ``steps`` + 1
-    steps (the warm-up and the timed ones) of ``grad_accum`` microbatches,
-    plus one phase probe a window on one microbatch (a forward, then a
-    forward and backward)."""
-    probes, L = steps // stats_every, n_layers
+    attention makes ``calls`` flash calls (one off the ring; on the ring,
+    ``ring.flash_calls_per_layer`` of the rank), each of which runs the
+    forward twice under --remat (the pass and its recompute) and each
+    backward kernel once, per microbatch; ``steps`` + 1 steps (the
+    warm-up and the timed ones) of ``grad_accum`` microbatches, plus one
+    phase probe a window on one microbatch (a forward, then a forward and
+    backward)."""
+    probes, L = steps // stats_every, n_layers * calls
     steps += 1
     bwd = steps * grad_accum * L + probes * L
     return {"flash_fwd": steps * grad_accum * 2 * L + probes * 3 * L,
@@ -830,15 +851,15 @@ def _raw_segments(lines: list[dict], per_step: dict, per_probe: dict,
         out.append((name, lines[at:at + n]))
         at += n
     if at != len(lines):
-        fail(f"mesh: the raw dump holds {len(lines)} calls, the formula {at}")
+        fail(f"the raw dump holds {len(lines)} calls, the formula {at}")
     return out
 
 
-def phase_mesh(torch) -> dict:
-    """The dense train step at dp=2 × tp=2 with ZeRO-1 through
-    harness.main (it starts the four ranks itself), with the page scraped
-    and parsed, each rank's launches and collectives held to what the run
-    implies, and the first step's loss and grad norm held to the
+def drive_mesh(torch, name: str, argv_run: list[str]) -> dict:
+    """One mesh path through harness.main (it starts the ranks itself),
+    with the page scraped and parsed, each rank's launches and
+    collectives held to what the run implies from the rank's own seq
+    coordinate, and the first step's loss and grad norm held to the
     single-device step on the same weights and tokens on this card."""
     from prometheus_client.parser import text_string_to_metric_families
 
@@ -848,10 +869,13 @@ def phase_mesh(torch) -> dict:
         expected_per_step,
     )
     from tpumon.workload_torch.ops import flash_attention as fa
+    from tpumon.workload_torch.parallel.ring import flash_calls_per_layer
 
-    args = harness.build_parser().parse_args(MESH_ARGV)
+    args = harness.build_parser().parse_args(argv_run)
     cfg = harness.model_config(args)
-    dp, tp, world = args.dp, args.tp, args.dp * args.tp
+    dp, tp, sp = args.dp, args.tp, args.sp
+    world = dp * tp * sp
+    zigzag = args.sp_layout == "zigzag"
     backend = "nccl" if torch.cuda.device_count() >= world else "gloo"
 
     # The single-device step on the same seed's weights and tokens.
@@ -870,10 +894,10 @@ def phase_mesh(torch) -> dict:
     reports = _RankReports()
     log = logging.getLogger("tpumon.workload_torch.harness")
     log.addHandler(reports)
-    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_mesh_") as tmp, \
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=f".chip_smoke_{name}_") as tmp, \
             _Scraper("tpu_step_collective_wait_fraction") as scraper:
         raw_path = os.path.join(tmp, "collectives.jsonl")
-        argv = [*MESH_ARGV, "--metrics-port", str(scraper.port),
+        argv = [*argv_run, "--metrics-port", str(scraper.port),
                 "--hlo-raw-dump", raw_path]
         fa.reset_launches()
         t0 = time.perf_counter()
@@ -885,27 +909,38 @@ def phase_mesh(torch) -> dict:
         with open(raw_path) as f:
             raw = [json.loads(line) for line in f]
     if rc != 0:
-        fail(f"mesh: harness.main returned {rc}")
+        fail(f"{name}: harness.main returned {rc}")
     ranks = reports.reports
     if sorted(ranks) != list(range(world)):
-        fail(f"mesh: reports from ranks {sorted(ranks)}, not 0..{world - 1}")
+        fail(f"{name}: reports from ranks {sorted(ranks)}, not 0..{world - 1}")
 
     shape = dict(n_layers=cfg.n_layers, dp=dp, tp=tp, remat=args.remat,
-                 loss_chunk=args.loss_chunk, seq=args.seq, zero1=args.zero1)
-    per_step = expected_per_step(grad_accum=args.grad_accum,
-                                 grad_norm=args.grad_norm, **shape)
-    per_probe = expected_per_probe(**shape)
+                 loss_chunk=args.loss_chunk, seq=args.seq, zero1=args.zero1,
+                 sp=sp, sp_layout=args.sp_layout, attn=args.attn)
     probes = MESH_STEPS // MESH_STATS_EVERY
-    want_counts = {op: (MESH_STEPS + 1) * per_step[op] + probes * per_probe[op]
-                   for op in per_step if per_step[op] or per_probe[op]}
-    want_launches = expected_launches(cfg.n_layers, args.grad_accum,
-                                      MESH_STEPS, MESH_STATS_EVERY)
+
+    def want_of(coord: int):
+        per_step = expected_per_step(grad_accum=args.grad_accum,
+                                     grad_norm=args.grad_norm, seq_coord=coord,
+                                     **shape)
+        per_probe = expected_per_probe(seq_coord=coord, **shape)
+        counts = {op: (MESH_STEPS + 1) * per_step[op] + probes * per_probe[op]
+                  for op in per_step if per_step[op] or per_probe[op]}
+        calls = flash_calls_per_layer(sp, zigzag, coord) if sp > 1 else 1
+        launches = expected_launches(cfg.n_layers, args.grad_accum,
+                                     MESH_STEPS, MESH_STATS_EVERY, calls)
+        return per_step, per_probe, counts, launches
+
     bad = []
     for rank, rep in sorted(ranks.items()):
+        _, _, want_counts, want_launches = want_of(rep["coords"]["seq"])
         if rep["backend"] != backend:
             bad.append(f"rank {rank} backend {rep['backend']}, the rule names {backend}")
         if not all(math.isfinite(x) for x in rep["losses"] + rep["grad_norms"]):
             bad.append(f"rank {rank} non-finite {rep['losses']} {rep['grad_norms']}")
+        if rep["losses"] != ranks[0]["losses"]:
+            bad.append(f"rank {rank} losses {rep['losses']} != rank 0's "
+                       f"{ranks[0]['losses']}")
         if rep["launches"] != want_launches:
             bad.append(f"rank {rank} launches {rep['launches']} != {want_launches}")
         if rep["collectives"]["counts"] != want_counts:
@@ -919,28 +954,34 @@ def phase_mesh(torch) -> dict:
                    f"(|Δ| {loss_gap:.3g}), grad norm {first['grad_norms'][0]} vs "
                    f"{single_gnorm} (rel {gnorm_rel:.3g}) over {PARITY}")
     if bad:
-        fail("mesh: " + "; ".join(bad))
+        fail(f"{name}: " + "; ".join(bad))
 
     if not scraper.pages:
-        fail("mesh: never scraped rank 0's page with the wait fraction")
+        fail(f"{name}: never scraped rank 0's page with the wait fraction")
     page = scraper.pages[-1]
     snap = scraper.snapshots()[-1]
     families = {f.name: f for f in text_string_to_metric_families(page)}
-    missing = [name for name in (
+    missing = [fam for fam in (
         "workload_collective_ops", "workload_collective_op_latency_microseconds",
         "workload_collective_op_latency_samples", "workload_collective_op_bytes",
-        "workload_hlo_log_events") if name not in families]
+        "workload_hlo_log_events") if fam not in families]
     if missing:
-        fail(f"mesh: families missing from rank 0's page: {missing}")
+        fail(f"{name}: families missing from rank 0's page: {missing}")
+    ops_on_page = {sample.labels["op"] for sample in
+                   families["workload_collective_ops"].samples}
+    if sp > 1 and "collective-permute" not in ops_on_page:
+        fail(f"{name}: rank 0's page counts no collective-permute: {ops_on_page}")
     wait = snap.get("collective_wait_fraction")
     if wait is None or not 0.0 <= wait <= 1.0:
-        fail(f"mesh: collective wait fraction {wait} not in [0, 1]")
-    if snap.get("axes", {}).get("dp") != dp or snap["axes"].get("tp") != tp:
-        fail(f"mesh: the page's axes read {snap.get('axes')}")
+        fail(f"{name}: collective wait fraction {wait} not in [0, 1]")
+    axes = snap.get("axes", {})
+    if (axes.get("dp"), axes.get("tp"), axes.get("sp")) != (dp, tp, sp):
+        fail(f"{name}: the page's axes read {axes}")
 
     # Per op and timed step, from rank 0's raw dump (call order).
+    per_step, per_probe, _, want_launches = want_of(first["coords"]["seq"])
     segments = _raw_segments(raw, per_step, per_probe, MESH_STEPS, MESH_STATS_EVERY)
-    timed = [lines for name, lines in segments if name.startswith("step")]
+    timed = [lines for seg, lines in segments if seg.startswith("step")]
     per_op: dict[str, dict] = {}
     for lines in timed:
         for line in lines:
@@ -950,8 +991,8 @@ def phase_mesh(torch) -> dict:
             row["us"] += line["us"]
     per_op = {op: {k: v / len(timed) for k, v in row.items()}
               for op, row in per_op.items()}
-    # The same calls grouped by payload: the data all-reduce's gradient
-    # bucket, the layers' activation all-reduces, the loss's small ones.
+    # The same calls grouped by payload: the gradient bucket, the layers'
+    # activation all-reduces, the loss's small ones, the ring's permutes.
     by_size: dict[tuple, list] = {}
     for lines in timed:
         for line in lines:
@@ -969,7 +1010,7 @@ def phase_mesh(torch) -> dict:
     peaks = {rank: rep["peak_memory_bytes"] for rank, rep in sorted(ranks.items())}
     batch, seq = args.batch, args.seq
     result = {
-        "phase": "mesh", "argv": MESH_ARGV, "backend": backend,
+        "phase": name, "argv": argv_run, "backend": backend,
         "ranks_share_card": torch.cuda.device_count() < world,
         "window_step_s": step_s, "steps_per_sec": 1.0 / step_s,
         "tokens_per_sec": batch * seq / step_s,
@@ -985,6 +1026,7 @@ def phase_mesh(torch) -> dict:
         "peak_memory_bytes": peaks, "peak_memory_sum": sum(peaks.values()),
         "moment_bytes": {rank: rep["moment_bytes"] for rank, rep in sorted(ranks.items())},
         "launches": first["launches"], "launches_expected": want_launches,
+        "launches_by_rank": {rank: rep["launches"] for rank, rep in sorted(ranks.items())},
         "collectives": first["collectives"], "collectives_per_step": per_step,
         "collectives_per_probe": per_probe, "per_op_per_step": per_op,
         "per_payload_per_step": by_size_rows,
@@ -995,7 +1037,17 @@ def phase_mesh(torch) -> dict:
     return result
 
 
-PHASES = "env,build,kernels,main,moe,checkpoint,bench,profile,mesh"
+def phase_mesh(torch) -> dict:
+    """The dense train step at dp=2 × tp=2 with ZeRO-1."""
+    return drive_mesh(torch, "mesh", MESH_ARGV)
+
+
+def phase_ring(torch) -> dict:
+    """The dense train step at tp=2 × sp=2 on the zigzag ring."""
+    return drive_mesh(torch, "ring", RING_ARGV)
+
+
+PHASES = "env,build,kernels,main,moe,checkpoint,bench,profile,mesh,ring"
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -1036,6 +1088,7 @@ def main(argv: list[str] | None = None) -> int:
         phase_profile(torch, "main", DENSE_TRAIN)
         phase_profile(torch, "moe", MOE_TRAIN)
     mesh_run = phase_mesh(torch) if "mesh" in phases else {}
+    ring_run = phase_ring(torch) if "ring" in phases else {}
     print(f"total: {time.perf_counter() - t0:.1f} s", flush=True)
 
     line = []
@@ -1048,11 +1101,12 @@ def main(argv: list[str] | None = None) -> int:
             "launches": main_run.get("launches", {}).get(name, 0),
             "launches_moe": moe_run.get("launches", {}).get(name, 0),
             "launches_mesh_rank0": mesh_run.get("launches", {}).get(name, 0),
+            "launches_ring_rank0": ring_run.get("launches", {}).get(name, 0),
             "max_abs_err": row.get("max_abs_err"), "ms": row.get("ms"),
             "plain_ms": row.get("plain_ms"), "bound_ms": row.get("bound_ms"),
             "bound_by": row.get("bound_by"), "library_ms": row.get("library_ms"),
             **{f"{case}_case": {key: kernels.get(name, {}).get(case, {}).get(key)
-                                for key in keys} for case in ("moe", "tp2")},
+                                for key in keys} for case in ("moe", "tp2", "zz", "zzc")},
             "passed": all(r["passed"] for r in kernels.get(name, {}).values())
             if name in kernels else None,
         })

@@ -145,3 +145,66 @@ def test_formula_at_the_card_path():
                              remat=True, loss_chunk=1024, seq=4096, zero1=True,
                              grad_norm=True)
     assert step == {"all-reduce": 4 * (33 + 45 + 1) + 1, "all-gather": 1}
+
+
+#: (formula arguments beyond the common ones, expected per step). L = 12
+#: layers, one microbatch unless said. Permutes per attention call: the
+#: hops (n on the contiguous plain ring, n - 1 otherwise), plus under
+#: zigzag 4 for each carrier that moves this rank's stripes; the backward
+#: transposes them all, and --remat recomputes them once more.
+RING_CASES = {
+    # 4 hops fwd + 4 bwd a layer; the bucket over data×seq.
+    "contiguous_xla_sp4": (dict(sp=4, sp_layout="contiguous", attn="xla"),
+                           {"all-reduce": 1, "all-gather": 0, "collective-permute": 12 * 8}),
+    # The flash ring skips the hop home: 3 + 3.
+    "contiguous_flash_sp4": (dict(sp=4, sp_layout="contiguous", attn="flash"),
+                             {"all-reduce": 1, "all-gather": 0, "collective-permute": 12 * 6}),
+    "contiguous_flash_sp4_remat": (dict(sp=4, sp_layout="contiguous", attn="flash",
+                                        remat=True),
+                                   {"all-reduce": 1, "all-gather": 0,
+                                    "collective-permute": 12 * 9}),
+    # sp=2 zigzag: 1 hop + q, k, v, out on the odd carrier (the even one
+    # maps every rank to itself): 5 fwd, 5 bwd.
+    "zigzag_flash_sp2": (dict(sp=2, sp_layout="zigzag", attn="flash"),
+                         {"all-reduce": 1, "all-gather": 0, "collective-permute": 12 * 10}),
+    # sp=4 zigzag: rank 0's even carrier and rank 2's odd one are local.
+    "zigzag_xla_sp4_rank0": (dict(sp=4, sp_layout="zigzag", attn="xla", seq_coord=0),
+                             {"all-reduce": 1, "all-gather": 0, "collective-permute": 12 * 14}),
+    "zigzag_xla_sp4_rank1": (dict(sp=4, sp_layout="zigzag", attn="xla", seq_coord=1),
+                             {"all-reduce": 1, "all-gather": 0, "collective-permute": 12 * 22}),
+    "zigzag_xla_sp4_rank2": (dict(sp=4, sp_layout="zigzag", attn="xla", seq_coord=2),
+                             {"all-reduce": 1, "all-gather": 0, "collective-permute": 12 * 14}),
+    # dp=2×sp=2: one bucket a chunk over data×seq, 2 chunks.
+    "dp2_sp2_accum2": (dict(dp=2, sp=2, sp_layout="contiguous", attn="flash", grad_accum=2),
+                       {"all-reduce": 2, "all-gather": 0,
+                        "collective-permute": 2 * 12 * 2}),
+    # No sp: no permute key, and no bucket on one data rank.
+    "no_sp": (dict(tp=2), {"all-reduce": 1 + 24 + 2 + 24 + 1, "all-gather": 0}),
+}
+
+
+@pytest.mark.parametrize("case", RING_CASES)
+def test_ring_formula_cases(case):
+    kw, want = RING_CASES[case]
+    args = dict(n_layers=12, dp=1, tp=1, grad_accum=1, remat=False, loss_chunk=0,
+                seq=4096, zero1=False, grad_norm=False)
+    args.update(kw)
+    assert expected_per_step(**args) == want
+
+
+def test_ring_formula_at_the_card_path():
+    """The medium train step of ``chip_smoke.py``'s ring phase at
+    tp=2×sp=2 zigzag flash with --remat, per rank and step: 4 chunks ×
+    (fwd 1 + 24 + 2, bwd 24 + 1 + 12, data×seq 1) all-reduces plus the
+    grad norm's one, and 4 × 12 × (5 + 5 + 5) permutes; a probe issues
+    2 × 60 + 120 permutes."""
+    cfg = LlamaConfig.medium()
+    shape = dict(n_layers=cfg.n_layers, dp=1, tp=2, remat=True, loss_chunk=0,
+                 seq=4096, zero1=False, sp=2, sp_layout="zigzag", attn="flash")
+    for coord in (0, 1):
+        step = expected_per_step(grad_accum=4, grad_norm=True, seq_coord=coord, **shape)
+        assert step == {"all-reduce": 4 * (27 + 37 + 1) + 1, "all-gather": 0,
+                        "collective-permute": 4 * 12 * 15}
+        probe = expected_per_probe(seq_coord=coord, **shape)
+        assert probe == {"all-reduce": 2 * 27 + 37 + 1, "all-gather": 0,
+                         "collective-permute": 240}

@@ -147,7 +147,7 @@ def test_platform_cuda_raises_below_hopper(monkeypatch):
 
 @pytest.mark.parametrize(
     "flag",
-    [["--sp-layout", "zigzag"], ["--sp", "2"], ["--pp", "2"], ["--ep", "2"],
+    [["--pp", "2"], ["--ep", "2"],
      ["--interleave", "2"], ["--microbatches", "4"], ["--num-processes", "2"],
      ["--coordinator", "host:1234"], ["--process-id", "1"]],
 )
@@ -156,6 +156,29 @@ def test_later_slice_flags_fail_loudly(flag, capsys):
         harness.main([*flag, "--platform", "cpu"])
     assert exc.value.code == 2
     assert "ROADMAP.md queue 1 item" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flags,message", [
+    (["--sp", "2", "--loss-chunk", "16"], "composes with dp/tp (not MoE, pp, or sp"),
+    (["--sp", "2", "--seq", "33"], r"seq (33) must divide by sp (2)"),
+    (["--sp", "2", "--sp-layout", "zigzag", "--seq", "34"],
+     r"seq (34) must divide by 2*sp (4)"),
+    (["--sp", "2", "--model", "moe"], "ROADMAP.md queue 1 item 10"),
+])
+def test_sp_refusals_before_any_rank_starts(flags, message, capsys, monkeypatch):
+    """The reference's refusals of a sequence-parallel run (and MoE with
+    sp, which waits for expert parallelism) exit with code 2 in the
+    launching process: no rank is started."""
+    from tpumon.workload_torch.parallel import launch
+
+    def no_launch(*args, **kwargs):
+        raise AssertionError("a rank was started")
+
+    monkeypatch.setattr(launch, "launch", no_launch)
+    with pytest.raises(SystemExit) as exc:
+        harness.main([*flags, "--platform", "cpu"])
+    assert exc.value.code == 2
+    assert message in capsys.readouterr().err
 
 
 def test_main_runs_on_cpu(caplog):
@@ -175,6 +198,7 @@ bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "optax", "tpumon.workload.")))
 missing = {"tpumon.workload_torch." + m for m in (
     "models.moe", "checkpoint", "bench_attention", "parallel.mesh",
+    "parallel.ring", "bench_ring",
     "collective_counters")} - set(names)
 print(len(names), bad, sorted(missing))
 sys.exit(1 if bad or missing or len(names) < 13 else 0)

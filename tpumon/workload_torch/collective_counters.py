@@ -5,8 +5,9 @@ counts the collectives XLA runs from libtpu's HLO logger; a CUDA program
 has no such logger, so the port counts the collectives it issues itself:
 every one goes through ``parallel/mesh.py``, which wraps each call in
 :meth:`CollectiveCounters.span`. The ops carry the XLA names the monitor
-already knows (``all-reduce``, ``all-gather``; later slices add
-``reduce-scatter``, ``all-to-all`` and ``collective-permute``).
+already knows (``all-reduce``, ``all-gather``, the ring's
+``collective-permute``; later slices add ``reduce-scatter`` and
+``all-to-all``).
 
 Each call adds one to its op's count and its payload (numel × element
 size) to the op's bytes. Its latency on the card is a pair of CUDA events
@@ -229,28 +230,70 @@ def _pass_counts(n_layers: int, dp: int, tp: int, remat: bool,
     return fwd, bwd
 
 
+def _permute_counts(n_layers: int, sp: int, sp_layout: str, attn: str,
+                    seq_coord: int, remat: bool) -> tuple[int, int]:
+    """(forward, backward) collective-permutes of one microbatch on the
+    rank at seq coordinate ``seq_coord`` (``parallel/ring.py``).
+
+    Each layer's attention call issues P permutes forward
+    (``ring.permutes_per_call``): the ring's hops (n on the contiguous
+    plain ring, whose last hop returns each block home; n − 1 on the
+    others), plus under zigzag one permute for each of q, k, v and the
+    output per carrier (even, odd) that moves this rank's stripe (a
+    carrier that maps the rank to itself is a local copy: the even one
+    on every rank at sp = 2). Every exchange is an autograd Function
+    whose backward is the transposed exchange, run on every rank even
+    for blocks it never attended: P more. ``--remat`` recomputes the
+    attention in full (checkpoint stops a layer's recompute only at its
+    MLP's last saved tensor, after the attention): P more in the
+    backward."""
+    if sp == 1:
+        return 0, 0
+    from tpumon.workload_torch.parallel.ring import permutes_per_call
+
+    per_call = permutes_per_call(sp, sp_layout == "zigzag", attn == "flash",
+                                 seq_coord)
+    fwd = n_layers * per_call
+    return fwd, fwd * (2 if remat else 1)
+
+
 def expected_per_step(*, n_layers: int, dp: int, tp: int, grad_accum: int,
                       remat: bool, loss_chunk: int, seq: int, zero1: bool,
-                      grad_norm: bool, moe: bool = False) -> dict[str, int]:
-    """The collectives one optimizer step issues on each rank: the
-    microbatches' model all-reduces, one data all-reduce of the gradients
-    (and the loss) per microbatch, one model all-reduce of the split
+                      grad_norm: bool, moe: bool = False, sp: int = 1,
+                      sp_layout: str = "contiguous", attn: str = "xla",
+                      seq_coord: int = 0) -> dict[str, int]:
+    """The collectives one optimizer step issues on the rank at seq
+    coordinate ``seq_coord``: the microbatches' model all-reduces and ring
+    permutes (:func:`_permute_counts`), one all-reduce of the gradients
+    (and the loss) over data×seq per microbatch when dp·sp > 1 (the
+    weights are replicated over both), one model all-reduce of the split
     leaves' squared norms under ``grad_norm``, and ZeRO-1's one all-gather
-    of the updated slices."""
+    of the updated slices. ``collective-permute`` appears only under
+    sp > 1."""
     fwd, bwd = _pass_counts(n_layers, dp, tp, remat, loss_chunk, seq, moe)
-    all_reduce = grad_accum * (fwd + bwd + (dp > 1))
+    all_reduce = grad_accum * (fwd + bwd + (dp * sp > 1))
     all_reduce += int(grad_norm and tp > 1)
-    return {"all-reduce": all_reduce, "all-gather": int(zero1)}
+    out = {"all-reduce": all_reduce, "all-gather": int(zero1)}
+    if sp > 1:
+        pf, pb = _permute_counts(n_layers, sp, sp_layout, attn, seq_coord, remat)
+        out["collective-permute"] = grad_accum * (pf + pb)
+    return out
 
 
 def expected_per_probe(*, n_layers: int, dp: int, tp: int, remat: bool,
                        loss_chunk: int, seq: int, zero1: bool,
-                       moe: bool = False) -> dict[str, int]:
+                       moe: bool = False, sp: int = 1,
+                       sp_layout: str = "contiguous", attn: str = "xla",
+                       seq_coord: int = 0) -> dict[str, int]:
     """The collectives one phase probe issues on each rank: a forward, a
-    forward and backward with the data all-reduce of its gradients, and
-    the optimizer update (ZeRO-1's all-gather), on one microbatch."""
+    forward and backward with the data×seq all-reduce of its gradients,
+    and the optimizer update (ZeRO-1's all-gather), on one microbatch."""
     fwd, bwd = _pass_counts(n_layers, dp, tp, remat, loss_chunk, seq, moe)
-    return {"all-reduce": 2 * fwd + bwd + (dp > 1), "all-gather": int(zero1)}
+    out = {"all-reduce": 2 * fwd + bwd + (dp * sp > 1), "all-gather": int(zero1)}
+    if sp > 1:
+        pf, pb = _permute_counts(n_layers, sp, sp_layout, attn, seq_coord, remat)
+        out["collective-permute"] = 2 * pf + pb
+    return out
 
 
 __all__ = [

@@ -1,8 +1,8 @@
 """Training harness of the port: the dense Llama and MoE train steps, on
-one card or on a dp×tp mesh of processes.
+one card or on a dp×tp×sp mesh of processes.
 
 The counterpart of ``tpumon/workload/harness.py`` for the single-device
-and dp×tp paths: next-token cross-entropy (plus the weighted GShard aux
+and dp×tp×sp paths: next-token cross-entropy (plus the weighted GShard aux
 loss for MoE), optional strided gradient accumulation, remat and a
 chunked loss, AdamW with optax's defaults (or its ZeRO-1 form), the
 windowed loop that publishes ``tpu_step_*`` (and, with ``--serve``,
@@ -14,14 +14,15 @@ saved step.
 PyTorch runs eagerly, so there is no jit: parameters and optimizer state
 are updated in place, and the loop reads the loss on the host once per
 stats window. ``--attn flash`` runs attention on the hand-written Hopper
-kernels of ``ops/flash_attention.py``. ``--dp``/``--tp`` start one
-process per mesh position (``parallel/launch.py``); rank 0 owns the page
+kernels of ``ops/flash_attention.py``. ``--dp``/``--tp``/``--sp`` start
+one process per mesh position (``parallel/launch.py``); rank 0 owns the page
 and the final log line.
 
 CLI:  python -m tpumon.workload_torch.harness --steps 20
       python -m tpumon.workload_torch.harness --model moe --preset small
       python -m tpumon.workload_torch.harness --checkpoint-dir ckpt --steps 6
       python -m tpumon.workload_torch.harness --dp 2 --tp 2 --zero1
+      python -m tpumon.workload_torch.harness --tp 2 --sp 2 --sp-layout zigzag
       (``--platform cpu`` runs on the host; the default is the card)
 """
 
@@ -164,21 +165,23 @@ def _moment_bytes(model, optimizer) -> dict[str, int]:
 
 
 def _data_mean_grads(params, chunk_losses, mesh):
-    """The data all-reduce of one flat bucket per accumulation chunk:
+    """The data×seq all-reduce of one flat bucket per accumulation chunk:
     ``chunk_losses`` yields each chunk's loss after its backward, whose
-    gradients (and the loss) go into one all-reduce over ``data``; the
-    sums add up across chunks. Leaves each ``.grad`` as a view of the
-    bucket, the mean over data ranks and chunks, and returns the loss's
-    mean."""
+    gradients (and the loss) go into one all-reduce over ``data_seq``
+    (the weights are replicated over both axes); the sums add up across
+    chunks. Leaves each ``.grad`` as a view of the bucket, the mean over
+    data×seq ranks and chunks, and returns the loss's mean (every rank
+    holds as many tokens, so the mean of the ranks' means is the batch
+    mean)."""
     total, chunks = None, 0
     for loss in chunk_losses:
         flat = torch.cat([p.grad.reshape(-1) for p in params] + [loss.reshape(1)])
         for p in params:
             p.grad = None
-        mesh_mod.all_reduce(flat, mesh, "data")
+        mesh_mod.all_reduce(flat, mesh, "data_seq")
         total = flat if total is None else total.add_(flat)
         chunks += 1
-    total.div_(mesh.dp * chunks)
+    total.div_(mesh.dp * mesh.sp * chunks)
     offset = 0
     for p in params:
         p.grad = total[offset:offset + p.numel()].view_as(p)
@@ -202,10 +205,11 @@ def make_train_step(
     ``grad_norm`` is the global gradient L2 norm when ``with_grad_norm``,
     else NaN (the whole-tree reduction is opt-in).
 
-    On the model's mesh, ``tokens`` are the rank's data shard. With dp > 1
-    each chunk's gradients (and loss) go through one all-reduce over
-    ``data`` (one burst per chunk, the cadence the reference's docstring
-    gives), and the loss is the mean over the data ranks. Under tp the
+    On the model's mesh, ``tokens`` are the rank's data and seq shard.
+    With dp·sp > 1 each chunk's gradients (and loss) go through one
+    all-reduce over data×seq (one burst per chunk, the cadence the
+    reference's docstring gives), and the loss is the mean over those
+    ranks. Under tp the
     grad norm adds the split leaves' squares over ``model`` (one
     all-reduce); replicated leaves count once."""
     params = list(model.parameters())
@@ -234,7 +238,7 @@ def make_train_step(
 
     def step(tokens):
         optimizer.zero_grad(set_to_none=True)
-        if mesh is not None and mesh.dp > 1:
+        if mesh is not None and mesh.dp * mesh.sp > 1:
             chunks = [tokens] if grad_accum == 1 else chunks_of(tokens)
             loss = _data_mean_grads(params, (grad_of(c) for c in chunks), mesh)
         elif grad_accum == 1:
@@ -301,8 +305,8 @@ def _make_phase_probe(model, optimizer, attn_impl, remat, loss_chunk,
     never runs a full-batch backward.
 
     On a mesh every rank runs it in lockstep: it issues the step's
-    collectives (the grad pass ends with the data all-reduce of its
-    gradients, and a ZeRO-1 update with its all-gather)."""
+    collectives (the ring's permutes, the grad pass's data×seq
+    all-reduce of its gradients, and a ZeRO-1 update's all-gather)."""
     params = list(model.parameters())
     names = [name for name, _ in model.named_parameters()]
     chunks = max(1, int(grad_accum))
@@ -324,9 +328,9 @@ def _make_phase_probe(model, optimizer, attn_impl, remat, loss_chunk,
         t0 = clock()
         loss = loss_fn(model, tokens, attn_impl, remat, loss_chunk)
         grads = torch.autograd.grad(loss, params)
-        if mesh is not None and mesh.dp > 1:
+        if mesh is not None and mesh.dp * mesh.sp > 1:
             flat = torch.cat([g.reshape(-1) for g in grads])
-            mesh_mod.all_reduce(flat, mesh, "data").div_(mesh.dp)
+            mesh_mod.all_reduce(flat, mesh, "data_seq").div_(mesh.dp * mesh.sp)
             grads = [g.view_as(p) for g, p in
                      zip(flat.split([p.numel() for p in params]), params)]
         grad_s = clock() - t0
@@ -398,6 +402,8 @@ def run(
     seq: int | None = None,
     dp: int = 1,
     tp: int = 1,
+    sp: int = 1,
+    sp_layout: str = "contiguous",
     grad_accum: int = 1,
     remat: bool = False,
     with_grad_norm: bool = False,
@@ -426,13 +432,21 @@ def run(
     ones, so a test can give this run and the reference the same weights
     and data.
 
-    ``dp``/``tp`` > 1 run this process as one rank of a dp×tp mesh
+    ``dp``/``tp``/``sp`` > 1 run this process as one rank of a dp×tp×sp mesh
     (``mesh``: this rank's ``parallel.mesh.Mesh``, made from the started
     process group when not given; it also sets the device): every rank
     draws the full weights and tokens and keeps its Megatron slice and its
     contiguous block of ``batch // dp`` rows. The losses, the grad norm,
     the FLOPs and the tokens a step are global. ``zero1`` shards the AdamW
     moments over ``data`` (ZeRO-1; needs dp > 1).
+
+    ``sp > 1`` splits the sequence over the mesh's ``seq`` axis too (ring
+    attention, ``parallel/ring.py``, in ``sp_layout`` "contiguous" or
+    "zigzag", on the flash kernels under ``attn="flash"``): the rank at
+    seq coordinate c takes the columns c·S/sp … (c+1)·S/sp of the tokens
+    and one more for the shifted targets, RoPE takes those global
+    positions, and the loss and the gradient bucket are means over
+    data×seq.
 
     The token batch is fixed and reused every step. A warm-up step runs
     outside the timing. ``stats`` (a :class:`stats.WorkloadStats`) turns
@@ -450,7 +464,7 @@ def run(
     ``checkpoint_every`` steps and at the end.
     """
     if mesh is not None:
-        dp, tp, device = mesh.dp, mesh.tp, mesh.device
+        dp, tp, sp, device = mesh.dp, mesh.tp, mesh.sp, mesh.device
     requested = torch.device(device or "cuda")
     device = resolve_device(requested.type, requested.index or 0)
     # f32 products must be f32, as on the reference, not TF32.
@@ -490,14 +504,15 @@ def run(
             raise ValueError(
                 f"seq ({seq}) must divide by loss_chunk ({loss_chunk})"
             )
+    check_sp(cfg, seq=seq, sp=sp, sp_layout=sp_layout, loss_chunk=loss_chunk)
     if serve is not None and checkpoint_dir is not None:
         # The checkpointed loop records per step; the serving window
         # shape assumes the windowed loop.
         raise ValueError("serve telemetry composes with the windowed "
                          "loop, not checkpoint_dir")
 
-    if mesh is None and dp * tp > 1:
-        mesh = mesh_mod.make_mesh(dp, tp, device=device)
+    if mesh is None and dp * tp * sp > 1:
+        mesh = mesh_mod.make_mesh(dp, tp, sp, device=device)
 
     generator = torch.Generator(device=device).manual_seed(seed)
     model = _build_model(cfg, params, generator, device, mesh)
@@ -513,12 +528,18 @@ def run(
                 f"{tuple(tokens.shape)}"
             )
     if mesh is not None:
-        rows = batch // dp
-        tokens = tokens[mesh.coords["data"] * rows:][:rows]
+        rows, cols = batch // dp, seq // sp
+        start = mesh.coords["seq"] * cols
+        tokens = tokens[mesh.coords["data"] * rows:][:rows, start:start + cols + 1]
     optimizer = build_optimizer(model.named_parameters(), model, zero1)
 
     attn_impl = None
-    if attn == "flash":
+    if sp > 1:
+        from tpumon.workload_torch.parallel.ring import make_ring_attn
+
+        attn_impl = make_ring_attn(mesh, zigzag=sp_layout == "zigzag",
+                                   flash=attn == "flash")
+    elif attn == "flash":
         from tpumon.workload_torch.ops.flash_attention import make_flash_attn
 
         attn_impl = make_flash_attn()
@@ -534,14 +555,14 @@ def run(
             flops_per_step=flops_per_step,
             tokens_per_step=batch * seq,
             peak_flops_total=flops_mod.peak_flops_total(run_devices),
-            axes={"dp": dp, "tp": tp, "sp": 1, "pp": 1, "ep": 1},
+            axes={"dp": dp, "tp": tp, "sp": sp, "pp": 1, "ep": 1},
         )
     phase_probe = None
     if stats is not None and phase_stats:
         phase_probe = _make_phase_probe(
             model, optimizer, attn_impl, remat, loss_chunk, grad_accum, zero1
         )
-    result = RunResult(losses=[], steps_per_sec=0.0, dp=dp, tp=tp,
+    result = RunResult(losses=[], steps_per_sec=0.0, dp=dp, tp=tp, sp=sp,
                        model_flops_per_step=flops_per_step)
     if checkpoint_dir is not None:
         _run_checkpointed(
@@ -556,6 +577,34 @@ def run(
     result.mfu = flops_mod.mfu(cfg, batch, seq, result.steps_per_sec, run_devices)
     result.moment_bytes = _moment_bytes(model, optimizer)
     return result
+
+
+def check_sp(cfg, *, seq: int, sp: int, sp_layout: str, loss_chunk: int) -> None:
+    """The reference's refusals of a sequence-parallel run (its messages),
+    and MoE, which the port runs with sp only with expert parallelism."""
+    if sp < 2:
+        return
+    if isinstance(cfg, MoeConfig):
+        raise ValueError(
+            "MoE with sp > 1 belongs to a later slice of the port (expert "
+            "parallelism, ROADMAP.md queue 1 item 10): the routing's "
+            "capacity cumsum needs the whole sequence"
+        )
+    if seq % sp:
+        raise ValueError(f"seq ({seq}) must divide by sp ({sp})")
+    if sp_layout not in ("contiguous", "zigzag"):
+        raise ValueError(f"unknown sp_layout: {sp_layout!r}")
+    if sp_layout == "zigzag" and seq % (2 * sp):
+        raise ValueError(
+            f"zigzag needs an even local shard: seq ({seq}) must "
+            f"divide by 2*sp ({2 * sp})"
+        )
+    if loss_chunk:
+        raise ValueError(
+            "loss_chunk fuses the dense model's unembed into the "
+            "loss; it composes with dp/tp (not MoE, pp, or sp — the "
+            "seq-chunk reshape would fight the seq sharding)"
+        )
 
 
 def _run_windowed(step, model, tokens, steps, result, *, stats, stats_every,
@@ -645,7 +694,7 @@ def _run_checkpointed(
     saved), keeps the 2 newest, and runs one phase probe at the end. On a
     mesh every rank saves and restores its own shard
     (:class:`checkpoint.CheckpointStore`); a resume needs the same
-    dp×tp×zero1.
+    dp×tp×sp×zero1.
     """
     from tpumon.workload_torch.checkpoint import CheckpointStore
 
@@ -757,8 +806,6 @@ def _install_sigterm_marker(stats, grace_s: float | None = None) -> None:
 #: the ROADMAP.md queue-1 item that ports each. Given a non-default value
 #: they fail; they are never silently ignored.
 _LATER = {
-    "sp": ("ring sequence parallelism", 8, 1),
-    "sp_layout": ("ring sequence parallelism", 8, "contiguous"),
     "pp": ("pipeline parallelism", 9, 1),
     "microbatches": ("pipeline parallelism", 9, 2),
     "interleave": ("pipeline parallelism", 9, 1),
@@ -891,8 +938,8 @@ def build_parser() -> argparse.ArgumentParser:
         choices=PLATFORMS,
         default="cuda",
         help="where to run: the card (default; raises when there is no "
-        "Hopper card) or the host cpu. --dp/--tp start one process per "
-        "mesh position: over nccl when each has a card of its own, over "
+        "Hopper card) or the host cpu. --dp/--tp/--sp start one process "
+        "per mesh position: over nccl when each has a card of its own, over "
         "gloo when they share one or run on the host",
     )
     return parser
@@ -919,7 +966,7 @@ def model_config(args: argparse.Namespace) -> LlamaConfig | MoeConfig:
 
 
 def main(argv: list[str] | None = None) -> int:
-    """The CLI. With ``--dp``/``--tp`` > 1 and no ``RANK`` in the
+    """The CLI. With ``--dp``/``--tp``/``--sp`` > 1 and no ``RANK`` in the
     environment it starts one process per mesh position
     (``parallel.launch``), each of which re-enters it as its rank, and
     returns the worst of their exit codes; with ``RANK`` set (by that
@@ -969,12 +1016,18 @@ def _main(argv: list[str], results=None) -> int:
                      "--checkpoint-dir")
     if args.capacity_factor is not None and args.model != "moe":
         parser.error("--capacity-factor requires --model moe")
-    if args.dp < 1 or args.tp < 1:
-        parser.error("--dp and --tp must be >= 1")
+    if args.dp < 1 or args.tp < 1 or args.sp < 1:
+        parser.error("--dp, --tp and --sp must be >= 1")
     if args.zero1 and args.dp < 2:
         parser.error("--zero1 shards the optimizer state over dp; it needs "
                      "--dp > 1")
-    world = args.dp * args.tp
+    cfg = model_config(args)
+    try:  # before any rank starts
+        check_sp(cfg, seq=args.seq or cfg.max_seq, sp=args.sp,
+                 sp_layout=args.sp_layout, loss_chunk=args.loss_chunk)
+    except ValueError as exc:
+        parser.error(str(exc))
+    world = args.dp * args.tp * args.sp
     as_rank = world > 1 and "RANK" in os.environ
     rank = int(os.environ["RANK"]) if as_rank else 0
     logging.basicConfig(
@@ -983,7 +1036,6 @@ def _main(argv: list[str], results=None) -> int:
     )
     if world > 1 and not as_rank:
         return _launch_mesh(argv, args, world)
-    cfg = model_config(args)
 
     mesh = None
     counters = None
@@ -994,7 +1046,7 @@ def _main(argv: list[str], results=None) -> int:
 
         if int(os.environ["WORLD_SIZE"]) != world:
             raise ValueError(f"WORLD_SIZE={os.environ['WORLD_SIZE']} but "
-                             f"--dp*--tp is {world}")
+                             f"--dp*--tp*--sp is {world}")
         torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
         device = mesh_mod.rank_device(args.platform, rank)
         if device.type == "cuda":
@@ -1005,7 +1057,7 @@ def _main(argv: list[str], results=None) -> int:
         )
         counters = CollectiveCounters(
             raw_path=args.hlo_raw_dump if rank == 0 else None, rank=rank)
-        mesh = mesh_mod.make_mesh(args.dp, args.tp, device=device,
+        mesh = mesh_mod.make_mesh(args.dp, args.tp, args.sp, device=device,
                                   counters=counters)
     else:
         device = resolve_device(args.platform)
@@ -1077,6 +1129,7 @@ def _main(argv: list[str], results=None) -> int:
             with_grad_norm=args.grad_norm,
             loss_chunk=args.loss_chunk,
             zero1=args.zero1,
+            sp_layout=args.sp_layout,
             mesh=mesh,
             attn=args.attn,
             checkpoint_dir=args.checkpoint_dir,
@@ -1090,7 +1143,7 @@ def _main(argv: list[str], results=None) -> int:
         if rank == 0:
             log.info(
                 "loss %.4f → %.4f | %.2f steps/s | %.1f GFLOP/step | MFU %s | "
-                "mesh dp=%d tp=%d | device=%s",
+                "mesh dp=%d tp=%d sp=%d | device=%s",
                 result.losses[0] if result.losses else float("nan"),
                 result.losses[-1] if result.losses else float("nan"),
                 result.steps_per_sec,
@@ -1098,6 +1151,7 @@ def _main(argv: list[str], results=None) -> int:
                 f"{result.mfu:.2%}" if result.mfu is not None else "n/a (no peak)",
                 result.dp,
                 result.tp,
+                result.sp,
                 torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
             )
         if mesh is not None:

@@ -253,6 +253,11 @@ class Llama(nn.Module):
         S = tokens.shape[1]
         x = embed_tokens(self, tokens)
         freqs = rope_freqs(cfg.head_dim, cfg.max_seq, device=x.device)
+        if self.mesh is not None and self.mesh.sp > 1:
+            # The rank's contiguous window of the sequence, in either ring
+            # layout: zigzag redistributes inside the attention only.
+            start = self.mesh.coords["seq"] * S
+            freqs = freqs[start:start + S]
         mask = causal_mask(S, x.device) if attn_impl is None else None
         for block in self.blocks:
             if remat:

@@ -18,19 +18,22 @@ from tpumon.workload_torch.stats import WorkloadStats
 
 
 def run_jobs(rank: int, world: int, jobs: list[dict]) -> list[dict]:
-    """``harness.run`` once per job on a fresh dp×tp mesh: each job is
-    ``{"cfg", "dp", "tp", "kwargs"}`` (``kwargs`` go to ``run``, device
-    cpu), plus ``"stats": True`` to pass a fresh ``WorkloadStats`` (the
+    """``harness.run`` once per job on a fresh dp×tp×sp mesh: each job is
+    ``{"cfg", "dp", "tp", "kwargs"}`` and optionally ``"sp"`` (``kwargs``
+    go to ``run``, device cpu, ``sp_layout`` among them), plus
+    ``"stats": True`` to pass a fresh ``WorkloadStats`` (the
     windowed loop) and ``"routes": True`` to record every MoE layer's
     dispatch tensors; ``{"pair": True}`` runs :func:`copy_reduce_pair`.
-    Returns each job's losses, grad norms, moment bytes by parameter and
-    collective counts, and the routes when asked."""
+    Returns each job's losses, grad norms, moment bytes by parameter,
+    collective counts and the rank's mesh coordinates, and the routes
+    when asked."""
     out = []
     for job in jobs:
         if job.get("pair"):
             out.append(copy_reduce_pair(rank, world))
             continue
-        mesh = mesh_mod.make_mesh(job["dp"], job["tp"], device=torch.device("cpu"))
+        mesh = mesh_mod.make_mesh(job["dp"], job["tp"], job.get("sp", 1),
+                                  device=torch.device("cpu"))
         routes: list[np.ndarray] = []
         route_tokens = moe_mod.route_tokens
         if job.get("routes"):
@@ -53,6 +56,7 @@ def run_jobs(rank: int, world: int, jobs: list[dict]) -> list[dict]:
             "start_step": result.start_step,
             "moment_bytes": result.moment_bytes,
             "counts": mesh.counters.detailed_snapshot()["counts"],
+            "coords": mesh.coords,
             "routes": routes,
         })
     return out
@@ -86,6 +90,28 @@ def copy_reduce_pair(rank: int, world: int, seed: int = 0) -> dict:
     }
 
 
+def permute_on_card(rank: int, world: int) -> dict:
+    """Two ranks on card 0 over gloo swap a bf16 tensor with
+    ``parallel.mesh.permute`` (staged through the host) and check what
+    arrives against what the peer sent. Returns the max abs difference,
+    the received tensor's device and the counts."""
+    mesh = mesh_mod.make_mesh(1, 1, world, device=torch.device("cuda", 0))
+    shape = (2, 64, 2, 128)
+
+    def payload(r):
+        gen = torch.Generator().manual_seed(r)
+        return torch.randn(shape, generator=gen).to(torch.bfloat16)
+
+    t = payload(rank).cuda()
+    got = mesh_mod.permute(t, mesh, "seq", [(j, (j + 1) % world) for j in range(world)])
+    want = payload((rank - 1) % world)
+    return {
+        "max_abs": (got.cpu().float() - want.float()).abs().max().item(),
+        "device": str(got.device), "dtype": str(got.dtype),
+        "counts": mesh.counters.detailed_snapshot()["counts"],
+    }
+
+
 def fail_on_rank(rank: int, world: int, bad: int) -> None:
     """Rank ``bad`` raises; the others wait in a barrier it never joins,
     so only the launcher can end them."""
@@ -94,4 +120,4 @@ def fail_on_rank(rank: int, world: int, bad: int) -> None:
     torch.distributed.barrier()
 
 
-__all__ = ["copy_reduce_pair", "fail_on_rank", "run_jobs"]
+__all__ = ["copy_reduce_pair", "fail_on_rank", "permute_on_card", "run_jobs"]

@@ -16,6 +16,10 @@ and the unembed). Ranks are laid out like ``reshape(dp, pp, ep, sp, tp)``,
 so model peers are adjacent ranks. An axis of size 1 has no group, and a
 collective over it is the identity: no call, nothing counted.
 
+The weights are replicated over ``data`` and ``seq``, so the gradient
+bucket all-reduces over one ``data_seq`` group per (stage, expert, model)
+coordinate: the data group when sp = 1, the seq group when dp = 1.
+
 The backend rule: ``nccl`` when each rank has a card of its own, ``gloo``
 when ranks share a card or run on the CPU (gloo stages CUDA tensors
 through the host). Rank r uses card ``r % device_count``.
@@ -50,6 +54,14 @@ def axis_groups(grid: np.ndarray, axis: str) -> list[list[int]]:
     return np.moveaxis(grid, i, -1).reshape(-1, grid.shape[i]).tolist()
 
 
+def data_seq_groups(grid: np.ndarray) -> list[list[int]]:
+    """The rank lists of the data×seq groups: ranks that share their
+    stage, expert and model coordinates, data-major."""
+    d, s = AXES.index("data"), AXES.index("seq")
+    size = grid.shape[d] * grid.shape[s]
+    return np.moveaxis(grid, (d, s), (-2, -1)).reshape(-1, size).tolist()
+
+
 def backend_for(world_size: int, device: torch.device) -> str:
     """``nccl`` when the host has a card for every rank, else ``gloo``."""
     if device.type == "cuda" and torch.cuda.device_count() >= world_size:
@@ -81,7 +93,7 @@ def rank_devices(mesh: "Mesh") -> list[torch.device]:
 class Mesh:
     """One rank's view of the mesh: the axis sizes, its coordinates, its
     card, and the process group of each axis it is on (None for an axis
-    of size 1)."""
+    of size 1), plus ``data_seq``, the gradient bucket's group."""
 
     shape: dict[str, int]
     coords: dict[str, int]
@@ -98,6 +110,10 @@ class Mesh:
     @property
     def tp(self) -> int:
         return self.shape["model"]
+
+    @property
+    def sp(self) -> int:
+        return self.shape["seq"]
 
 
 def make_mesh(dp: int, tp: int, sp: int = 1, pp: int = 1, ep: int = 1, *,
@@ -131,6 +147,12 @@ def make_mesh(dp: int, tp: int, sp: int = 1, pp: int = 1, ep: int = 1, *,
             group = dist.new_group(ranks)
             if rank in ranks:
                 groups[axis] = group
+    groups["data_seq"] = groups["data"] if sp == 1 else groups["seq"]
+    if dp > 1 and sp > 1:
+        for ranks in data_seq_groups(grid):
+            group = dist.new_group(ranks)
+            if rank in ranks:
+                groups["data_seq"] = group
     return Mesh(
         shape=dict(zip(AXES, grid.shape)),
         coords={axis: int(c) for axis, c in zip(AXES, where)},
@@ -216,6 +238,52 @@ def all_gather(t: torch.Tensor, mesh: Mesh, axis: str) -> list[torch.Tensor]:
     out = [torch.empty_like(t) for _ in range(mesh.shape[axis])]
     with mesh.counters.span("all-gather", t.numel() * t.element_size(), t.device):
         dist.all_gather(out, t.contiguous(), group=group)
+    return out
+
+
+def _exchange(send, dst, recv, src, group) -> None:
+    """One send and one receive in a batch (either may be absent); peers
+    are coordinates on ``group``."""
+    ops = []
+    if dst is not None:
+        ops.append(dist.P2POp(dist.isend, send, dist.get_global_rank(group, dst), group))
+    if src is not None:
+        ops.append(dist.P2POp(dist.irecv, recv, dist.get_global_rank(group, src), group))
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+
+
+def permute(t: torch.Tensor, mesh: Mesh, axis: str, pairs) -> torch.Tensor:
+    """``lax.ppermute`` over ``axis``: ``pairs`` are (source, destination)
+    coordinates on the axis, a partial permutation. Returns what this
+    rank receives (zeros when no pair names it as a destination), a new
+    tensor. A pair from this rank to itself is a local copy, neither sent
+    nor counted; any other exchange counts one ``collective-permute`` of
+    ``t``'s bytes.
+
+    Over nccl the tensors go as they are. Over gloo a CUDA tensor is
+    staged through host memory explicitly (copied to the host, sent and
+    received there, copied back): gloo's send and receive take a raw data
+    pointer, and a device pointer is not something to hand them."""
+    me = mesh.coords[axis]
+    dst = next((b for a, b in pairs if a == me), None)
+    src = next((a for a, b in pairs if b == me), None)
+    if dst == me and src == me:
+        return t.clone()
+    t = t.contiguous()
+    if src is None:
+        out = torch.zeros_like(t)
+    else:
+        out = torch.empty_like(t)
+    group = mesh.groups[axis]
+    with mesh.counters.span("collective-permute", t.numel() * t.element_size(), t.device):
+        if mesh.backend == "gloo" and t.device.type == "cuda":
+            host = torch.empty_like(out, device="cpu") if src is not None else None
+            _exchange(t.cpu() if dst is not None else None, dst, host, src, group)
+            if host is not None:
+                out.copy_(host)
+        else:
+            _exchange(t, dst, out, src, group)
     return out
 
 
@@ -391,10 +459,12 @@ __all__ = [
     "axis_groups",
     "backend_for",
     "copy_to_model",
+    "data_seq_groups",
     "layout",
     "local_shape",
     "make_mesh",
     "mean_over_data",
+    "permute",
     "rank_device",
     "rank_devices",
     "reduce_from_model",
