@@ -81,6 +81,12 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
               --loss-chunk), with each rank's launches and counts from its
               own seq coordinate (parallel/ring.py), sp=2 on the page and
               the permutes (op="collective-permute") among its families.
+11. expert    the MoE argv at --grad-accum 4 (a data rank's 4 rows, one a
+              microbatch as on the moe path) with --dp 2 --ep 2: the
+              expert banks split over expert, the experts' outputs summed
+              by an all-reduce over expert (models/moe.py). The same run
+              and checks as mesh, against the single-device MoE step at
+              --grad-accum 4, with ep=2 on the page.
 
 Then it prints the nvidia-smi line, one {"kernels": [...]} JSON line and,
 as the last line, {"ok": true, "device": {...}}.
@@ -187,6 +193,13 @@ RING_TRAIN = [*(a for a in DENSE_TRAIN if a not in ("--loss-chunk", "1024")),
               "--tp", "2", "--sp", "2", "--sp-layout", "zigzag"]
 RING_ARGV = [*RING_TRAIN, "--steps", str(MESH_STEPS), "--stats-every",
              str(MESH_STATS_EVERY), "--phase-stats", "--grad-norm"]
+#: The expert path: the MoE train step at dp=2 × ep=2, run and checked as
+#: the mesh path; --grad-accum 4 so that each microbatch is one of a data
+#: rank's 4 rows.
+EXPERT_TRAIN = [*MOE_TRAIN[:MOE_TRAIN.index("--grad-accum")], "--grad-accum", "4",
+                *MOE_TRAIN[MOE_TRAIN.index("--grad-accum") + 2:], "--dp", "2", "--ep", "2"]
+EXPERT_ARGV = [*EXPERT_TRAIN, "--steps", str(MESH_STEPS), "--stats-every",
+               str(MESH_STATS_EVERY), "--phase-stats", "--grad-norm"]
 #: The dryrun's dense-parity tolerances (__graft_entry__.py).
 PARITY = {"loss_abs": 5e-3, "grad_norm_rel": 0.02}
 
@@ -873,8 +886,8 @@ def drive_mesh(torch, name: str, argv_run: list[str]) -> dict:
 
     args = harness.build_parser().parse_args(argv_run)
     cfg = harness.model_config(args)
-    dp, tp, sp = args.dp, args.tp, args.sp
-    world = dp * tp * sp
+    dp, tp, sp, ep = args.dp, args.tp, args.sp, args.ep
+    world = dp * tp * sp * ep
     zigzag = args.sp_layout == "zigzag"
     backend = "nccl" if torch.cuda.device_count() >= world else "gloo"
 
@@ -916,7 +929,8 @@ def drive_mesh(torch, name: str, argv_run: list[str]) -> dict:
 
     shape = dict(n_layers=cfg.n_layers, dp=dp, tp=tp, remat=args.remat,
                  loss_chunk=args.loss_chunk, seq=args.seq, zero1=args.zero1,
-                 sp=sp, sp_layout=args.sp_layout, attn=args.attn)
+                 sp=sp, sp_layout=args.sp_layout, attn=args.attn, ep=ep,
+                 moe=args.model == "moe")
     probes = MESH_STEPS // MESH_STATS_EVERY
 
     def want_of(coord: int):
@@ -975,7 +989,7 @@ def drive_mesh(torch, name: str, argv_run: list[str]) -> dict:
     if wait is None or not 0.0 <= wait <= 1.0:
         fail(f"{name}: collective wait fraction {wait} not in [0, 1]")
     axes = snap.get("axes", {})
-    if (axes.get("dp"), axes.get("tp"), axes.get("sp")) != (dp, tp, sp):
+    if (axes.get("dp"), axes.get("tp"), axes.get("sp"), axes.get("ep")) != (dp, tp, sp, ep):
         fail(f"{name}: the page's axes read {axes}")
 
     # Per op and timed step, from rank 0's raw dump (call order).
@@ -992,7 +1006,8 @@ def drive_mesh(torch, name: str, argv_run: list[str]) -> dict:
     per_op = {op: {k: v / len(timed) for k, v in row.items()}
               for op, row in per_op.items()}
     # The same calls grouped by payload: the gradient bucket, the layers'
-    # activation all-reduces, the loss's small ones, the ring's permutes.
+    # activation all-reduces, the loss's small ones, the ring's permutes,
+    # the experts' combine and gradients.
     by_size: dict[tuple, list] = {}
     for lines in timed:
         for line in lines:
@@ -1047,7 +1062,12 @@ def phase_ring(torch) -> dict:
     return drive_mesh(torch, "ring", RING_ARGV)
 
 
-PHASES = "env,build,kernels,main,moe,checkpoint,bench,profile,mesh,ring"
+def phase_expert(torch) -> dict:
+    """The MoE train step at dp=2 × ep=2."""
+    return drive_mesh(torch, "expert", EXPERT_ARGV)
+
+
+PHASES = "env,build,kernels,main,moe,checkpoint,bench,profile,mesh,ring,expert"
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -1089,6 +1109,7 @@ def main(argv: list[str] | None = None) -> int:
         phase_profile(torch, "moe", MOE_TRAIN)
     mesh_run = phase_mesh(torch) if "mesh" in phases else {}
     ring_run = phase_ring(torch) if "ring" in phases else {}
+    expert_run = phase_expert(torch) if "expert" in phases else {}
     print(f"total: {time.perf_counter() - t0:.1f} s", flush=True)
 
     line = []
@@ -1102,6 +1123,7 @@ def main(argv: list[str] | None = None) -> int:
             "launches_moe": moe_run.get("launches", {}).get(name, 0),
             "launches_mesh_rank0": mesh_run.get("launches", {}).get(name, 0),
             "launches_ring_rank0": ring_run.get("launches", {}).get(name, 0),
+            "launches_expert_rank0": expert_run.get("launches", {}).get(name, 0),
             "max_abs_err": row.get("max_abs_err"), "ms": row.get("ms"),
             "plain_ms": row.get("plain_ms"), "bound_ms": row.get("bound_ms"),
             "bound_by": row.get("bound_by"), "library_ms": row.get("library_ms"),

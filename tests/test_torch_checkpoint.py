@@ -167,7 +167,7 @@ def test_zero1_mesh_resume_replays_exactly(tmp_path):
     assert sorted(os.listdir(step)) == sorted(
         [MESH_FILE] + [rank_file(r) for r in range(4)])
     plain_dp = CheckpointStore(tmp_path / "r", zero1=False, mesh=types.SimpleNamespace(
-        dp=2, tp=2, sp=1, rank=0))
+        dp=2, tp=2, sp=1, ep=1, rank=0))
     with pytest.raises(ValueError, match="dp=2 tp=2 zero1=True"):
         plain_dp.restore(4, None, None, "cpu")
     with pytest.raises(ValueError, match="needs the same dp×tp×zero1"):
@@ -195,11 +195,50 @@ def test_ring_mesh_checkpoint_carries_sp(tmp_path):
         assert part["losses"] == full["losses"][:2]
         assert cont["start_step"] == 2 and cont["losses"] == full["losses"][2:]
     with open(tmp_path / "r" / "3" / MESH_FILE) as f:
-        assert json.load(f) == {"dp": 1, "tp": 2, "sp": 2, "zero1": False}
+        assert json.load(f) == {"dp": 1, "tp": 2, "sp": 2, "ep": 1, "zero1": False}
     other_sp = CheckpointStore(tmp_path / "r", mesh=types.SimpleNamespace(
-        dp=1, tp=2, sp=1, rank=0))
+        dp=1, tp=2, sp=1, ep=1, rank=0))
     with pytest.raises(ValueError, match="saved on dp=1 tp=2 zero1=False sp=2"):
         other_sp.restore(3, None, None, "cpu")
+
+
+def test_expert_mesh_checkpoint_carries_ep(tmp_path):
+    """dp=2×ep=2 MoE with ZeRO-1: each rank saves its own experts' banks
+    and moments, the resumed losses equal the uninterrupted run's bit for
+    bit, ``mesh.json`` carries ep, and a resume at another ep (or one from
+    a layout written before ep was recorded, which reads as ep=1) is
+    refused."""
+    import json
+    import types
+
+    from tpumon.workload_torch.checkpoint import MESH_FILE
+    from tpumon.workload_torch.parallel import checks, launch
+
+    def job(steps, directory, every=0):
+        return dict(cfg=MoeConfig.tiny(), dp=2, tp=1, ep=2, kwargs=dict(
+            steps=steps, batch=4, seq=32, zero1=True, seed=7,
+            checkpoint_dir=str(tmp_path / directory), checkpoint_every=every))
+
+    ranks = launch.spawn(checks.run_jobs, 4, str(tmp_path / "rendezvous"), (
+        [job(3, "f"), job(2, "r", every=2), job(3, "r")],), timeout_s=120)
+    for full, part, cont in ranks:
+        assert part["losses"] == full["losses"][:2]
+        assert cont["start_step"] == 2 and cont["losses"] == full["losses"][2:]
+    assert ranks[0][0]["losses"] == ranks[1][0]["losses"]
+    with open(tmp_path / "r" / "3" / MESH_FILE) as f:
+        layout = json.load(f)
+    assert layout == {"dp": 2, "tp": 1, "sp": 1, "ep": 2, "zero1": True}
+    other_ep = CheckpointStore(tmp_path / "r", zero1=True, mesh=types.SimpleNamespace(
+        dp=2, tp=1, sp=1, ep=1, rank=0))
+    with pytest.raises(ValueError, match="saved on dp=2 tp=1 zero1=True sp=1 ep=2"):
+        other_ep.restore(3, None, None, "cpu")
+    del layout["ep"]
+    with open(tmp_path / "r" / "3" / MESH_FILE, "w") as f:
+        json.dump(layout, f)
+    at_ep2 = CheckpointStore(tmp_path / "r", zero1=True, mesh=types.SimpleNamespace(
+        dp=2, tp=1, sp=1, ep=2, rank=0))
+    with pytest.raises(ValueError, match="saved on dp=2 tp=1 zero1=True sp=1 ep=1"):
+        at_ep2.restore(3, None, None, "cpu")
 
 
 @pytest.mark.cuda

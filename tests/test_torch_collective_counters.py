@@ -208,3 +208,53 @@ def test_ring_formula_at_the_card_path():
         probe = expected_per_probe(seq_coord=coord, **shape)
         assert probe == {"all-reduce": 2 * 27 + 37 + 1, "all-gather": 0,
                          "collective-permute": 240}
+
+
+#: (formula arguments beyond the common ones, expected per step) of the
+#: MoE model: moe-small's L = 8 layers, E = 8 experts, one microbatch of
+#: B = 1 row at seq 4096 and D = 512 unless said, so s = 4096 / sp
+#: positions a rank. Per MoE layer: under ep, the combine's sum over
+#: expert forward ([B,s,D] bf16, 4 MiB at sp = 1) and the gradients of the
+#: expert products' input ([B,s,D] bf16) and of the routed probabilities
+#: ([B,s,E] f32, 128 KiB) backward; under sp, the router probabilities'
+#: all-gather ([B,s,E] f32 from each rank, 64 KiB at sp = 2); when
+#: dp·sp > 1 the data×seq mean of the aux statistics ([2E] f32, 64 B).
+#: --remat runs the gather and the mean again, not the sum over expert.
+EXPERT_CASES = {
+    # The chip path: 4 chunks × (fwd 8 + 8, bwd 16 + 8, the 0.34 GB
+    # bucket 1) + the grad norm's expert all-reduce.
+    "dp2_ep2_remat_accum4": (dict(dp=2, ep=2, grad_accum=4, remat=True, grad_norm=True),
+                             {"all-reduce": 4 * (16 + 24 + 1) + 1, "all-gather": 0}),
+    # Dryrun cell 3 at moe-small depth: tp's 1 + 16 + 2 and 16 + 1 beside
+    # ep's 8 and 16; no bucket on one data rank.
+    "ep2_tp2": (dict(tp=2, ep=2), {"all-reduce": 19 + 8 + 17 + 16, "all-gather": 0}),
+    # Dryrun cell 4: the gather (8 + 8 under remat), the aux mean over the
+    # seq group (8 + 8), ep's 8 + 16, the bucket; the plain contiguous
+    # ring's 2 hops a layer, forward, recompute and backward.
+    "ep2_sp2_remat": (dict(sp=2, ep=2, remat=True),
+                      {"all-reduce": 16 + 24 + 1, "all-gather": 16,
+                       "collective-permute": 8 * 2 * 3}),
+    # MoE at dp=2×sp=2, ep = 1: the gather, the aux mean, the bucket.
+    "dp2_sp2": (dict(dp=2, sp=2), {"all-reduce": 8 + 1, "all-gather": 8,
+                                   "collective-permute": 8 * 2 * 2}),
+    # ep with ZeRO-1: the update's all-gather over data, once a step.
+    "dp2_ep2_zero1": (dict(dp=2, ep=2, zero1=True), {"all-reduce": 16 + 16 + 1,
+                                                     "all-gather": 1}),
+}
+
+
+@pytest.mark.parametrize("case", EXPERT_CASES)
+def test_expert_formula_cases(case):
+    kw, want = EXPERT_CASES[case]
+    args = dict(n_layers=8, dp=1, tp=1, grad_accum=1, remat=False, loss_chunk=0,
+                seq=4096, zero1=False, grad_norm=False, moe=True)
+    args.update(kw)
+    assert expected_per_step(**args) == want
+
+
+def test_expert_probe_formula_at_the_card_path():
+    """A phase probe of the chip path at dp=2×ep=2 with --remat: two
+    forwards (8 + 8 each) and one backward (16 + 8), and the bucket."""
+    probe = expected_per_probe(n_layers=8, dp=2, tp=1, ep=2, moe=True, remat=True,
+                               loss_chunk=0, seq=4096, zero1=False)
+    assert probe == {"all-reduce": 2 * 16 + 24 + 1, "all-gather": 0}

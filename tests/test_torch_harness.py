@@ -147,7 +147,7 @@ def test_platform_cuda_raises_below_hopper(monkeypatch):
 
 @pytest.mark.parametrize(
     "flag",
-    [["--pp", "2"], ["--ep", "2"],
+    [["--pp", "2"],
      ["--interleave", "2"], ["--microbatches", "4"], ["--num-processes", "2"],
      ["--coordinator", "host:1234"], ["--process-id", "1"]],
 )
@@ -163,12 +163,14 @@ def test_later_slice_flags_fail_loudly(flag, capsys):
     (["--sp", "2", "--seq", "33"], r"seq (33) must divide by sp (2)"),
     (["--sp", "2", "--sp-layout", "zigzag", "--seq", "34"],
      r"seq (34) must divide by 2*sp (4)"),
-    (["--sp", "2", "--model", "moe"], "ROADMAP.md queue 1 item 10"),
+    (["--ep", "2"], "ep > 1 requires a MoeConfig"),
+    (["--ep", "3", "--model", "moe"], "n_experts (4) must divide by ep (3)"),
 ])
 def test_sp_refusals_before_any_rank_starts(flags, message, capsys, monkeypatch):
-    """The reference's refusals of a sequence-parallel run (and MoE with
-    sp, which waits for expert parallelism) exit with code 2 in the
-    launching process: no rank is started."""
+    """The reference's refusals of a sequence-parallel run, of expert
+    parallelism without a MoE model, and an expert count that ep does not
+    divide exit with code 2 in the launching process: no rank is
+    started."""
     from tpumon.workload_torch.parallel import launch
 
     def no_launch(*args, **kwargs):

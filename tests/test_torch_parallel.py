@@ -196,8 +196,8 @@ def test_moe_mesh_matches_reference_f32(moe):
     cfg = dataclasses.replace(MoeConfig.tiny(), dtype=torch.float32)
     routes, route_tokens = [], tmoe.route_tokens
 
-    def recording(x, router, c):
-        out = route_tokens(x, router, c)
+    def recording(*args):
+        out = route_tokens(*args)
         routes.append(out[0].detach().numpy())
         return out
 

@@ -12,8 +12,8 @@ seed before the loop, and nothing in a step draws random numbers.
 
 On a mesh each rank writes its own model and optimizer shard,
 ``<step>.tmp/rank<r>.pt``; after a barrier rank 0 writes ``mesh.json``
-(dp, tp, sp, zero1) and renames the directory into place. A resume needs
-the same dp×tp×sp×zero1 and raises otherwise.
+(dp, tp, sp, ep, zero1) and renames the directory into place. A resume
+needs the same dp×tp×sp×ep×zero1 and raises otherwise.
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ import torch
 import torch.distributed as dist
 
 STATE_FILE = "state.pt"
-#: A mesh checkpoint's layout (dp, tp, sp, zero1), written last by rank 0.
+#: A mesh checkpoint's layout (dp, tp, sp, ep, zero1), written last by rank 0.
 MESH_FILE = "mesh.json"
 #: Saved steps kept, as the reference's orbax options keep them.
 MAX_TO_KEEP = 2
@@ -45,7 +45,8 @@ class CheckpointStore:
         self.root = os.path.abspath(root)
         self.mesh = mesh
         self.layout = None if mesh is None else {
-            "dp": mesh.dp, "tp": mesh.tp, "sp": mesh.sp, "zero1": bool(zero1)}
+            "dp": mesh.dp, "tp": mesh.tp, "sp": mesh.sp, "ep": mesh.ep,
+            "zero1": bool(zero1)}
 
     def steps(self) -> list[int]:
         """The complete saved steps, oldest first."""
@@ -102,14 +103,15 @@ class CheckpointStore:
         if os.path.isfile(mesh_path):
             with open(mesh_path) as f:
                 saved = json.load(f)
+            saved.setdefault("ep", 1)  # written before ep was ported
         if saved != self.layout:
             def name(layout):
                 return "one device" if layout is None else (
-                    "dp={dp} tp={tp} zero1={zero1} sp={sp}".format(**layout))
+                    "dp={dp} tp={tp} zero1={zero1} sp={sp} ep={ep}".format(**layout))
             raise ValueError(
                 f"checkpoint step {step} in {self.root} was saved on "
                 f"{name(saved)}; this run is {name(self.layout)}: a resume "
-                "needs the same dp×tp×zero1 and sp"
+                "needs the same dp×tp×zero1, sp and ep"
             )
         path = os.path.join(
             directory, STATE_FILE if self.mesh is None else rank_file(self.mesh.rank))

@@ -6,8 +6,9 @@ has no such logger, so the port counts the collectives it issues itself:
 every one goes through ``parallel/mesh.py``, which wraps each call in
 :meth:`CollectiveCounters.span`. The ops carry the XLA names the monitor
 already knows (``all-reduce``, ``all-gather``, the ring's
-``collective-permute``; later slices add ``reduce-scatter`` and
-``all-to-all``).
+``collective-permute``). ``reduce-scatter`` and ``all-to-all`` are known
+names that no call site issues: the expert split combines with an
+all-reduce, as the reference's compiled step does.
 
 Each call adds one to its op's count and its payload (numel × element
 size) to the op's bytes. Its latency on the card is a pair of CUDA events
@@ -194,39 +195,55 @@ class CountersCollector:
 
 
 def _pass_counts(n_layers: int, dp: int, tp: int, remat: bool,
-                 loss_chunk: int, seq: int, moe: bool) -> tuple[int, int]:
-    """(forward, backward) all-reduces of one microbatch's loss and
-    gradient, before the gradients' data all-reduce.
+                 loss_chunk: int, seq: int, moe: bool, sp: int = 1,
+                 ep: int = 1) -> tuple[Counter, Counter]:
+    """(forward, backward) all-reduces and all-gathers of one microbatch's
+    loss and gradient, before the gradients' data×seq all-reduce. B, s =
+    seq/sp and D below are the microbatch's rows, the rank's positions and
+    the model width; payloads are in the model dtype unless said.
 
-    Under tp: forward, the vocab-sharded embedding (1), the two row
-    splits of each layer (``wo`` and ``w_down``, or the experts'
-    ``w_down``: 2 L), and two per cross-entropy call (the max, then the
-    sum-exp with the target's logit), one call per loss chunk; backward,
-    the two column splits' inputs of each layer (2 L) and the unembed's
-    input (1), and a checkpointed loss chunk runs its two forward
-    all-reduces again. An MoE layer on dp > 1 adds the data mean of its
-    aux-loss statistics (1 a layer, forward).
+    Under tp: forward, the vocab-sharded embedding (1, [B,s,D]), the two
+    row splits of each layer (``wo`` [B,s,D] and ``w_down``, or the
+    experts' ``w_down`` on the capacity buffers [E/ep,B,C,D]: 2 L), and
+    two per cross-entropy call (the max and the sum-exp with the target's
+    logit, f32), one call per loss chunk; backward, the two column splits'
+    inputs of each layer (2 L, [B,s,D]) and the unembed's input (1), and a
+    checkpointed loss chunk runs its two forward all-reduces again.
+
+    Each MoE layer adds, on a mesh:
+    - forward, under ep, the combine's sum over expert (1, [B,s,D]);
+    - backward, under ep, the gradients of the two tensors each expert
+      rank uses only for its own experts (``copy_to_expert``): the layer
+      input of the expert products ([B,s,D]) and the router
+      probabilities that enter the routing ([B,s,E] f32), 2;
+    - forward, under sp, the all-gather of the router probabilities over
+      seq (1, [B,s,E] f32 from each rank); its backward is local;
+    - forward, when dp·sp > 1, the data×seq mean of the aux loss's two
+      statistics (1, [2E] f32).
 
     ``--remat`` recomputes each layer in the backward, and torch's
     checkpoint stops a recompute once it has every tensor the backward
     saved: a dense layer's last saved tensor is ``w_down``'s input, so its
     recompute stops before that row split's all-reduce (1 a layer under
-    tp), while an MoE layer saves the reduced expert output for the
-    combine (2 under tp) and recomputes its aux statistics (1 on dp > 1).
+    tp), while an MoE layer's is the combine's input: it runs the row
+    splits (2 under tp), the seq gather and the aux mean again, and stops
+    before the combine's sum over expert.
     """
-    fwd = bwd = 0
+    fwd, bwd = Counter(), Counter()
     if tp > 1:
         ce_calls = seq // loss_chunk if loss_chunk else 1
-        fwd += 1 + 2 * n_layers + 2 * ce_calls
-        bwd += 2 * n_layers + 1
+        fwd["all-reduce"] += 1 + 2 * n_layers + 2 * ce_calls
+        bwd["all-reduce"] += 2 * n_layers + 1
         if loss_chunk:
-            bwd += 2 * ce_calls
+            bwd["all-reduce"] += 2 * ce_calls
         if remat:
-            bwd += (2 if moe else 1) * n_layers
-    if moe and dp > 1:
-        fwd += n_layers
-        if remat:
-            bwd += n_layers
+            bwd["all-reduce"] += (2 if moe else 1) * n_layers
+    if moe:
+        experts, gather, mean = int(ep > 1), int(sp > 1), int(dp * sp > 1)
+        fwd["all-reduce"] += n_layers * (experts + mean)
+        fwd["all-gather"] += n_layers * gather
+        bwd["all-reduce"] += n_layers * (2 * experts + remat * mean)
+        bwd["all-gather"] += n_layers * remat * gather
     return fwd, bwd
 
 
@@ -261,19 +278,21 @@ def expected_per_step(*, n_layers: int, dp: int, tp: int, grad_accum: int,
                       remat: bool, loss_chunk: int, seq: int, zero1: bool,
                       grad_norm: bool, moe: bool = False, sp: int = 1,
                       sp_layout: str = "contiguous", attn: str = "xla",
-                      seq_coord: int = 0) -> dict[str, int]:
+                      seq_coord: int = 0, ep: int = 1) -> dict[str, int]:
     """The collectives one optimizer step issues on the rank at seq
-    coordinate ``seq_coord``: the microbatches' model all-reduces and ring
-    permutes (:func:`_permute_counts`), one all-reduce of the gradients
-    (and the loss) over data×seq per microbatch when dp·sp > 1 (the
-    weights are replicated over both), one model all-reduce of the split
-    leaves' squared norms under ``grad_norm``, and ZeRO-1's one all-gather
-    of the updated slices. ``collective-permute`` appears only under
-    sp > 1."""
-    fwd, bwd = _pass_counts(n_layers, dp, tp, remat, loss_chunk, seq, moe)
-    all_reduce = grad_accum * (fwd + bwd + (dp * sp > 1))
-    all_reduce += int(grad_norm and tp > 1)
-    out = {"all-reduce": all_reduce, "all-gather": int(zero1)}
+    coordinate ``seq_coord``: the microbatches' model, expert and seq
+    collectives (:func:`_pass_counts`) and ring permutes
+    (:func:`_permute_counts`), one all-reduce of the gradients (and the
+    loss) over data×seq per microbatch when dp·sp > 1 (the weights are
+    replicated over both), under ``grad_norm`` one all-reduce of the
+    split leaves' squared norms over model under tp and one of the
+    banks' over expert under ep, and ZeRO-1's one all-gather of the
+    updated slices. ``collective-permute`` appears only under sp > 1."""
+    fwd, bwd = _pass_counts(n_layers, dp, tp, remat, loss_chunk, seq, moe, sp, ep)
+    all_reduce = grad_accum * (fwd["all-reduce"] + bwd["all-reduce"] + (dp * sp > 1))
+    all_reduce += int(grad_norm) * (int(tp > 1) + int(moe and ep > 1))
+    all_gather = grad_accum * (fwd["all-gather"] + bwd["all-gather"]) + int(zero1)
+    out = {"all-reduce": all_reduce, "all-gather": all_gather}
     if sp > 1:
         pf, pb = _permute_counts(n_layers, sp, sp_layout, attn, seq_coord, remat)
         out["collective-permute"] = grad_accum * (pf + pb)
@@ -284,12 +303,13 @@ def expected_per_probe(*, n_layers: int, dp: int, tp: int, remat: bool,
                        loss_chunk: int, seq: int, zero1: bool,
                        moe: bool = False, sp: int = 1,
                        sp_layout: str = "contiguous", attn: str = "xla",
-                       seq_coord: int = 0) -> dict[str, int]:
+                       seq_coord: int = 0, ep: int = 1) -> dict[str, int]:
     """The collectives one phase probe issues on each rank: a forward, a
     forward and backward with the data×seq all-reduce of its gradients,
     and the optimizer update (ZeRO-1's all-gather), on one microbatch."""
-    fwd, bwd = _pass_counts(n_layers, dp, tp, remat, loss_chunk, seq, moe)
-    out = {"all-reduce": 2 * fwd + bwd + (dp * sp > 1), "all-gather": int(zero1)}
+    fwd, bwd = _pass_counts(n_layers, dp, tp, remat, loss_chunk, seq, moe, sp, ep)
+    out = {"all-reduce": 2 * fwd["all-reduce"] + bwd["all-reduce"] + (dp * sp > 1),
+           "all-gather": 2 * fwd["all-gather"] + bwd["all-gather"] + int(zero1)}
     if sp > 1:
         pf, pb = _permute_counts(n_layers, sp, sp_layout, attn, seq_coord, remat)
         out["collective-permute"] = 2 * pf + pb

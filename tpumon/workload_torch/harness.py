@@ -1,8 +1,8 @@
 """Training harness of the port: the dense Llama and MoE train steps, on
-one card or on a dp×tp×sp mesh of processes.
+one card or on a dp×ep×sp×tp mesh of processes.
 
 The counterpart of ``tpumon/workload/harness.py`` for the single-device
-and dp×tp×sp paths: next-token cross-entropy (plus the weighted GShard aux
+and dp×ep×sp×tp paths: next-token cross-entropy (plus the weighted GShard aux
 loss for MoE), optional strided gradient accumulation, remat and a
 chunked loss, AdamW with optax's defaults (or its ZeRO-1 form), the
 windowed loop that publishes ``tpu_step_*`` (and, with ``--serve``,
@@ -14,8 +14,8 @@ saved step.
 PyTorch runs eagerly, so there is no jit: parameters and optimizer state
 are updated in place, and the loop reads the loss on the host once per
 stats window. ``--attn flash`` runs attention on the hand-written Hopper
-kernels of ``ops/flash_attention.py``. ``--dp``/``--tp``/``--sp`` start
-one process per mesh position (``parallel/launch.py``); rank 0 owns the page
+kernels of ``ops/flash_attention.py``. ``--dp``/``--tp``/``--sp``/``--ep``
+start one process per mesh position (``parallel/launch.py``); rank 0 owns the page
 and the final log line.
 
 CLI:  python -m tpumon.workload_torch.harness --steps 20
@@ -23,6 +23,7 @@ CLI:  python -m tpumon.workload_torch.harness --steps 20
       python -m tpumon.workload_torch.harness --checkpoint-dir ckpt --steps 6
       python -m tpumon.workload_torch.harness --dp 2 --tp 2 --zero1
       python -m tpumon.workload_torch.harness --tp 2 --sp 2 --sp-layout zigzag
+      python -m tpumon.workload_torch.harness --model moe --dp 2 --ep 2
       (``--platform cpu`` runs on the host; the default is the card)
 """
 
@@ -211,11 +212,14 @@ def make_train_step(
     reference's docstring gives), and the loss is the mean over those
     ranks. Under tp the
     grad norm adds the split leaves' squares over ``model`` (one
-    all-reduce); replicated leaves count once."""
+    all-reduce), under ep the expert banks' over ``expert`` first (one
+    more); replicated leaves count once."""
     params = list(model.parameters())
     mesh = model.mesh
-    split = [mesh_mod.split_dim(name, _param_specs(model)) is not None
-             for name, _ in model.named_parameters()]
+    specs = _param_specs(model)
+    names = [name for name, _ in model.named_parameters()]
+    by_model = [mesh_mod.split_dim(n, specs) is not None for n in names]
+    by_expert = [mesh_mod.split_dim(n, specs, "expert") is not None for n in names]
 
     def grad_of(tokens):
         loss = loss_fn(model, tokens, attn_impl, remat, loss_chunk)
@@ -227,14 +231,16 @@ def make_train_step(
         return tokens.reshape(B // grad_accum, grad_accum, -1).transpose(0, 1)
 
     def grad_norm():
-        if mesh is None or mesh.tp == 1:
+        if mesh is None or mesh.tp * mesh.ep == 1:
             return torch.linalg.vector_norm(
                 torch.stack([torch.linalg.vector_norm(p.grad) for p in params])
             )
         sq = torch.stack([torch.linalg.vector_norm(p.grad) ** 2 for p in params])
-        mask = torch.tensor(split, device=sq.device)
-        split_sq = mesh_mod.all_reduce(sq[mask].sum().reshape(1), mesh, "model")
-        return torch.sqrt(split_sq[0] + sq[~mask].sum())
+        experts = torch.tensor(by_expert, device=sq.device)
+        model_only = torch.tensor(by_model, device=sq.device) & ~experts
+        split_sq = mesh_mod.all_reduce(sq[experts].sum().reshape(1), mesh, "expert")
+        split_sq = mesh_mod.all_reduce(split_sq + sq[model_only].sum(), mesh, "model")
+        return torch.sqrt(split_sq[0] + sq[~(experts | model_only)].sum())
 
     def step(tokens):
         optimizer.zero_grad(set_to_none=True)
@@ -403,6 +409,7 @@ def run(
     dp: int = 1,
     tp: int = 1,
     sp: int = 1,
+    ep: int = 1,
     sp_layout: str = "contiguous",
     grad_accum: int = 1,
     remat: bool = False,
@@ -432,7 +439,7 @@ def run(
     ones, so a test can give this run and the reference the same weights
     and data.
 
-    ``dp``/``tp``/``sp`` > 1 run this process as one rank of a dp×tp×sp mesh
+    ``dp``/``tp``/``sp``/``ep`` > 1 run this process as one rank of a mesh
     (``mesh``: this rank's ``parallel.mesh.Mesh``, made from the started
     process group when not given; it also sets the device): every rank
     draws the full weights and tokens and keeps its Megatron slice and its
@@ -446,7 +453,13 @@ def run(
     seq coordinate c takes the columns c·S/sp … (c+1)·S/sp of the tokens
     and one more for the shifted targets, RoPE takes those global
     positions, and the loss and the gradient bucket are means over
-    data×seq.
+    data×seq. An MoE model routes on the whole sequence (its router
+    probabilities gathered over seq).
+
+    ``ep > 1`` (MoE only) splits the expert banks over the mesh's
+    ``expert`` axis; expert peers hold the same rows, each runs its own
+    experts, and one all-reduce over expert combines them
+    (``models/moe.py``).
 
     The token batch is fixed and reused every step. A warm-up step runs
     outside the timing. ``stats`` (a :class:`stats.WorkloadStats`) turns
@@ -464,7 +477,7 @@ def run(
     ``checkpoint_every`` steps and at the end.
     """
     if mesh is not None:
-        dp, tp, sp, device = mesh.dp, mesh.tp, mesh.sp, mesh.device
+        dp, tp, sp, ep, device = mesh.dp, mesh.tp, mesh.sp, mesh.ep, mesh.device
     requested = torch.device(device or "cuda")
     device = resolve_device(requested.type, requested.index or 0)
     # f32 products must be f32, as on the reference, not TF32.
@@ -505,14 +518,15 @@ def run(
                 f"seq ({seq}) must divide by loss_chunk ({loss_chunk})"
             )
     check_sp(cfg, seq=seq, sp=sp, sp_layout=sp_layout, loss_chunk=loss_chunk)
+    check_ep(cfg, ep)
     if serve is not None and checkpoint_dir is not None:
         # The checkpointed loop records per step; the serving window
         # shape assumes the windowed loop.
         raise ValueError("serve telemetry composes with the windowed "
                          "loop, not checkpoint_dir")
 
-    if mesh is None and dp * tp * sp > 1:
-        mesh = mesh_mod.make_mesh(dp, tp, sp, device=device)
+    if mesh is None and dp * tp * sp * ep > 1:
+        mesh = mesh_mod.make_mesh(dp, tp, sp, ep=ep, device=device)
 
     generator = torch.Generator(device=device).manual_seed(seed)
     model = _build_model(cfg, params, generator, device, mesh)
@@ -555,14 +569,14 @@ def run(
             flops_per_step=flops_per_step,
             tokens_per_step=batch * seq,
             peak_flops_total=flops_mod.peak_flops_total(run_devices),
-            axes={"dp": dp, "tp": tp, "sp": sp, "pp": 1, "ep": 1},
+            axes={"dp": dp, "tp": tp, "sp": sp, "pp": 1, "ep": ep},
         )
     phase_probe = None
     if stats is not None and phase_stats:
         phase_probe = _make_phase_probe(
             model, optimizer, attn_impl, remat, loss_chunk, grad_accum, zero1
         )
-    result = RunResult(losses=[], steps_per_sec=0.0, dp=dp, tp=tp, sp=sp,
+    result = RunResult(losses=[], steps_per_sec=0.0, dp=dp, tp=tp, sp=sp, ep=ep,
                        model_flops_per_step=flops_per_step)
     if checkpoint_dir is not None:
         _run_checkpointed(
@@ -579,17 +593,20 @@ def run(
     return result
 
 
+def check_ep(cfg, ep: int) -> None:
+    """The reference's refusal of expert parallelism without experts (its
+    message), and an expert count that ``ep`` does not divide."""
+    if ep < 2:
+        return
+    if not isinstance(cfg, MoeConfig):
+        raise ValueError("ep > 1 requires a MoeConfig")
+    moe_mod.check_ep(cfg, ep)
+
+
 def check_sp(cfg, *, seq: int, sp: int, sp_layout: str, loss_chunk: int) -> None:
-    """The reference's refusals of a sequence-parallel run (its messages),
-    and MoE, which the port runs with sp only with expert parallelism."""
+    """The reference's refusals of a sequence-parallel run (its messages)."""
     if sp < 2:
         return
-    if isinstance(cfg, MoeConfig):
-        raise ValueError(
-            "MoE with sp > 1 belongs to a later slice of the port (expert "
-            "parallelism, ROADMAP.md queue 1 item 10): the routing's "
-            "capacity cumsum needs the whole sequence"
-        )
     if seq % sp:
         raise ValueError(f"seq ({seq}) must divide by sp ({sp})")
     if sp_layout not in ("contiguous", "zigzag"):
@@ -694,7 +711,7 @@ def _run_checkpointed(
     saved), keeps the 2 newest, and runs one phase probe at the end. On a
     mesh every rank saves and restores its own shard
     (:class:`checkpoint.CheckpointStore`); a resume needs the same
-    dp×tp×sp×zero1.
+    dp×tp×sp×ep×zero1.
     """
     from tpumon.workload_torch.checkpoint import CheckpointStore
 
@@ -809,7 +826,6 @@ _LATER = {
     "pp": ("pipeline parallelism", 9, 1),
     "microbatches": ("pipeline parallelism", 9, 2),
     "interleave": ("pipeline parallelism", 9, 1),
-    "ep": ("expert parallelism", 10, 1),
     "coordinator": ("multi-host", 11, None),
     "num_processes": ("multi-host", 11, 1),
     "process_id": ("multi-host", 11, None),
@@ -938,7 +954,7 @@ def build_parser() -> argparse.ArgumentParser:
         choices=PLATFORMS,
         default="cuda",
         help="where to run: the card (default; raises when there is no "
-        "Hopper card) or the host cpu. --dp/--tp/--sp start one process "
+        "Hopper card) or the host cpu. --dp/--tp/--sp/--ep start one process "
         "per mesh position: over nccl when each has a card of its own, over "
         "gloo when they share one or run on the host",
     )
@@ -966,7 +982,7 @@ def model_config(args: argparse.Namespace) -> LlamaConfig | MoeConfig:
 
 
 def main(argv: list[str] | None = None) -> int:
-    """The CLI. With ``--dp``/``--tp``/``--sp`` > 1 and no ``RANK`` in the
+    """The CLI. With ``--dp``/``--tp``/``--sp``/``--ep`` > 1 and no ``RANK`` in the
     environment it starts one process per mesh position
     (``parallel.launch``), each of which re-enters it as its rank, and
     returns the worst of their exit codes; with ``RANK`` set (by that
@@ -1016,8 +1032,8 @@ def _main(argv: list[str], results=None) -> int:
                      "--checkpoint-dir")
     if args.capacity_factor is not None and args.model != "moe":
         parser.error("--capacity-factor requires --model moe")
-    if args.dp < 1 or args.tp < 1 or args.sp < 1:
-        parser.error("--dp, --tp and --sp must be >= 1")
+    if min(args.dp, args.tp, args.sp, args.ep) < 1:
+        parser.error("--dp, --tp, --sp and --ep must be >= 1")
     if args.zero1 and args.dp < 2:
         parser.error("--zero1 shards the optimizer state over dp; it needs "
                      "--dp > 1")
@@ -1025,9 +1041,10 @@ def _main(argv: list[str], results=None) -> int:
     try:  # before any rank starts
         check_sp(cfg, seq=args.seq or cfg.max_seq, sp=args.sp,
                  sp_layout=args.sp_layout, loss_chunk=args.loss_chunk)
+        check_ep(cfg, args.ep)
     except ValueError as exc:
         parser.error(str(exc))
-    world = args.dp * args.tp * args.sp
+    world = args.dp * args.tp * args.sp * args.ep
     as_rank = world > 1 and "RANK" in os.environ
     rank = int(os.environ["RANK"]) if as_rank else 0
     logging.basicConfig(
@@ -1046,7 +1063,7 @@ def _main(argv: list[str], results=None) -> int:
 
         if int(os.environ["WORLD_SIZE"]) != world:
             raise ValueError(f"WORLD_SIZE={os.environ['WORLD_SIZE']} but "
-                             f"--dp*--tp*--sp is {world}")
+                             f"--dp*--tp*--sp*--ep is {world}")
         torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
         device = mesh_mod.rank_device(args.platform, rank)
         if device.type == "cuda":
@@ -1057,8 +1074,8 @@ def _main(argv: list[str], results=None) -> int:
         )
         counters = CollectiveCounters(
             raw_path=args.hlo_raw_dump if rank == 0 else None, rank=rank)
-        mesh = mesh_mod.make_mesh(args.dp, args.tp, args.sp, device=device,
-                                  counters=counters)
+        mesh = mesh_mod.make_mesh(args.dp, args.tp, args.sp, ep=args.ep,
+                                  device=device, counters=counters)
     else:
         device = resolve_device(args.platform)
 
@@ -1143,7 +1160,7 @@ def _main(argv: list[str], results=None) -> int:
         if rank == 0:
             log.info(
                 "loss %.4f → %.4f | %.2f steps/s | %.1f GFLOP/step | MFU %s | "
-                "mesh dp=%d tp=%d sp=%d | device=%s",
+                "mesh dp=%d tp=%d sp=%d ep=%d | device=%s",
                 result.losses[0] if result.losses else float("nan"),
                 result.losses[-1] if result.losses else float("nan"),
                 result.steps_per_sec,
@@ -1152,6 +1169,7 @@ def _main(argv: list[str], results=None) -> int:
                 result.dp,
                 result.tp,
                 result.sp,
+                result.ep,
                 torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
             )
         if mesh is not None:

@@ -173,7 +173,8 @@ class Block(nn.Module):
         self.cfg = cfg
         self.mesh = mesh
         for name, shape in _layer_shapes(cfg).items():
-            shape = mesh_mod.local_shape(name, shape, mesh_mod.PARAM_SPECS, _tp(mesh))
+            shape = mesh_mod.local_shape(name, shape, mesh_mod.PARAM_SPECS,
+                                         _tp(mesh))
             setattr(self, name, _param(shape, device))
 
     def mlp(self, x):
@@ -201,6 +202,18 @@ def embed_tokens(model: nn.Module, tokens: torch.Tensor) -> torch.Tensor:
     inside = (local >= 0) & (local < rows)
     x = w[local.clamp(0, rows - 1)] * inside[..., None].to(w.dtype)
     return mesh_mod.reduce_from_model(x, model.mesh)
+
+
+def rank_freqs(model: nn.Module, seq: int, device) -> torch.Tensor:
+    """The RoPE table of the ``seq`` positions the model's tokens hold:
+    under sp the rank's contiguous window of the sequence, in either ring
+    layout (zigzag redistributes inside the attention only)."""
+    cfg = model.cfg
+    freqs = rope_freqs(cfg.head_dim, cfg.max_seq, device=device)
+    if model.mesh is not None and model.mesh.sp > 1:
+        start = model.mesh.coords["seq"] * seq
+        freqs = freqs[start:start + seq]
+    return freqs
 
 
 def unembed_logits(model: nn.Module, x: torch.Tensor) -> torch.Tensor:
@@ -249,15 +262,9 @@ class Llama(nn.Module):
         (flash attention). ``remat=True`` checkpoints each block, so the
         backward recomputes its activations instead of keeping them.
         """
-        cfg = self.cfg
         S = tokens.shape[1]
         x = embed_tokens(self, tokens)
-        freqs = rope_freqs(cfg.head_dim, cfg.max_seq, device=x.device)
-        if self.mesh is not None and self.mesh.sp > 1:
-            # The rank's contiguous window of the sequence, in either ring
-            # layout: zigzag redistributes inside the attention only.
-            start = self.mesh.coords["seq"] * S
-            freqs = freqs[start:start + S]
+        freqs = rank_freqs(self, S, x.device)
         mask = causal_mask(S, x.device) if attn_impl is None else None
         for block in self.blocks:
             if remat:

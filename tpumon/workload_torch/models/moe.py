@@ -1,4 +1,4 @@
-"""Mixture-of-Experts decoder, ported to PyTorch (single device).
+"""Mixture-of-Experts decoder, ported to PyTorch.
 
 The counterpart of ``tpumon/workload/models/moe.py``: GShard/Switch-style
 top-k routing with renormalized gates and a static per-(batch-row,
@@ -27,7 +27,7 @@ from torch.nn import functional as F
 from torch.utils.checkpoint import checkpoint
 
 from tpumon.workload_torch.models import llama as _llama
-from tpumon.workload_torch.ops.core import rms_norm, rope_freqs
+from tpumon.workload_torch.ops.core import rms_norm
 from tpumon.workload_torch.parallel import mesh as mesh_mod
 
 
@@ -130,11 +130,25 @@ def _route(probs: torch.Tensor, top_k: int, capacity: int):
     return dispatch, combine
 
 
-def route_tokens(x, router, cfg: MoeConfig):
+def route_tokens(x, router, cfg: MoeConfig, mesh=None):
     """Router in f32, softmax, then top-k routing: x [B,S,D] →
-    (dispatch [B,S,E,C], combine [B,S,E,C], probs [B,S,E] f32)."""
+    (dispatch [B,S,E,C], combine [B,S,E,C], probs [B,S,E] f32).
+
+    On a ``mesh`` the probabilities that enter the routing pass through
+    :func:`parallel.mesh.copy_to_expert` (each expert rank's combine uses
+    only its experts' gates, so their gradient sums over expert); the
+    returned ``probs`` are the raw ones, whose use in the aux loss is whole
+    on every rank. Under sp, x holds the rank's S/sp rows: the
+    probabilities are gathered over seq first, so the capacity and the
+    capacity cumsum see the whole sequence as on one device, and
+    dispatch/combine come back as this rank's rows of that routing."""
     probs = torch.softmax(x.float() @ router, dim=-1)
-    dispatch, combine = _route(probs, cfg.top_k, cfg.capacity(x.shape[1]))
+    whole = mesh_mod.gather_seq(mesh_mod.copy_to_expert(probs, mesh), mesh)
+    dispatch, combine = _route(whole, cfg.top_k, cfg.capacity(whole.shape[1]))
+    if whole.shape[1] != x.shape[1]:
+        start = mesh.coords["seq"] * x.shape[1]
+        dispatch = dispatch[:, start:start + x.shape[1]]
+        combine = combine[:, start:start + x.shape[1]]
     return dispatch, combine, probs
 
 
@@ -142,20 +156,37 @@ def expert_ffn(x, dispatch, combine, w_gate, w_up, w_down, cfg: MoeConfig,
                mesh=None):
     """Dispatch → expert SwiGLU → combine, as dense einsums over the
     static capacity axis in ``cfg.dtype``: x [B,S,D], dispatch/combine
-    [B,S,E,C], banks [E,D,F] / [E,F,D] → out [B,S,D].
+    [B,S,E',C], banks [E',D,F'] / [E',F',D] → out [B,S,D].
 
     Under tp the banks hold the rank's slice of the FFN dim: x enters as a
     column split's input, and the experts' outputs sum over model before
     the combine, so the replicated router's gradient through the combine
-    weights is whole on every rank."""
+    weights is whole on the rank's experts. Under ep, E' = E/ep are the
+    rank's experts (dispatch/combine sliced to them): x's gradient sums
+    over expert, and so do the outputs (``_moe_mlp_local``'s psum over
+    expert). Under sp each rank runs the experts on its own rows only;
+    the capacity slots of the other ranks' tokens hold zeros, which the
+    SwiGLU maps to zeros."""
     dtype = cfg.dtype
-    x = mesh_mod.copy_to_model(x, mesh)
+    x = mesh_mod.copy_to_model(mesh_mod.copy_to_expert(x, mesh), mesh)
     xin = torch.einsum("bsec,bsd->ebcd", dispatch.to(dtype), x)
     gate = torch.einsum("ebcd,edf->ebcf", xin, w_gate.to(dtype))
     up = torch.einsum("ebcd,edf->ebcf", xin, w_up.to(dtype))
     y = torch.einsum("ebcf,efd->ebcd", F.silu(gate) * up, w_down.to(dtype))
     y = mesh_mod.reduce_from_model(y, mesh)
-    return torch.einsum("bsec,ebcd->bsd", combine.to(dtype), y)
+    out = torch.einsum("bsec,ebcd->bsd", combine.to(dtype), y)
+    return mesh_mod.reduce_from_expert(out, mesh)
+
+
+def check_ep(cfg: MoeConfig, ep: int) -> None:
+    """Raise unless ``ep`` splits the experts evenly."""
+    if cfg.n_experts % ep:
+        raise ValueError(
+            f"n_experts ({cfg.n_experts}) must divide by ep ({ep})")
+
+
+def _ep(mesh) -> int:
+    return 1 if mesh is None else mesh.ep
 
 
 class MoeBlock(nn.Module):
@@ -168,25 +199,31 @@ class MoeBlock(nn.Module):
         self.mesh = mesh
         for name, shape in _layer_shapes(cfg).items():
             shape = mesh_mod.local_shape(
-                name, shape, mesh_mod.MOE_PARAM_SPECS, _llama._tp(mesh))
+                name, shape, mesh_mod.MOE_PARAM_SPECS, _llama._tp(mesh), _ep(mesh))
             setattr(self, name, _llama._param(shape, device))
 
     def moe_mlp(self, x):
         """x [B,S,D] → (out [B,S,D], GShard aux loss, a f32 scalar)."""
-        cfg = self.cfg
-        dispatch, combine, probs = route_tokens(x, self.router, cfg)
+        cfg, mesh = self.cfg, self.mesh
+        dispatch, combine, probs = route_tokens(x, self.router, cfg, mesh)
         # E · Σ_e mean-fraction-routed(e) · mean-prob(e), both means over
-        # the whole batch: on a data-parallel mesh they average over the
-        # data ranks (the rows are equal shards).
+        # the whole batch: on a mesh they average over the data×seq ranks
+        # (the rows are equal shards).
         frac = dispatch.sum(dim=-1).mean(dim=(0, 1))  # [E]
         prob = probs.mean(dim=(0, 1))
-        if self.mesh is not None and self.mesh.dp > 1:
-            frac, prob = mesh_mod.mean_over_data(
-                torch.cat([frac, prob]), self.mesh).split(cfg.n_experts)
+        if mesh is not None:
+            frac, prob = mesh_mod.mean_over_data_seq(
+                torch.cat([frac, prob]), mesh).split(cfg.n_experts)
         aux = cfg.n_experts * (frac / cfg.top_k * prob).sum()
+        if _ep(mesh) > 1:
+            # This rank's experts: a slice of the routing, not a collective.
+            local = cfg.n_experts // mesh.ep
+            start = mesh.coords["expert"] * local
+            dispatch = dispatch[:, :, start:start + local]
+            combine = combine[:, :, start:start + local]
         out = expert_ffn(
             x, dispatch, combine, self.w_gate, self.w_up, self.w_down, cfg,
-            self.mesh,
+            mesh,
         )
         return out, aux
 
@@ -202,13 +239,14 @@ class Moe(nn.Module):
     """The MoE decoder. Parameters are allocated uninitialized: build it
     with :func:`init_params` or :func:`from_jax_params`. ``mesh`` makes it
     the rank's slice, as :class:`models.llama.Llama`'s does, with the
-    expert banks split on the FFN dim and the router replicated
-    (``moe_param_specs`` at ep = 1)."""
+    expert banks split on E over expert and on the FFN dim over model,
+    and the router replicated (``moe_param_specs``)."""
 
     def __init__(self, cfg: MoeConfig, device=None, mesh=None) -> None:
         super().__init__()
         tp = _llama._tp(mesh)
         _llama.check_tp(cfg, tp)
+        check_ep(cfg, _ep(mesh))
         self.cfg = cfg
         self.mesh = mesh
         specs = mesh_mod.MOE_PARAM_SPECS
@@ -233,7 +271,7 @@ class Moe(nn.Module):
         cfg = self.cfg
         S = tokens.shape[1]
         x = _llama.embed_tokens(self, tokens)
-        freqs = rope_freqs(cfg.head_dim, cfg.max_seq, device=x.device)
+        freqs = _llama.rank_freqs(self, S, x.device)
         mask = _llama.causal_mask(S, x.device) if attn_impl is None else None
         aux = x.new_zeros((), dtype=torch.float32)
         for block in self.blocks:

@@ -18,27 +18,32 @@ from tpumon.workload_torch.stats import WorkloadStats
 
 
 def run_jobs(rank: int, world: int, jobs: list[dict]) -> list[dict]:
-    """``harness.run`` once per job on a fresh dp×tp×sp mesh: each job is
-    ``{"cfg", "dp", "tp", "kwargs"}`` and optionally ``"sp"`` (``kwargs``
-    go to ``run``, device cpu, ``sp_layout`` among them), plus
-    ``"stats": True`` to pass a fresh ``WorkloadStats`` (the
+    """``harness.run`` once per job on a fresh dp×ep×sp×tp mesh: each job
+    is ``{"cfg", "dp", "tp", "kwargs"}`` and optionally ``"sp"`` and
+    ``"ep"`` (``kwargs`` go to ``run``, device cpu, ``sp_layout`` among
+    them), plus ``"stats": True`` to pass a fresh ``WorkloadStats`` (the
     windowed loop) and ``"routes": True`` to record every MoE layer's
-    dispatch tensors; ``{"pair": True}`` runs :func:`copy_reduce_pair`.
+    dispatch tensors (the rank's rows); ``{"pair": True}`` runs
+    :func:`copy_reduce_pair`, ``{"gather_route": True}``
+    :func:`gather_route`.
     Returns each job's losses, grad norms, moment bytes by parameter,
-    collective counts and the rank's mesh coordinates, and the routes
-    when asked."""
+    collective counts and bytes and the rank's mesh coordinates, and the
+    routes when asked."""
     out = []
     for job in jobs:
         if job.get("pair"):
             out.append(copy_reduce_pair(rank, world))
             continue
+        if job.get("gather_route"):
+            out.append(gather_route(rank, world))
+            continue
         mesh = mesh_mod.make_mesh(job["dp"], job["tp"], job.get("sp", 1),
-                                  device=torch.device("cpu"))
+                                  ep=job.get("ep", 1), device=torch.device("cpu"))
         routes: list[np.ndarray] = []
         route_tokens = moe_mod.route_tokens
         if job.get("routes"):
-            def recording(x, router, cfg):
-                dispatch, combine, probs = route_tokens(x, router, cfg)
+            def recording(*args):
+                dispatch, combine, probs = route_tokens(*args)
                 routes.append(dispatch.detach().numpy().copy())
                 return dispatch, combine, probs
 
@@ -50,12 +55,14 @@ def run_jobs(rank: int, world: int, jobs: list[dict]) -> list[dict]:
             result = harness.run(job["cfg"], mesh=mesh, device="cpu", **kwargs)
         finally:
             moe_mod.route_tokens = route_tokens
+        detail = mesh.counters.detailed_snapshot()
         out.append({
             "losses": result.losses,
             "grad_norms": result.grad_norms,
             "start_step": result.start_step,
             "moment_bytes": result.moment_bytes,
-            "counts": mesh.counters.detailed_snapshot()["counts"],
+            "counts": detail["counts"],
+            "bytes": detail["bytes"],
             "coords": mesh.coords,
             "routes": routes,
         })
@@ -90,6 +97,31 @@ def copy_reduce_pair(rank: int, world: int, seed: int = 0) -> dict:
     }
 
 
+def gather_route(rank: int, world: int, seed: int = 0) -> dict:
+    """The seq gather and ``_route`` on a seq split of given f32 router
+    probabilities, against ``_route`` on the unsplit ones, on an
+    ep=2×sp=2 mesh (``models.moe.route_tokens``' routing under sp).
+    Returns whether this rank's rows of dispatch and combine equal the
+    unsplit routing's bit for bit, and the counts."""
+    mesh = mesh_mod.make_mesh(1, 1, 2, ep=2, device=torch.device("cpu"))
+    cfg = moe_mod.MoeConfig.tiny()
+    B, S, E = 2, 32, cfg.n_experts
+    rng = np.random.default_rng(seed)
+    logits = torch.from_numpy(rng.standard_normal((B, S, E)).astype(np.float32))
+    probs = torch.softmax(logits, dim=-1)
+    want = moe_mod._route(probs, cfg.top_k, cfg.capacity(S))
+    rows = S // mesh.sp
+    start = mesh.coords["seq"] * rows
+    whole = mesh_mod.gather_seq(probs[:, start:start + rows].contiguous(), mesh)
+    got = moe_mod._route(whole, cfg.top_k, cfg.capacity(whole.shape[1]))
+    return {
+        "equal": [torch.equal(g[:, start:start + rows], w[:, start:start + rows])
+                  for g, w in zip(got, want)],
+        "gathered_equal": torch.equal(whole, probs),
+        "counts": mesh.counters.detailed_snapshot()["counts"],
+    }
+
+
 def permute_on_card(rank: int, world: int) -> dict:
     """Two ranks on card 0 over gloo swap a bf16 tensor with
     ``parallel.mesh.permute`` (staged through the host) and check what
@@ -120,4 +152,5 @@ def fail_on_rank(rank: int, world: int, bad: int) -> None:
     torch.distributed.barrier()
 
 
-__all__ = ["copy_reduce_pair", "fail_on_rank", "permute_on_card", "run_jobs"]
+__all__ = ["copy_reduce_pair", "fail_on_rank", "gather_route", "permute_on_card",
+           "run_jobs"]

@@ -20,6 +20,14 @@ The weights are replicated over ``data`` and ``seq``, so the gradient
 bucket all-reduces over one ``data_seq`` group per (stage, expert, model)
 coordinate: the data group when sp = 1, the seq group when dp = 1.
 
+Expert parallelism splits only the MoE banks over ``expert`` (E, as
+``moe_param_specs`` does); tokens, activations and the routing are
+replicated over it, as the reference's ``batch_spec``/``activation_spec``
+leave them. Each expert rank runs its own experts on the whole batch
+row, and one all-reduce over ``expert`` combines their outputs
+(:func:`reduce_from_expert`), the traffic the reference's compiled step
+issues (no all-to-all).
+
 The backend rule: ``nccl`` when each rank has a card of its own, ``gloo``
 when ranks share a card or run on the CPU (gloo stages CUDA tensors
 through the host). Rank r uses card ``r % device_count``.
@@ -115,6 +123,10 @@ class Mesh:
     def sp(self) -> int:
         return self.shape["seq"]
 
+    @property
+    def ep(self) -> int:
+        return self.shape["expert"]
+
 
 def make_mesh(dp: int, tp: int, sp: int = 1, pp: int = 1, ep: int = 1, *,
               device: torch.device, counters: CollectiveCounters | None = None
@@ -165,49 +177,59 @@ def make_mesh(dp: int, tp: int, sp: int = 1, pp: int = 1, ep: int = 1, *,
 # Megatron splits
 # ---------------------------------------------------------------------------
 
-#: The dim of each dense parameter split over ``model`` (``param_specs``):
-#: column splits on the output dim, row splits on the input dim, the
-#: vocabulary in embed and unembed. Parameters not named are replicated.
-PARAM_SPECS: dict[str, int] = {
-    "embed": 0, "unembed": 1,
-    "wq": 1, "wk": 1, "wv": 1, "wo": 0,
-    "w_gate": 1, "w_up": 1, "w_down": 0,
+#: The mesh axis each dim of a dense parameter is split over, None for a
+#: replicated dim (``param_specs``): column splits on the output dim, row
+#: splits on the input dim, the vocabulary in embed and unembed.
+#: Parameters not named are replicated.
+PARAM_SPECS: dict[str, tuple] = {
+    "embed": ("model", None), "unembed": (None, "model"),
+    "wq": (None, "model"), "wk": (None, "model"), "wv": (None, "model"),
+    "wo": ("model", None),
+    "w_gate": (None, "model"), "w_up": (None, "model"), "w_down": ("model", None),
 }
 
-#: The MoE model's (``moe_param_specs`` at ep = 1): expert banks
-#: [E, D, F] / [E, F, D] split on the FFN dim; the router is replicated.
-MOE_PARAM_SPECS: dict[str, int] = {
-    **PARAM_SPECS, "w_gate": 2, "w_up": 2, "w_down": 1,
+#: The MoE model's (``moe_param_specs``): expert banks [E, D, F] / [E, F,
+#: D] split on E over ``expert`` and on F over ``model``; the router is
+#: replicated.
+MOE_PARAM_SPECS: dict[str, tuple] = {
+    **PARAM_SPECS,
+    "w_gate": ("expert", None, "model"), "w_up": ("expert", None, "model"),
+    "w_down": ("expert", "model", None),
 }
 
 
-def split_dim(name: str, specs: dict[str, int]) -> int | None:
-    """The dim of parameter ``name`` (a state-dict key) split over model."""
-    return specs.get(name.rsplit(".", 1)[-1])
+def split_dim(name: str, specs: dict[str, tuple], axis: str = "model") -> int | None:
+    """The dim of parameter ``name`` (a state-dict key) split over ``axis``."""
+    spec = specs.get(name.rsplit(".", 1)[-1], ())
+    return spec.index(axis) if axis in spec else None
 
 
-def local_shape(name: str, shape, specs: dict[str, int], tp: int) -> tuple:
-    """``shape`` with the split dim of ``name`` divided by ``tp``."""
+def local_shape(name: str, shape, specs: dict[str, tuple], tp: int,
+                ep: int = 1) -> tuple:
+    """``shape`` with the dims of ``name`` split over model divided by
+    ``tp`` and over expert by ``ep``."""
     shape = list(shape)
-    dim = split_dim(name, specs)
-    if dim is not None and tp > 1:
-        if shape[dim] % tp:
-            raise ValueError(f"{name}: dim {dim} ({shape[dim]}) must divide "
-                             f"by tp ({tp})")
-        shape[dim] //= tp
+    for axis, n in (("expert", ep), ("model", tp)):
+        dim = split_dim(name, specs, axis)
+        if dim is not None and n > 1:
+            if shape[dim] % n:
+                raise ValueError(f"{name}: dim {dim} ({shape[dim]}) must divide "
+                                 f"by {'tp' if axis == 'model' else 'ep'} ({n})")
+            shape[dim] //= n
     return tuple(shape)
 
 
-def shard_params(tree: dict, mesh: Mesh, specs: dict[str, int]) -> dict:
+def shard_params(tree: dict, mesh: Mesh, specs: dict[str, tuple]) -> dict:
     """The rank's slice of each parameter of the full ``tree`` (a state
     dict that every rank drew from the same seed, as the reference's
-    multi-process ``shard_tree`` does)."""
-    tp, coord = mesh.tp, mesh.coords["model"]
+    multi-process ``shard_tree`` does), on its expert and model
+    coordinates."""
     out = {}
     for name, value in tree.items():
-        dim = split_dim(name, specs)
-        if dim is not None and tp > 1:
-            value = value.chunk(tp, dim=dim)[coord]
+        for axis in ("expert", "model"):
+            dim = split_dim(name, specs, axis)
+            if dim is not None and mesh.shape[axis] > 1:
+                value = value.chunk(mesh.shape[axis], dim=dim)[mesh.coords[axis]]
         out[name] = value.clone()
     return out
 
@@ -287,70 +309,111 @@ def permute(t: torch.Tensor, mesh: Mesh, axis: str, pairs) -> torch.Tensor:
     return out
 
 
-class _CopyToModel(torch.autograd.Function):
-    """Megatron's f: identity forward, all-reduce over model backward."""
+class _CopyTo(torch.autograd.Function):
+    """Megatron's f over ``axis``: identity forward, all-reduce backward."""
 
     @staticmethod
-    def forward(ctx, x, mesh):
-        ctx.mesh = mesh
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
         return x
 
     @staticmethod
     def backward(ctx, g):
         return all_reduce(g.clone(memory_format=torch.contiguous_format),
-                          ctx.mesh, "model"), None
+                          ctx.mesh, ctx.axis), None, None
 
 
-class _ReduceFromModel(torch.autograd.Function):
-    """Megatron's g: all-reduce over model forward, identity backward."""
+class _ReduceFrom(torch.autograd.Function):
+    """Megatron's g over ``axis``: all-reduce forward, identity backward."""
 
     @staticmethod
-    def forward(ctx, x, mesh):
+    def forward(ctx, x, mesh, axis):
         return all_reduce(x.clone(memory_format=torch.contiguous_format),
-                          mesh, "model")
+                          mesh, axis)
 
     @staticmethod
     def backward(ctx, g):
-        return g, None
+        return g, None, None
 
 
-class _MeanOverData(torch.autograd.Function):
-    """The mean over data ranks forward; identity backward, which is the
-    mean of the ranks' upstream gradients when, as for a loss term that
-    every data rank computes from the same reduced value, they agree."""
+class _MeanOverDataSeq(torch.autograd.Function):
+    """The mean over data×seq ranks forward; identity backward, which is
+    the mean of the ranks' upstream gradients when, as for a loss term
+    that every rank computes from the same reduced value, they agree."""
 
     @staticmethod
     def forward(ctx, x, mesh):
         out = all_reduce(x.clone(memory_format=torch.contiguous_format),
-                         mesh, "data")
-        return out.div_(mesh.dp)
+                         mesh, "data_seq")
+        return out.div_(mesh.dp * mesh.sp)
 
     @staticmethod
     def backward(ctx, g):
         return g, None
 
 
-def mean_over_data(x: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
-    """The mean over data ranks of a statistic of the rank's rows that a
-    loss term needs over the whole batch (the MoE aux loss's routed
-    fractions and mean probabilities)."""
-    if mesh is None or mesh.groups["data"] is None:
+class _GatherSeq(torch.autograd.Function):
+    """The whole sequence of ``x`` [B, S/sp, ...] over seq forward (one
+    all-gather); the backward returns this rank's own rows of the
+    gradient, with no communication: the caller keeps only its rows of
+    whatever it computes from the gathered tensor, row by row."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.rows, ctx.coord = x.shape[1], mesh.coords["seq"]
+        return torch.cat(all_gather(x, mesh, "seq"), dim=1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(1, ctx.coord * ctx.rows, ctx.rows), None
+
+
+def mean_over_data_seq(x: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
+    """The mean over the data×seq ranks of a statistic of the rank's
+    tokens that a loss term needs over the whole batch (the MoE aux loss's
+    routed fractions and mean probabilities): every axis the tokens are
+    split on. Tokens are replicated over expert and model."""
+    if mesh is None or mesh.groups["data_seq"] is None:
         return x
-    return _MeanOverData.apply(x, mesh)
+    return _MeanOverDataSeq.apply(x, mesh)
+
+
+def gather_seq(x: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
+    """``x`` [B, S/sp, ...] → [B, S, ...], the rows of every seq rank in
+    order (:class:`_GatherSeq`)."""
+    if mesh is None or mesh.groups["seq"] is None:
+        return x
+    return _GatherSeq.apply(x, mesh)
 
 
 def copy_to_model(x: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
     """The input of a column split (its gradient sums over model)."""
     if mesh is None or mesh.groups["model"] is None:
         return x
-    return _CopyToModel.apply(x, mesh)
+    return _CopyTo.apply(x, mesh, "model")
 
 
 def reduce_from_model(x: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
     """The sum over model of a row split's partial outputs."""
     if mesh is None or mesh.groups["model"] is None:
         return x
-    return _ReduceFromModel.apply(x, mesh)
+    return _ReduceFrom.apply(x, mesh, "model")
+
+
+def copy_to_expert(x: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
+    """A tensor replicated over expert whose uses on each expert rank
+    reach only that rank's experts (its gradient sums over expert)."""
+    if mesh is None or mesh.groups["expert"] is None:
+        return x
+    return _CopyTo.apply(x, mesh, "expert")
+
+
+def reduce_from_expert(x: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
+    """The sum over expert of the ranks' partial MoE outputs (each from
+    its own experts): the combine."""
+    if mesh is None or mesh.groups["expert"] is None:
+        return x
+    return _ReduceFrom.apply(x, mesh, "expert")
 
 
 # ---------------------------------------------------------------------------
@@ -458,15 +521,18 @@ __all__ = [
     "all_reduce",
     "axis_groups",
     "backend_for",
+    "copy_to_expert",
     "copy_to_model",
     "data_seq_groups",
+    "gather_seq",
     "layout",
     "local_shape",
     "make_mesh",
-    "mean_over_data",
+    "mean_over_data_seq",
     "permute",
     "rank_device",
     "rank_devices",
+    "reduce_from_expert",
     "reduce_from_model",
     "shard_params",
     "split_dim",
