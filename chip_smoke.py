@@ -87,6 +87,17 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
               by an all-reduce over expert (models/moe.py). The same run
               and checks as mesh, against the single-device MoE step at
               --grad-accum 4, with ep=2 on the page.
+12. pipe      the dense argv without --grad-accum and --loss-chunk (the
+              reference refuses both with pp) at --pp 2 --tp 2
+              --interleave 2 --microbatches 8: the layers as a pipeline
+              over two stages on the circular schedule (each stage holds
+              2 chunks of 3 layers; 8 microbatches of one row, 17 ticks a
+              step; parallel/pipeline.py), each stage body's attention on
+              the flash kernels at the tp2 case's shape. The same run and
+              checks as mesh, against the single-device step on the same
+              batch without --loss-chunk, with the launches of 17 ticks ×
+              3 layers a step, pp=2 on the page and the stage hops
+              (op="collective-permute") among its families.
 
 Then it prints the nvidia-smi line, one {"kernels": [...]} JSON line and,
 as the last line, {"ok": true, "device": {...}}.
@@ -200,6 +211,15 @@ EXPERT_TRAIN = [*MOE_TRAIN[:MOE_TRAIN.index("--grad-accum")], "--grad-accum", "4
                 *MOE_TRAIN[MOE_TRAIN.index("--grad-accum") + 2:], "--dp", "2", "--ep", "2"]
 EXPERT_ARGV = [*EXPERT_TRAIN, "--steps", str(MESH_STEPS), "--stats-every",
                str(MESH_STATS_EVERY), "--phase-stats", "--grad-norm"]
+#: The pipeline path: the dense train step at pp=2 × tp=2 on the circular
+#: schedule (2 chunks a stage, 8 microbatches of one row), without
+#: --grad-accum and --loss-chunk (the reference refuses both with pp),
+#: run and checked as the mesh path.
+PIPE_TRAIN = [*(a for a in DENSE_TRAIN
+                if a not in ("--grad-accum", "4", "--loss-chunk", "1024")),
+              "--pp", "2", "--tp", "2", "--interleave", "2", "--microbatches", "8"]
+PIPE_ARGV = [*PIPE_TRAIN, "--steps", str(MESH_STEPS), "--stats-every",
+             str(MESH_STATS_EVERY), "--phase-stats", "--grad-norm"]
 #: The dryrun's dense-parity tolerances (__graft_entry__.py).
 PARITY = {"loss_abs": 5e-3, "grad_norm_rel": 0.02}
 
@@ -872,8 +892,9 @@ def drive_mesh(torch, name: str, argv_run: list[str]) -> dict:
     """One mesh path through harness.main (it starts the ranks itself),
     with the page scraped and parsed, each rank's launches and
     collectives held to what the run implies from the rank's own seq
-    coordinate, and the first step's loss and grad norm held to the
-    single-device step on the same weights and tokens on this card."""
+    coordinate (under pp, the same on every stage), and the first step's
+    loss and grad norm held to the single-device step on the same weights
+    and tokens on this card."""
     from prometheus_client.parser import text_string_to_metric_families
 
     from tpumon.workload_torch import flops, harness
@@ -882,12 +903,13 @@ def drive_mesh(torch, name: str, argv_run: list[str]) -> dict:
         expected_per_step,
     )
     from tpumon.workload_torch.ops import flash_attention as fa
+    from tpumon.workload_torch.parallel.pipeline import ticks
     from tpumon.workload_torch.parallel.ring import flash_calls_per_layer
 
     args = harness.build_parser().parse_args(argv_run)
-    cfg = harness.model_config(args)
-    dp, tp, sp, ep = args.dp, args.tp, args.sp, args.ep
-    world = dp * tp * sp * ep
+    cfg = harness.round_layers(harness.model_config(args), args.pp, args.interleave)
+    dp, tp, sp, pp, ep = args.dp, args.tp, args.sp, args.pp, args.ep
+    world = dp * tp * sp * pp * ep
     zigzag = args.sp_layout == "zigzag"
     backend = "nccl" if torch.cuda.device_count() >= world else "gloo"
 
@@ -927,11 +949,20 @@ def drive_mesh(torch, name: str, argv_run: list[str]) -> dict:
     if sorted(ranks) != list(range(world)):
         fail(f"{name}: reports from ranks {sorted(ranks)}, not 0..{world - 1}")
 
+    pipe = (dict(pp=pp, microbatches=args.microbatches, interleave=args.interleave)
+            if pp > 1 else {})
     shape = dict(n_layers=cfg.n_layers, dp=dp, tp=tp, remat=args.remat,
                  loss_chunk=args.loss_chunk, seq=args.seq, zero1=args.zero1,
                  sp=sp, sp_layout=args.sp_layout, attn=args.attn, ep=ep,
-                 moe=args.model == "moe")
+                 moe=args.model == "moe", **pipe)
     probes = MESH_STEPS // MESH_STATS_EVERY
+    # Layer calls of one microbatch, and microbatches a step: under pp
+    # every tick runs its chunk of lpg layers, bubbles included.
+    if pp > 1:
+        layer_calls = (ticks(args.microbatches, pp, args.interleave)
+                       * cfg.n_layers // (pp * args.interleave))
+    else:
+        layer_calls = cfg.n_layers
 
     def want_of(coord: int):
         per_step = expected_per_step(grad_accum=args.grad_accum,
@@ -941,7 +972,7 @@ def drive_mesh(torch, name: str, argv_run: list[str]) -> dict:
         counts = {op: (MESH_STEPS + 1) * per_step[op] + probes * per_probe[op]
                   for op in per_step if per_step[op] or per_probe[op]}
         calls = flash_calls_per_layer(sp, zigzag, coord) if sp > 1 else 1
-        launches = expected_launches(cfg.n_layers, args.grad_accum,
+        launches = expected_launches(layer_calls, args.grad_accum,
                                      MESH_STEPS, MESH_STATS_EVERY, calls)
         return per_step, per_probe, counts, launches
 
@@ -983,13 +1014,13 @@ def drive_mesh(torch, name: str, argv_run: list[str]) -> dict:
         fail(f"{name}: families missing from rank 0's page: {missing}")
     ops_on_page = {sample.labels["op"] for sample in
                    families["workload_collective_ops"].samples}
-    if sp > 1 and "collective-permute" not in ops_on_page:
+    if (sp > 1 or pp > 1) and "collective-permute" not in ops_on_page:
         fail(f"{name}: rank 0's page counts no collective-permute: {ops_on_page}")
     wait = snap.get("collective_wait_fraction")
     if wait is None or not 0.0 <= wait <= 1.0:
         fail(f"{name}: collective wait fraction {wait} not in [0, 1]")
     axes = snap.get("axes", {})
-    if (axes.get("dp"), axes.get("tp"), axes.get("sp"), axes.get("ep")) != (dp, tp, sp, ep):
+    if tuple(axes.get(a) for a in ("dp", "tp", "sp", "pp", "ep")) != (dp, tp, sp, pp, ep):
         fail(f"{name}: the page's axes read {axes}")
 
     # Per op and timed step, from rank 0's raw dump (call order).
@@ -1067,7 +1098,12 @@ def phase_expert(torch) -> dict:
     return drive_mesh(torch, "expert", EXPERT_ARGV)
 
 
-PHASES = "env,build,kernels,main,moe,checkpoint,bench,profile,mesh,ring,expert"
+def phase_pipe(torch) -> dict:
+    """The dense train step at pp=2 × tp=2 on the circular schedule."""
+    return drive_mesh(torch, "pipe", PIPE_ARGV)
+
+
+PHASES = "env,build,kernels,main,moe,checkpoint,bench,profile,mesh,ring,expert,pipe"
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -1110,6 +1146,7 @@ def main(argv: list[str] | None = None) -> int:
     mesh_run = phase_mesh(torch) if "mesh" in phases else {}
     ring_run = phase_ring(torch) if "ring" in phases else {}
     expert_run = phase_expert(torch) if "expert" in phases else {}
+    pipe_run = phase_pipe(torch) if "pipe" in phases else {}
     print(f"total: {time.perf_counter() - t0:.1f} s", flush=True)
 
     line = []
@@ -1124,6 +1161,7 @@ def main(argv: list[str] | None = None) -> int:
             "launches_mesh_rank0": mesh_run.get("launches", {}).get(name, 0),
             "launches_ring_rank0": ring_run.get("launches", {}).get(name, 0),
             "launches_expert_rank0": expert_run.get("launches", {}).get(name, 0),
+            "launches_pipe_rank0": pipe_run.get("launches", {}).get(name, 0),
             "max_abs_err": row.get("max_abs_err"), "ms": row.get("ms"),
             "plain_ms": row.get("plain_ms"), "bound_ms": row.get("bound_ms"),
             "bound_by": row.get("bound_by"), "library_ms": row.get("library_ms"),

@@ -195,7 +195,8 @@ def test_ring_mesh_checkpoint_carries_sp(tmp_path):
         assert part["losses"] == full["losses"][:2]
         assert cont["start_step"] == 2 and cont["losses"] == full["losses"][2:]
     with open(tmp_path / "r" / "3" / MESH_FILE) as f:
-        assert json.load(f) == {"dp": 1, "tp": 2, "sp": 2, "ep": 1, "zero1": False}
+        assert json.load(f) == {"dp": 1, "tp": 2, "sp": 2, "ep": 1, "zero1": False,
+                                "pp": 1, "interleave": 1, "microbatches": 1}
     other_sp = CheckpointStore(tmp_path / "r", mesh=types.SimpleNamespace(
         dp=1, tp=2, sp=1, ep=1, rank=0))
     with pytest.raises(ValueError, match="saved on dp=1 tp=2 zero1=False sp=2"):
@@ -227,7 +228,8 @@ def test_expert_mesh_checkpoint_carries_ep(tmp_path):
     assert ranks[0][0]["losses"] == ranks[1][0]["losses"]
     with open(tmp_path / "r" / "3" / MESH_FILE) as f:
         layout = json.load(f)
-    assert layout == {"dp": 2, "tp": 1, "sp": 1, "ep": 2, "zero1": True}
+    assert layout == {"dp": 2, "tp": 1, "sp": 1, "ep": 2, "zero1": True,
+                      "pp": 1, "interleave": 1, "microbatches": 1}
     other_ep = CheckpointStore(tmp_path / "r", zero1=True, mesh=types.SimpleNamespace(
         dp=2, tp=1, sp=1, ep=1, rank=0))
     with pytest.raises(ValueError, match="saved on dp=2 tp=1 zero1=True sp=1 ep=2"):
@@ -239,6 +241,61 @@ def test_expert_mesh_checkpoint_carries_ep(tmp_path):
         dp=2, tp=1, sp=1, ep=2, rank=0))
     with pytest.raises(ValueError, match="saved on dp=2 tp=1 zero1=True sp=1 ep=1"):
         at_ep2.restore(3, None, None, "cpu")
+
+
+def test_pipeline_mesh_checkpoint_carries_pp(tmp_path):
+    """pp=2×tp=2 on the circular schedule (interleave 2, 4 layers): each
+    rank saves its stage's layers under their global names, the resumed
+    losses equal the uninterrupted run's bit for bit, ``mesh.json``
+    carries pp, interleave and microbatches, and a resume at another pp,
+    interleave or microbatches (or one from a layout written before pp
+    was recorded, which reads as pp=1) is refused."""
+    import dataclasses
+    import json
+    import types
+
+    from tpumon.workload_torch.checkpoint import MESH_FILE, rank_file
+    from tpumon.workload_torch.parallel import checks, launch
+
+    cfg = dataclasses.replace(LlamaConfig.tiny(), n_layers=4)
+
+    def job(steps, directory, every=0):
+        return dict(cfg=cfg, dp=1, tp=2, pp=2, interleave=2, microbatches=2,
+                    kwargs=dict(steps=steps, batch=2, seq=32, seed=9,
+                                checkpoint_dir=str(tmp_path / directory),
+                                checkpoint_every=every))
+
+    ranks = launch.spawn(checks.run_jobs, 4, str(tmp_path / "rendezvous"), (
+        [job(3, "f"), job(2, "r", every=2), job(3, "r")],), timeout_s=120)
+    for full, part, cont in ranks:
+        assert part["losses"] == full["losses"][:2]
+        assert cont["start_step"] == 2 and cont["losses"] == full["losses"][2:]
+    assert ranks[0][0]["losses"] == ranks[3][0]["losses"]
+    step = tmp_path / "r" / "3"
+    with open(step / MESH_FILE) as f:
+        layout = json.load(f)
+    assert layout == {"dp": 1, "tp": 2, "sp": 1, "ep": 1, "zero1": False,
+                      "pp": 2, "interleave": 2, "microbatches": 2}
+    # Stage 1 (ranks 2 and 3) holds model blocks 1 and 3 (chunks 0 and 1).
+    shard = torch.load(step / rank_file(2), map_location="cpu")["params"]
+    assert {k.split(".")[1] for k in shard if k.startswith("blocks.")} == {"1", "3"}
+
+    def store(**kw):
+        mesh = dict(dp=1, tp=2, sp=1, ep=1, pp=2, rank=0)
+        mesh.update(kw.pop("mesh", {}))
+        return CheckpointStore(tmp_path / "r", mesh=types.SimpleNamespace(**mesh),
+                               **{"interleave": 2, "microbatches": 2, **kw})
+
+    saved_on = "saved on dp=1 tp=2 zero1=False sp=1 ep=1 pp=2 interleave=2 microbatches=2"
+    for other in (store(mesh=dict(pp=1)), store(interleave=1), store(microbatches=4)):
+        with pytest.raises(ValueError, match=saved_on):
+            other.restore(3, None, None, "cpu")
+    for key in ("pp", "interleave", "microbatches"):
+        del layout[key]
+    with open(step / MESH_FILE, "w") as f:
+        json.dump(layout, f)
+    with pytest.raises(ValueError, match="zero1=False sp=1 ep=1 pp=1 interleave=1"):
+        store().restore(3, None, None, "cpu")
 
 
 @pytest.mark.cuda

@@ -258,3 +258,85 @@ def test_expert_probe_formula_at_the_card_path():
     probe = expected_per_probe(n_layers=8, dp=2, tp=1, ep=2, moe=True, remat=True,
                                loss_chunk=0, seq=4096, zero1=False)
     assert probe == {"all-reduce": 2 * 16 + 24 + 1, "all-gather": 0}
+
+
+#: (formula arguments beyond the common ones, expected per step) of the
+#: pipelined step (``parallel/pipeline.py``): L = 12 layers at seq 4096
+#: unless said, T ticks of a chunk of lpg = L / (pp·v) layers, M
+#: microbatches of mb rows. On every stage: T hops of the [mb,s,D]
+#: activations forward and T − 1 backward (the last tick's hop feeds
+#: nothing), the stage pair (the finished microbatches' [b,s,D] summed
+#: over stage forward, the pipe input's gradient [b,s,D] backward), and
+#: each tick's body collectives T·lpg times, bubble ticks included.
+PIPE_CASES = {
+    # GPipe, M = 2, pp = 2: T = 3; only the stage pair and the hops.
+    "gpipe_pp2_m2": (dict(pp=2, microbatches=2),
+                     {"all-reduce": 2, "all-gather": 0, "collective-permute": 3 + 2}),
+    # GPipe, M = 8, pp = 4: T = M + pp − 1 = 11.
+    "gpipe_pp4_m8": (dict(pp=4, microbatches=8),
+                     {"all-reduce": 2, "all-gather": 0, "collective-permute": 11 + 10}),
+    # The chip path without remat: pp=2×tp=2, v = 2, M = 8: T = 17, lpg =
+    # 3. Forward the embedding 1, the row splits 2·17·3 = 102 of [1,s,D],
+    # the loss's 2, the stage sum 1; backward the column splits' 102, the
+    # unembed's input 1, the pipe input's 1.
+    "interleave2_tp2_m8": (dict(pp=2, tp=2, microbatches=8, interleave=2),
+                           {"all-reduce": 106 + 104, "all-gather": 0,
+                            "collective-permute": 17 + 16}),
+    # remat recomputes a tick's chunk of lpg = 6 layers and stops before
+    # the last layer's w_down all-reduce: 2·6 − 1 = 11 a tick, T = 3.
+    "remat_tp2_gpipe": (dict(pp=2, tp=2, microbatches=2, remat=True),
+                        {"all-reduce": (1 + 36 + 2 + 1) + (36 + 1 + 33 + 1),
+                         "all-gather": 0, "collective-permute": 5}),
+    # pp=2×sp=2 zigzag flash, GPipe, M = 2: T·lpg = 18 attention calls of
+    # 5 permutes forward and 5 backward, the hops, the stage pair and the
+    # bucket over seq.
+    "sp2_zigzag_flash": (dict(pp=2, sp=2, microbatches=2, sp_layout="zigzag",
+                              attn="flash"),
+                         {"all-reduce": 3, "all-gather": 0,
+                          "collective-permute": 18 * 10 + 5}),
+}
+
+#: The same for moe-small (L = 8, E = 8) under pp. lpg = 4 at GPipe pp =
+#: 2, T = 3 at M = 2: per tick and layer under ep the combine's sum over
+#: expert forward ([mb,s,D] bf16) and two gradients backward; under
+#: remat the chunk's sums over expert again but its last layer's (3 a
+#: tick); the data mean of the stage's token sums (f32 [4·2E], when
+#: dp > 1) and the stage sum of its aux loss (f32 scalar) forward.
+MOE_PIPE_CASES = {
+    "dp2_pp2_ep2_remat": (dict(dp=2, pp=2, ep=2, microbatches=2, remat=True,
+                               grad_norm=True),
+                          {"all-reduce": (1 + 2 + 12) + (1 + 24 + 9) + 1 + 2,
+                           "all-gather": 0, "collective-permute": 5}),
+    # Under tp a chunk's recompute runs all 2·lpg row splits (the
+    # combine's input is an MoE layer's last saved tensor).
+    "pp2_tp2_remat": (dict(pp=2, tp=2, microbatches=2, remat=True),
+                      {"all-reduce": (1 + 24 + 2 + 1 + 1) + (24 + 1 + 24 + 1),
+                       "all-gather": 0, "collective-permute": 5}),
+}
+
+
+@pytest.mark.parametrize("case", [*PIPE_CASES, *MOE_PIPE_CASES])
+def test_pipeline_formula_cases(case):
+    moe = case in MOE_PIPE_CASES
+    kw, want = (MOE_PIPE_CASES if moe else PIPE_CASES)[case]
+    args = dict(n_layers=8 if moe else 12, dp=1, tp=1, grad_accum=1, remat=False,
+                loss_chunk=0, seq=4096, zero1=False, grad_norm=False, moe=moe)
+    args.update(kw)
+    assert expected_per_step(**args) == want
+
+
+def test_pipeline_formula_at_the_card_path():
+    """The medium train step of ``chip_smoke.py``'s pipe phase at
+    pp=2×tp=2, interleave 2, 8 microbatches of one row, with --remat and
+    the grad norm, per rank and step: 17 ticks × 3 layers; forward 106
+    all-reduces, backward 189 (the recompute's 17 × 5 among them), the
+    grad norm's over model and stage; 17 hops forward and 16 backward. A
+    probe: two forwards and one backward."""
+    cfg = LlamaConfig.medium()
+    shape = dict(n_layers=cfg.n_layers, dp=1, tp=2, pp=2, microbatches=8,
+                 interleave=2, remat=True, loss_chunk=0, seq=4096, zero1=False,
+                 attn="flash")
+    assert expected_per_step(grad_accum=1, grad_norm=True, **shape) == {
+        "all-reduce": 106 + 189 + 2, "all-gather": 0, "collective-permute": 33}
+    assert expected_per_probe(**shape) == {
+        "all-reduce": 2 * 106 + 189, "all-gather": 0, "collective-permute": 2 * 17 + 16}

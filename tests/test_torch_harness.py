@@ -147,8 +147,7 @@ def test_platform_cuda_raises_below_hopper(monkeypatch):
 
 @pytest.mark.parametrize(
     "flag",
-    [["--pp", "2"],
-     ["--interleave", "2"], ["--microbatches", "4"], ["--num-processes", "2"],
+    [["--num-processes", "2"],
      ["--coordinator", "host:1234"], ["--process-id", "1"]],
 )
 def test_later_slice_flags_fail_loudly(flag, capsys):
@@ -165,12 +164,19 @@ def test_later_slice_flags_fail_loudly(flag, capsys):
      r"seq (34) must divide by 2*sp (4)"),
     (["--ep", "2"], "ep > 1 requires a MoeConfig"),
     (["--ep", "3", "--model", "moe"], "n_experts (4) must divide by ep (3)"),
+    (["--pp", "2", "--grad-accum", "2"], "grad_accum composes with dp/tp/sp/ep, not pp"),
+    (["--pp", "2", "--model", "moe", "--sp", "2"],
+     "pp with MoE composes with dp/ep/tp only (sp=1)"),
+    (["--pp", "2", "--interleave", "2", "--microbatches", "3"],
+     "microbatches (3) must divide by pp (2)"),
+    (["--pp", "2", "--loss-chunk", "16"], "composes with dp/tp (not MoE, pp, or sp"),
 ])
 def test_sp_refusals_before_any_rank_starts(flags, message, capsys, monkeypatch):
     """The reference's refusals of a sequence-parallel run, of expert
-    parallelism without a MoE model, and an expert count that ep does not
-    divide exit with code 2 in the launching process: no rank is
-    started."""
+    parallelism without a MoE model, of an expert count that ep does not
+    divide, and of a pipelined run with grad_accum, loss_chunk, MoE under
+    sp or microbatches the circular schedule cannot feed in rounds of pp
+    exit with code 2 in the launching process: no rank is started."""
     from tpumon.workload_torch.parallel import launch
 
     def no_launch(*args, **kwargs):

@@ -11,9 +11,10 @@ No RNG state is saved: the harness draws its token batch once from the
 seed before the loop, and nothing in a step draws random numbers.
 
 On a mesh each rank writes its own model and optimizer shard,
-``<step>.tmp/rank<r>.pt``; after a barrier rank 0 writes ``mesh.json``
-(dp, tp, sp, ep, zero1) and renames the directory into place. A resume
-needs the same dp×tp×sp×ep×zero1 and raises otherwise.
+``<step>.tmp/rank<r>.pt`` (under pp, its stage's layers under their
+global names); after a barrier rank 0 writes ``mesh.json`` (dp, tp, sp,
+ep, zero1, pp, interleave, microbatches) and renames the directory into
+place. A resume needs the same layout and raises otherwise.
 """
 
 from __future__ import annotations
@@ -26,7 +27,8 @@ import torch
 import torch.distributed as dist
 
 STATE_FILE = "state.pt"
-#: A mesh checkpoint's layout (dp, tp, sp, ep, zero1), written last by rank 0.
+#: A mesh checkpoint's layout (dp, tp, sp, ep, zero1, pp, interleave,
+#: microbatches), written last by rank 0.
 MESH_FILE = "mesh.json"
 #: Saved steps kept, as the reference's orbax options keep them.
 MAX_TO_KEEP = 2
@@ -39,14 +41,18 @@ def rank_file(rank: int) -> str:
 class CheckpointStore:
     """The saved steps under ``root`` (created on first save). ``mesh``
     (this rank's ``parallel.mesh.Mesh``) makes it the store of one rank's
-    shards; ``zero1`` is part of the mesh layout a resume must match."""
+    shards; ``zero1``, and under pp the schedule's ``interleave`` and
+    ``microbatches`` (1 and 1 without pp), are part of the mesh layout a
+    resume must match."""
 
-    def __init__(self, root: str, mesh=None, zero1: bool = False) -> None:
+    def __init__(self, root: str, mesh=None, zero1: bool = False,
+                 interleave: int = 1, microbatches: int = 1) -> None:
         self.root = os.path.abspath(root)
         self.mesh = mesh
         self.layout = None if mesh is None else {
             "dp": mesh.dp, "tp": mesh.tp, "sp": mesh.sp, "ep": mesh.ep,
-            "zero1": bool(zero1)}
+            "zero1": bool(zero1), "pp": getattr(mesh, "pp", 1),
+            "interleave": interleave, "microbatches": microbatches}
 
     def steps(self) -> list[int]:
         """The complete saved steps, oldest first."""
@@ -103,15 +109,19 @@ class CheckpointStore:
         if os.path.isfile(mesh_path):
             with open(mesh_path) as f:
                 saved = json.load(f)
-            saved.setdefault("ep", 1)  # written before ep was ported
+            # Written before ep, then pp, was ported.
+            for key in ("ep", "pp", "interleave", "microbatches"):
+                saved.setdefault(key, 1)
         if saved != self.layout:
             def name(layout):
                 return "one device" if layout is None else (
-                    "dp={dp} tp={tp} zero1={zero1} sp={sp} ep={ep}".format(**layout))
+                    "dp={dp} tp={tp} zero1={zero1} sp={sp} ep={ep} pp={pp} "
+                    "interleave={interleave} microbatches={microbatches}"
+                    .format(**layout))
             raise ValueError(
                 f"checkpoint step {step} in {self.root} was saved on "
                 f"{name(saved)}; this run is {name(self.layout)}: a resume "
-                "needs the same dp×tp×zero1, sp and ep"
+                "needs the same dp×tp×zero1, sp, ep and pipeline"
             )
         path = os.path.join(
             directory, STATE_FILE if self.mesh is None else rank_file(self.mesh.rank))

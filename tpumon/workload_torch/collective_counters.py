@@ -20,7 +20,8 @@ and its latency is ``perf_counter`` around it.
 :func:`counters_families` renders the reference's families with the
 reference's names and labels; each is absent, not zero, until it has a
 sample. :func:`expected_per_step` and :func:`expected_per_probe` are the
-counts the train step issues, from its shape and options.
+counts the train step issues, from its shape and options
+(:func:`_pipeline_counts` under pp).
 """
 
 from __future__ import annotations
@@ -194,6 +195,59 @@ class CountersCollector:
         return counters_families(self._counters)
 
 
+def _pipeline_counts(n_layers: int, dp: int, tp: int, remat: bool, moe: bool,
+                     sp: int, ep: int, pp: int, microbatches: int,
+                     interleave: int) -> tuple[Counter, Counter]:
+    """(forward, backward) counts of one pipelined step
+    (``parallel/pipeline.py``) before the gradients' data×seq all-reduce,
+    the same on every stage. T ticks (``pipeline.ticks``) of a chunk of
+    lpg = L / (pp·v) layers; b rows of the rank in M microbatches of
+    mb = b / M rows, s = S / sp positions, D the width; payloads in the
+    model dtype unless said.
+
+    Every tick runs its body forward and backward on every stage, bubble
+    ticks included, so each body collective counts T·lpg times:
+    - under tp, forward the two row splits of each layer (2, [mb,s,D]),
+      backward the two column splits' inputs (2); the vocab-sharded
+      embedding (1, [b,s,D]) and the loss's two (f32 [b,s,1] and
+      [b,s,2]) forward, the unembed's input (1, [b,s,D]) backward;
+    - an MoE layer under ep: forward the combine's sum over expert (1,
+      [mb,s,D]), backward the expert input's and the routed
+      probabilities' gradients (2; [mb,s,D] and f32 [mb,s,E]);
+    - under sp, the ring's permutes of each layer's attention
+      (:func:`_permute_counts`).
+    ``--remat`` recomputes a tick's whole chunk, and torch's checkpoint
+    stops before the last layer's last saved tensor: a dense chunk runs
+    2·lpg − 1 of its tp all-reduces again, an MoE chunk its 2·lpg and
+    lpg − 1 of its sums over expert.
+
+    The stage axis adds, forward, T hops of [mb,s,D] (``collective-
+    permute``) and the all-reduce of the finished microbatches
+    ([b,s,D]); backward, T − 1 hops (the last tick's hop feeds nothing on
+    any stage) and the all-reduce of the pipe input's gradient ([b,s,D]).
+    An MoE model adds, forward, the data mean of the stage's token sums
+    (1 when dp > 1, f32 [v·lpg·2E]) and the stage sum of its aux loss (1,
+    f32 scalar)."""
+    T = _pipeline_ticks(microbatches, pp, interleave)
+    lpg = n_layers // (pp * interleave)
+    fwd, bwd = Counter(), Counter()
+    fwd["all-reduce"] += 1
+    bwd["all-reduce"] += 1
+    fwd["collective-permute"] += T
+    bwd["collective-permute"] += T - 1
+    if tp > 1:
+        fwd["all-reduce"] += 1 + 2 * T * lpg + 2
+        bwd["all-reduce"] += 2 * T * lpg + 1
+        if remat:
+            bwd["all-reduce"] += T * (2 * lpg - (0 if moe else 1))
+    if moe:
+        fwd["all-reduce"] += int(dp * sp > 1) + 1
+        if ep > 1:
+            fwd["all-reduce"] += T * lpg
+            bwd["all-reduce"] += 2 * T * lpg + (T * (lpg - 1) if remat else 0)
+    return fwd, bwd
+
+
 def _pass_counts(n_layers: int, dp: int, tp: int, remat: bool,
                  loss_chunk: int, seq: int, moe: bool, sp: int = 1,
                  ep: int = 1) -> tuple[Counter, Counter]:
@@ -274,28 +328,58 @@ def _permute_counts(n_layers: int, sp: int, sp_layout: str, attn: str,
     return fwd, fwd * (2 if remat else 1)
 
 
+def _counts(n_layers, dp, tp, remat, loss_chunk, seq, moe, sp, ep, sp_layout,
+            attn, seq_coord, pp, microbatches, interleave) -> tuple[Counter, Counter]:
+    """(forward, backward) counts of one microbatch (of one step under
+    pp), ring permutes included."""
+    if pp > 1:
+        fwd, bwd = _pipeline_counts(n_layers, dp, tp, remat, moe, sp, ep, pp,
+                                    microbatches, interleave)
+        # Every tick's chunk: T·lpg layer calls.
+        n_layers = (n_layers // (pp * interleave)
+                    * _pipeline_ticks(microbatches, pp, interleave))
+    else:
+        fwd, bwd = _pass_counts(n_layers, dp, tp, remat, loss_chunk, seq, moe, sp, ep)
+    pf, pb = _permute_counts(n_layers, sp, sp_layout, attn, seq_coord, remat)
+    fwd["collective-permute"] += pf
+    bwd["collective-permute"] += pb
+    return fwd, bwd
+
+
+def _pipeline_ticks(microbatches: int, pp: int, interleave: int) -> int:
+    from tpumon.workload_torch.parallel.pipeline import ticks
+
+    return ticks(microbatches, pp, interleave)
+
+
 def expected_per_step(*, n_layers: int, dp: int, tp: int, grad_accum: int,
                       remat: bool, loss_chunk: int, seq: int, zero1: bool,
                       grad_norm: bool, moe: bool = False, sp: int = 1,
                       sp_layout: str = "contiguous", attn: str = "xla",
-                      seq_coord: int = 0, ep: int = 1) -> dict[str, int]:
+                      seq_coord: int = 0, ep: int = 1, pp: int = 1,
+                      microbatches: int = 1, interleave: int = 1) -> dict[str, int]:
     """The collectives one optimizer step issues on the rank at seq
     coordinate ``seq_coord``: the microbatches' model, expert and seq
     collectives (:func:`_pass_counts`) and ring permutes
-    (:func:`_permute_counts`), one all-reduce of the gradients (and the
-    loss) over data×seq per microbatch when dp·sp > 1 (the weights are
-    replicated over both), under ``grad_norm`` one all-reduce of the
-    split leaves' squared norms over model under tp and one of the
-    banks' over expert under ep, and ZeRO-1's one all-gather of the
-    updated slices. ``collective-permute`` appears only under sp > 1."""
-    fwd, bwd = _pass_counts(n_layers, dp, tp, remat, loss_chunk, seq, moe, sp, ep)
+    (:func:`_permute_counts`), or under pp the pipelined step's
+    (:func:`_pipeline_counts`, with ``grad_accum`` 1), one all-reduce of
+    the gradients (and the loss) over data×seq per microbatch when
+    dp·sp > 1 (the weights are replicated over both), under
+    ``grad_norm`` one all-reduce of the split leaves' squared norms over
+    model under tp, one of the banks' over expert under ep and one of
+    the layers' over stage under pp (4 B each; 8 B over model under pp:
+    the layers' and the others'), and ZeRO-1's one all-gather of the
+    updated slices. ``collective-permute`` appears only under sp > 1 or
+    pp > 1."""
+    fwd, bwd = _counts(n_layers, dp, tp, remat, loss_chunk, seq, moe, sp, ep,
+                       sp_layout, attn, seq_coord, pp, microbatches, interleave)
     all_reduce = grad_accum * (fwd["all-reduce"] + bwd["all-reduce"] + (dp * sp > 1))
-    all_reduce += int(grad_norm) * (int(tp > 1) + int(moe and ep > 1))
+    all_reduce += int(grad_norm) * (int(tp > 1) + int(moe and ep > 1) + int(pp > 1))
     all_gather = grad_accum * (fwd["all-gather"] + bwd["all-gather"]) + int(zero1)
     out = {"all-reduce": all_reduce, "all-gather": all_gather}
-    if sp > 1:
-        pf, pb = _permute_counts(n_layers, sp, sp_layout, attn, seq_coord, remat)
-        out["collective-permute"] = grad_accum * (pf + pb)
+    if sp > 1 or pp > 1:
+        out["collective-permute"] = grad_accum * (fwd["collective-permute"]
+                                                  + bwd["collective-permute"])
     return out
 
 
@@ -303,16 +387,19 @@ def expected_per_probe(*, n_layers: int, dp: int, tp: int, remat: bool,
                        loss_chunk: int, seq: int, zero1: bool,
                        moe: bool = False, sp: int = 1,
                        sp_layout: str = "contiguous", attn: str = "xla",
-                       seq_coord: int = 0, ep: int = 1) -> dict[str, int]:
+                       seq_coord: int = 0, ep: int = 1, pp: int = 1,
+                       microbatches: int = 1, interleave: int = 1) -> dict[str, int]:
     """The collectives one phase probe issues on each rank: a forward, a
     forward and backward with the data×seq all-reduce of its gradients,
-    and the optimizer update (ZeRO-1's all-gather), on one microbatch."""
-    fwd, bwd = _pass_counts(n_layers, dp, tp, remat, loss_chunk, seq, moe, sp, ep)
-    out = {"all-reduce": 2 * fwd["all-reduce"] + bwd["all-reduce"] + (dp * sp > 1),
-           "all-gather": 2 * fwd["all-gather"] + bwd["all-gather"] + int(zero1)}
-    if sp > 1:
-        pf, pb = _permute_counts(n_layers, sp, sp_layout, attn, seq_coord, remat)
-        out["collective-permute"] = 2 * pf + pb
+    and the optimizer update (ZeRO-1's all-gather), on one microbatch
+    (under pp, one pipelined step)."""
+    fwd, bwd = _counts(n_layers, dp, tp, remat, loss_chunk, seq, moe, sp, ep,
+                       sp_layout, attn, seq_coord, pp, microbatches, interleave)
+    out = {op: 2 * fwd[op] + bwd[op] for op in ("all-reduce", "all-gather")}
+    out["all-reduce"] += int(dp * sp > 1)
+    out["all-gather"] += int(zero1)
+    if sp > 1 or pp > 1:
+        out["collective-permute"] = 2 * fwd["collective-permute"] + bwd["collective-permute"]
     return out
 
 

@@ -1,8 +1,8 @@
 """Training harness of the port: the dense Llama and MoE train steps, on
-one card or on a dp×ep×sp×tp mesh of processes.
+one card or on a dp×pp×ep×sp×tp mesh of processes.
 
 The counterpart of ``tpumon/workload/harness.py`` for the single-device
-and dp×ep×sp×tp paths: next-token cross-entropy (plus the weighted GShard aux
+and dp×pp×ep×sp×tp paths: next-token cross-entropy (plus the weighted GShard aux
 loss for MoE), optional strided gradient accumulation, remat and a
 chunked loss, AdamW with optax's defaults (or its ZeRO-1 form), the
 windowed loop that publishes ``tpu_step_*`` (and, with ``--serve``,
@@ -14,9 +14,11 @@ saved step.
 PyTorch runs eagerly, so there is no jit: parameters and optimizer state
 are updated in place, and the loop reads the loss on the host once per
 stats window. ``--attn flash`` runs attention on the hand-written Hopper
-kernels of ``ops/flash_attention.py``. ``--dp``/``--tp``/``--sp``/``--ep``
+kernels of ``ops/flash_attention.py``. ``--dp``/``--tp``/``--sp``/``--pp``/``--ep``
 start one process per mesh position (``parallel/launch.py``); rank 0 owns the page
-and the final log line.
+and the final log line. ``--pp`` runs the layers as a pipeline over the
+mesh's stage axis (``parallel/pipeline.py``), GPipe or, with
+``--interleave``, the circular schedule, in ``--microbatches`` microbatches.
 
 CLI:  python -m tpumon.workload_torch.harness --steps 20
       python -m tpumon.workload_torch.harness --model moe --preset small
@@ -24,6 +26,7 @@ CLI:  python -m tpumon.workload_torch.harness --steps 20
       python -m tpumon.workload_torch.harness --dp 2 --tp 2 --zero1
       python -m tpumon.workload_torch.harness --tp 2 --sp 2 --sp-layout zigzag
       python -m tpumon.workload_torch.harness --model moe --dp 2 --ep 2
+      python -m tpumon.workload_torch.harness --pp 2 --tp 2 --interleave 2 --microbatches 4
       (``--platform cpu`` runs on the host; the default is the card)
 """
 
@@ -103,15 +106,23 @@ def _chunked_nll(x, unembed_w, targets, chunk, dtype, mesh=None):
     return total / (B * S)
 
 
-def loss_fn(model, tokens, attn_impl=None, remat=False, loss_chunk=0):
+def loss_fn(model, tokens, attn_impl=None, remat=False, loss_chunk=0,
+            forward_fn=None):
     """Next-token cross-entropy; inputs [B, S], targets are the shift-by-1.
     A :class:`Moe` adds ``AUX_LOSS_WEIGHT`` × its aux loss. ``loss_chunk``
     (dense model only) fuses the unembed projection into the loss in
     sequence chunks of that many tokens (:func:`_chunked_nll`). Under the
     model's mesh the loss is the rank's data shard's, from vocab-sharded
-    logits."""
+    logits. ``forward_fn`` replaces the model's forward (the pipelined
+    forward, ``parallel.pipeline.make_pipelined_forward``: logits, or
+    logits and the aux loss)."""
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
     mesh = model.mesh
+    if forward_fn is not None:
+        out = forward_fn(inputs)
+        logits, aux = out if isinstance(out, tuple) else (out, None)
+        loss = _mean_nll(logits, targets, mesh)
+        return loss if aux is None else loss + AUX_LOSS_WEIGHT * aux
     if isinstance(model, Moe):
         logits, aux = model(inputs, attn_impl, remat)
         return _mean_nll(logits, targets, mesh) + AUX_LOSS_WEIGHT * aux
@@ -198,6 +209,7 @@ def make_train_step(
     remat: bool = False,
     with_grad_norm: bool = False,
     loss_chunk: int = 0,
+    forward_fn=None,
 ):
     """One optimizer step ``step(tokens) -> (loss, grad_norm)`` as device
     tensors (no host sync). ``grad_accum > 1`` splits the batch into that
@@ -213,16 +225,19 @@ def make_train_step(
     ranks. Under tp the
     grad norm adds the split leaves' squares over ``model`` (one
     all-reduce), under ep the expert banks' over ``expert`` first (one
-    more); replicated leaves count once."""
+    more), under pp the layers' over ``stage`` last (one more); replicated
+    leaves count once. ``forward_fn`` is the pipelined forward (under pp,
+    where ``grad_accum`` is 1)."""
     params = list(model.parameters())
     mesh = model.mesh
     specs = _param_specs(model)
     names = [name for name, _ in model.named_parameters()]
     by_model = [mesh_mod.split_dim(n, specs) is not None for n in names]
     by_expert = [mesh_mod.split_dim(n, specs, "expert") is not None for n in names]
+    by_stage = [mesh_mod.layer_index(n) is not None for n in names]
 
     def grad_of(tokens):
-        loss = loss_fn(model, tokens, attn_impl, remat, loss_chunk)
+        loss = loss_fn(model, tokens, attn_impl, remat, loss_chunk, forward_fn)
         loss.backward()
         return loss.detach()
 
@@ -231,16 +246,27 @@ def make_train_step(
         return tokens.reshape(B // grad_accum, grad_accum, -1).transpose(0, 1)
 
     def grad_norm():
-        if mesh is None or mesh.tp * mesh.ep == 1:
+        if mesh is None or mesh.tp * mesh.ep * mesh.pp == 1:
             return torch.linalg.vector_norm(
                 torch.stack([torch.linalg.vector_norm(p.grad) for p in params])
             )
         sq = torch.stack([torch.linalg.vector_norm(p.grad) ** 2 for p in params])
         experts = torch.tensor(by_expert, device=sq.device)
         model_only = torch.tensor(by_model, device=sq.device) & ~experts
+        whole = ~(experts | model_only)
+        # The stage's own leaves (under pp its layers; else every leaf)
+        # and, under pp, the leaves replicated over stage, each summed
+        # over expert and model; the stage's own then over stage.
+        own = torch.tensor(by_stage if mesh.pp > 1 else [True] * len(names),
+                           device=sq.device)
         split_sq = mesh_mod.all_reduce(sq[experts].sum().reshape(1), mesh, "expert")
-        split_sq = mesh_mod.all_reduce(split_sq + sq[model_only].sum(), mesh, "model")
-        return torch.sqrt(split_sq[0] + sq[~(experts | model_only)].sum())
+        parts = [split_sq + sq[model_only & own].sum()]
+        if mesh.pp > 1:
+            parts.append(sq[model_only & ~own].sum().reshape(1))
+        split_sq = mesh_mod.all_reduce(torch.cat(parts), mesh, "model")
+        own_sq = mesh_mod.all_reduce(
+            (split_sq[0] + sq[whole & own].sum()).reshape(1), mesh, "stage")
+        return torch.sqrt(own_sq[0] + split_sq[1:].sum() + sq[whole & ~own].sum())
 
     def step(tokens):
         optimizer.zero_grad(set_to_none=True)
@@ -298,7 +324,7 @@ def _clone_optimizer_state(state_dict: dict) -> dict:
 
 
 def _make_phase_probe(model, optimizer, attn_impl, remat, loss_chunk,
-                      grad_accum: int = 1, zero1: bool = False):
+                      grad_accum: int = 1, zero1: bool = False, forward_fn=None):
     """One instrumented step split into timed fwd / fwd+bwd / optimizer
     phases (``--phase-stats``), run at most once per stats window. It
     leaves the live parameters, their ``.grad`` and the optimizer state
@@ -311,8 +337,9 @@ def _make_phase_probe(model, optimizer, attn_impl, remat, loss_chunk,
     never runs a full-batch backward.
 
     On a mesh every rank runs it in lockstep: it issues the step's
-    collectives (the ring's permutes, the grad pass's data×seq
-    all-reduce of its gradients, and a ZeRO-1 update's all-gather)."""
+    collectives (the ring's permutes, the pipeline's hops, the grad
+    pass's data×seq all-reduce of its gradients, and a ZeRO-1 update's
+    all-gather)."""
     params = list(model.parameters())
     names = [name for name, _ in model.named_parameters()]
     chunks = max(1, int(grad_accum))
@@ -329,10 +356,10 @@ def _make_phase_probe(model, optimizer, attn_impl, remat, loss_chunk,
             tokens = tokens[::chunks]
         t0 = clock()
         with torch.no_grad():
-            loss_fn(model, tokens, attn_impl, remat, loss_chunk)
+            loss_fn(model, tokens, attn_impl, remat, loss_chunk, forward_fn)
         fwd_s = clock() - t0
         t0 = clock()
-        loss = loss_fn(model, tokens, attn_impl, remat, loss_chunk)
+        loss = loss_fn(model, tokens, attn_impl, remat, loss_chunk, forward_fn)
         grads = torch.autograd.grad(loss, params)
         if mesh is not None and mesh.dp * mesh.sp > 1:
             flat = torch.cat([g.reshape(-1) for g in grads])
@@ -377,11 +404,13 @@ def _record_serve_window(serve, batch: int, n_steps: int, window_s: float) -> No
     )
 
 
-def _build_model(cfg, params, generator, device, mesh=None):
+def _build_model(cfg, params, generator, device, mesh=None, interleave: int = 1):
     """The seeded model for ``cfg``'s family, or ``params`` (a model, or
     the reference's parameter tree as numpy arrays) on ``device``. On a
     ``mesh`` every rank builds the full model from the same seed (or
-    tree) and keeps its slice (``parallel.mesh.shard_params``)."""
+    tree) and keeps its slice (``parallel.mesh.shard_params``): under pp,
+    the layers of its stage's ``interleave`` chunks
+    (``parallel.pipeline.stage_layers``)."""
     is_moe = isinstance(cfg, MoeConfig)
     if params is None:
         full = (moe_mod.init_params if is_moe else init_params)(cfg, generator)
@@ -393,10 +422,17 @@ def _build_model(cfg, params, generator, device, mesh=None):
         )
     if mesh is None:
         return full
-    model = (Moe if is_moe else Llama)(cfg, device, mesh)
+    layers = None
+    if mesh.pp > 1:
+        from tpumon.workload_torch.parallel.pipeline import stage_layers
+
+        layers = sum(stage_layers(cfg.n_layers, mesh.pp, interleave,
+                                  mesh.coords["stage"]), [])
+    model = (Moe if is_moe else Llama)(cfg, device, mesh, layers)
     specs = _param_specs(model)
     with torch.no_grad():
-        model.load_state_dict(mesh_mod.shard_params(full.state_dict(), mesh, specs))
+        model.load_state_dict(
+            mesh_mod.shard_params(full.state_dict(), mesh, specs, layers))
     return model
 
 
@@ -409,7 +445,10 @@ def run(
     dp: int = 1,
     tp: int = 1,
     sp: int = 1,
+    pp: int = 1,
     ep: int = 1,
+    microbatches: int = 2,
+    interleave: int = 1,
     sp_layout: str = "contiguous",
     grad_accum: int = 1,
     remat: bool = False,
@@ -461,6 +500,15 @@ def run(
     experts, and one all-reduce over expert combines them
     (``models/moe.py``).
 
+    ``pp > 1`` splits the layers over the mesh's ``stage`` axis and runs
+    them as a pipeline (``parallel/pipeline.py``): the rank's rows go
+    through in ``microbatches`` microbatches, on the GPipe schedule or,
+    with ``interleave`` > 1, the circular one (each stage holds that many
+    chunks of layers). It composes with dp, tp, sp and, for MoE, ep (not
+    sp); the reference refuses ``grad_accum`` and ``loss_chunk`` with it
+    (:func:`check_pp`). ``remat`` then recomputes each tick's chunk of
+    layers as one.
+
     The token batch is fixed and reused every step. A warm-up step runs
     outside the timing. ``stats`` (a :class:`stats.WorkloadStats`) turns
     on the windowed telemetry: every ``stats_every`` steps the loop reads
@@ -477,7 +525,8 @@ def run(
     ``checkpoint_every`` steps and at the end.
     """
     if mesh is not None:
-        dp, tp, sp, ep, device = mesh.dp, mesh.tp, mesh.sp, mesh.ep, mesh.device
+        dp, tp, sp, pp, ep = mesh.dp, mesh.tp, mesh.sp, mesh.pp, mesh.ep
+        device = mesh.device
     requested = torch.device(device or "cuda")
     device = resolve_device(requested.type, requested.index or 0)
     # f32 products must be f32, as on the reference, not TF32.
@@ -519,17 +568,22 @@ def run(
             )
     check_sp(cfg, seq=seq, sp=sp, sp_layout=sp_layout, loss_chunk=loss_chunk)
     check_ep(cfg, ep)
+    check_pp(cfg, pp=pp, microbatches=microbatches, interleave=interleave,
+             grad_accum=grad_accum, loss_chunk=loss_chunk, sp=sp,
+             per_shard=batch // dp)
+    if pp == 1:
+        microbatches = interleave = 1  # no pipeline: not used
     if serve is not None and checkpoint_dir is not None:
         # The checkpointed loop records per step; the serving window
         # shape assumes the windowed loop.
         raise ValueError("serve telemetry composes with the windowed "
                          "loop, not checkpoint_dir")
 
-    if mesh is None and dp * tp * sp * ep > 1:
-        mesh = mesh_mod.make_mesh(dp, tp, sp, ep=ep, device=device)
+    if mesh is None and dp * tp * sp * pp * ep > 1:
+        mesh = mesh_mod.make_mesh(dp, tp, sp, pp, ep, device=device)
 
     generator = torch.Generator(device=device).manual_seed(seed)
-    model = _build_model(cfg, params, generator, device, mesh)
+    model = _build_model(cfg, params, generator, device, mesh, interleave)
     if tokens is None:
         tokens = torch.randint(
             0, cfg.vocab, (batch, seq + 1), generator=generator, device=device
@@ -547,19 +601,19 @@ def run(
         tokens = tokens[mesh.coords["data"] * rows:][:rows, start:start + cols + 1]
     optimizer = build_optimizer(model.named_parameters(), model, zero1)
 
-    attn_impl = None
-    if sp > 1:
-        from tpumon.workload_torch.parallel.ring import make_ring_attn
+    from tpumon.workload_torch.parallel import pipeline
 
-        attn_impl = make_ring_attn(mesh, zigzag=sp_layout == "zigzag",
-                                   flash=attn == "flash")
-    elif attn == "flash":
-        from tpumon.workload_torch.ops.flash_attention import make_flash_attn
-
-        attn_impl = make_flash_attn()
+    attn_impl = forward_fn = None
+    if pp > 1:
+        forward_fn = pipeline.make_pipelined_forward(
+            model, microbatches=microbatches, interleave=interleave,
+            remat=remat, sp_layout=sp_layout, attn=attn)
+    else:
+        attn_impl = pipeline.make_attn_impl(mesh, sp_layout=sp_layout, attn=attn)
     step = make_train_step(
         model, optimizer, attn_impl, grad_accum=grad_accum, remat=remat,
         with_grad_norm=with_grad_norm, loss_chunk=loss_chunk,
+        forward_fn=forward_fn,
     )
 
     run_devices = [device] if mesh is None else mesh_mod.rank_devices(mesh)
@@ -569,20 +623,22 @@ def run(
             flops_per_step=flops_per_step,
             tokens_per_step=batch * seq,
             peak_flops_total=flops_mod.peak_flops_total(run_devices),
-            axes={"dp": dp, "tp": tp, "sp": sp, "pp": 1, "ep": ep},
+            axes={"dp": dp, "tp": tp, "sp": sp, "pp": pp, "ep": ep},
         )
     phase_probe = None
     if stats is not None and phase_stats:
         phase_probe = _make_phase_probe(
-            model, optimizer, attn_impl, remat, loss_chunk, grad_accum, zero1
+            model, optimizer, attn_impl, remat, loss_chunk, grad_accum, zero1,
+            forward_fn,
         )
-    result = RunResult(losses=[], steps_per_sec=0.0, dp=dp, tp=tp, sp=sp, ep=ep,
-                       model_flops_per_step=flops_per_step)
+    result = RunResult(losses=[], steps_per_sec=0.0, dp=dp, tp=tp, sp=sp, pp=pp,
+                       ep=ep, model_flops_per_step=flops_per_step)
     if checkpoint_dir is not None:
         _run_checkpointed(
             step, model, optimizer, tokens, steps, checkpoint_dir,
             checkpoint_every, result, stats=stats, phase_probe=phase_probe,
             with_grad_norm=with_grad_norm, zero1=zero1,
+            schedule=dict(interleave=interleave, microbatches=microbatches),
         )
     else:
         _run_windowed(step, model, tokens, steps, result, stats=stats,
@@ -601,6 +657,32 @@ def check_ep(cfg, ep: int) -> None:
     if not isinstance(cfg, MoeConfig):
         raise ValueError("ep > 1 requires a MoeConfig")
     moe_mod.check_ep(cfg, ep)
+
+
+def check_pp(cfg, *, pp: int, microbatches: int, interleave: int,
+             grad_accum: int, loss_chunk: int, sp: int,
+             per_shard: int | None = None) -> None:
+    """The reference's refusals of a pipelined run (its messages): the
+    options it does not compose with, and the schedule's divisibility
+    (``parallel.pipeline.check_schedule``; ``per_shard`` is the rows of a
+    data rank)."""
+    if pp < 2:
+        return
+    from tpumon.workload_torch.parallel import pipeline
+
+    if isinstance(cfg, MoeConfig) and sp > 1:
+        raise ValueError("pp with MoE composes with dp/ep/tp only (sp=1)")
+    if grad_accum > 1:
+        raise ValueError("grad_accum composes with dp/tp/sp/ep, not pp")
+    if loss_chunk:
+        raise ValueError(
+            "loss_chunk fuses the dense model's unembed into the "
+            "loss; it composes with dp/tp (not MoE, pp, or sp — the "
+            "seq-chunk reshape would fight the seq sharding)"
+        )
+    pipeline.check_schedule(cfg.n_layers, pp, interleave, microbatches)
+    if per_shard is not None:
+        pipeline.check_batch(per_shard, microbatches)
 
 
 def check_sp(cfg, *, seq: int, sp: int, sp_layout: str, loss_chunk: int) -> None:
@@ -698,7 +780,7 @@ def _run_windowed(step, model, tokens, steps, result, *, stats, stats_every,
 def _run_checkpointed(
     step, model, optimizer, tokens, steps, checkpoint_dir, checkpoint_every,
     result, *, stats=None, phase_probe=None, with_grad_norm=False,
-    zero1=False,
+    zero1=False, schedule=None,
 ) -> None:
     """Checkpoint/resume loop around the train step; fills ``result``.
 
@@ -711,12 +793,14 @@ def _run_checkpointed(
     saved), keeps the 2 newest, and runs one phase probe at the end. On a
     mesh every rank saves and restores its own shard
     (:class:`checkpoint.CheckpointStore`); a resume needs the same
-    dp×tp×sp×ep×zero1.
+    dp×tp×sp×pp×ep×zero1 and pipeline ``schedule`` (its interleave and
+    microbatches).
     """
     from tpumon.workload_torch.checkpoint import CheckpointStore
 
     mesh = model.mesh
-    store = CheckpointStore(checkpoint_dir, mesh=mesh, zero1=zero1)
+    store = CheckpointStore(checkpoint_dir, mesh=mesh, zero1=zero1,
+                            **(schedule or {}))
     device = next(model.parameters()).device
     start_step = 0
     latest = store.latest_step()
@@ -823,9 +907,6 @@ def _install_sigterm_marker(stats, grace_s: float | None = None) -> None:
 #: the ROADMAP.md queue-1 item that ports each. Given a non-default value
 #: they fail; they are never silently ignored.
 _LATER = {
-    "pp": ("pipeline parallelism", 9, 1),
-    "microbatches": ("pipeline parallelism", 9, 2),
-    "interleave": ("pipeline parallelism", 9, 1),
     "coordinator": ("multi-host", 11, None),
     "num_processes": ("multi-host", 11, 1),
     "process_id": ("multi-host", 11, None),
@@ -854,8 +935,14 @@ def build_parser() -> argparse.ArgumentParser:
         parser.add_argument(f"--{axis}", type=int, default=1)
     parser.add_argument("--sp-layout", choices=("contiguous", "zigzag"),
                         default="contiguous")
-    parser.add_argument("--microbatches", type=int, default=2)
-    parser.add_argument("--interleave", type=int, default=1)
+    parser.add_argument(
+        "--microbatches", type=int, default=2,
+        help="pipeline microbatches a data rank's rows split into (--pp > 1)")
+    parser.add_argument(
+        "--interleave", type=int, default=1,
+        help="layer chunks a pipeline stage holds: 1 is GPipe, more the "
+        "circular schedule (--pp > 1; n_layers is rounded up to a multiple "
+        "of pp·interleave)")
     parser.add_argument(
         "--capacity-factor", type=float, default=None,
         help="MoE expert capacity factor (default: the preset's 2.0)",
@@ -954,7 +1041,7 @@ def build_parser() -> argparse.ArgumentParser:
         choices=PLATFORMS,
         default="cuda",
         help="where to run: the card (default; raises when there is no "
-        "Hopper card) or the host cpu. --dp/--tp/--sp/--ep start one process "
+        "Hopper card) or the host cpu. --dp/--tp/--sp/--pp/--ep start one process "
         "per mesh position: over nccl when each has a card of its own, over "
         "gloo when they share one or run on the host",
     )
@@ -981,8 +1068,18 @@ def model_config(args: argparse.Namespace) -> LlamaConfig | MoeConfig:
     }[args.preset]()
 
 
+def round_layers(cfg, pp: int, interleave: int):
+    """``cfg`` with ``n_layers`` rounded up to a multiple of pp·interleave
+    under pp: a stage needs a whole number of layers per chunk, and the
+    CLI works as a traffic generator at any --pp/--interleave."""
+    groups = pp * interleave
+    if pp < 2 or groups < 1 or cfg.n_layers % groups == 0:
+        return cfg
+    return dataclasses.replace(cfg, n_layers=-(-cfg.n_layers // groups) * groups)
+
+
 def main(argv: list[str] | None = None) -> int:
-    """The CLI. With ``--dp``/``--tp``/``--sp``/``--ep`` > 1 and no ``RANK`` in the
+    """The CLI. With ``--dp``/``--tp``/``--sp``/``--pp``/``--ep`` > 1 and no ``RANK`` in the
     environment it starts one process per mesh position
     (``parallel.launch``), each of which re-enters it as its rank, and
     returns the worst of their exit codes; with ``RANK`` set (by that
@@ -1032,25 +1129,33 @@ def _main(argv: list[str], results=None) -> int:
                      "--checkpoint-dir")
     if args.capacity_factor is not None and args.model != "moe":
         parser.error("--capacity-factor requires --model moe")
-    if min(args.dp, args.tp, args.sp, args.ep) < 1:
-        parser.error("--dp, --tp, --sp and --ep must be >= 1")
+    if min(args.dp, args.tp, args.sp, args.pp, args.ep) < 1:
+        parser.error("--dp, --tp, --sp, --pp and --ep must be >= 1")
     if args.zero1 and args.dp < 2:
         parser.error("--zero1 shards the optimizer state over dp; it needs "
                      "--dp > 1")
-    cfg = model_config(args)
-    try:  # before any rank starts
-        check_sp(cfg, seq=args.seq or cfg.max_seq, sp=args.sp,
-                 sp_layout=args.sp_layout, loss_chunk=args.loss_chunk)
-        check_ep(cfg, args.ep)
-    except ValueError as exc:
-        parser.error(str(exc))
-    world = args.dp * args.tp * args.sp * args.ep
+    world = args.dp * args.tp * args.sp * args.pp * args.ep
     as_rank = world > 1 and "RANK" in os.environ
     rank = int(os.environ["RANK"]) if as_rank else 0
     logging.basicConfig(
         level=logging.INFO,
         format="%(levelname)s " + (f"rank{rank} " if as_rank else "") + "%(message)s",
     )
+    cfg = round_layers(model_config(args), args.pp, args.interleave)
+    if not as_rank and cfg.n_layers != model_config(args).n_layers:
+        log.info("rounding n_layers %d → %d for pp=%d interleave=%d",
+                 model_config(args).n_layers, cfg.n_layers, args.pp,
+                 args.interleave)
+    try:  # before any rank starts
+        check_sp(cfg, seq=args.seq or cfg.max_seq, sp=args.sp,
+                 sp_layout=args.sp_layout, loss_chunk=args.loss_chunk)
+        check_ep(cfg, args.ep)
+        check_pp(cfg, pp=args.pp, microbatches=args.microbatches,
+                 interleave=args.interleave, grad_accum=args.grad_accum,
+                 loss_chunk=args.loss_chunk, sp=args.sp,
+                 per_shard=args.batch // args.dp)
+    except ValueError as exc:
+        parser.error(str(exc))
     if world > 1 and not as_rank:
         return _launch_mesh(argv, args, world)
 
@@ -1063,7 +1168,7 @@ def _main(argv: list[str], results=None) -> int:
 
         if int(os.environ["WORLD_SIZE"]) != world:
             raise ValueError(f"WORLD_SIZE={os.environ['WORLD_SIZE']} but "
-                             f"--dp*--tp*--sp*--ep is {world}")
+                             f"--dp*--tp*--sp*--pp*--ep is {world}")
         torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
         device = mesh_mod.rank_device(args.platform, rank)
         if device.type == "cuda":
@@ -1074,7 +1179,7 @@ def _main(argv: list[str], results=None) -> int:
         )
         counters = CollectiveCounters(
             raw_path=args.hlo_raw_dump if rank == 0 else None, rank=rank)
-        mesh = mesh_mod.make_mesh(args.dp, args.tp, args.sp, ep=args.ep,
+        mesh = mesh_mod.make_mesh(args.dp, args.tp, args.sp, args.pp, args.ep,
                                   device=device, counters=counters)
     else:
         device = resolve_device(args.platform)
@@ -1147,6 +1252,8 @@ def _main(argv: list[str], results=None) -> int:
             loss_chunk=args.loss_chunk,
             zero1=args.zero1,
             sp_layout=args.sp_layout,
+            microbatches=args.microbatches,
+            interleave=args.interleave,
             mesh=mesh,
             attn=args.attn,
             checkpoint_dir=args.checkpoint_dir,
@@ -1160,7 +1267,7 @@ def _main(argv: list[str], results=None) -> int:
         if rank == 0:
             log.info(
                 "loss %.4f → %.4f | %.2f steps/s | %.1f GFLOP/step | MFU %s | "
-                "mesh dp=%d tp=%d sp=%d ep=%d | device=%s",
+                "mesh dp=%d tp=%d sp=%d pp=%d ep=%d | device=%s",
                 result.losses[0] if result.losses else float("nan"),
                 result.losses[-1] if result.losses else float("nan"),
                 result.steps_per_sec,
@@ -1169,6 +1276,7 @@ def _main(argv: list[str], results=None) -> int:
                 result.dp,
                 result.tp,
                 result.sp,
+                result.pp,
                 result.ep,
                 torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
             )

@@ -223,15 +223,35 @@ def unembed_logits(model: nn.Module, x: torch.Tensor) -> torch.Tensor:
     return (x @ model.unembed.to(model.cfg.dtype)).float()
 
 
+def make_blocks(make, n_layers: int, layers=None) -> nn.Module:
+    """The decoder's layers: an ``nn.ModuleList`` of ``make()`` for all
+    ``n_layers``, or, for a pipeline stage, an ``nn.ModuleDict`` of the
+    global ``layers`` it holds, keyed by their index, so that a stage's
+    state-dict names are the full model's (``blocks.<i>.<param>``)."""
+    if layers is None:
+        return nn.ModuleList(make() for _ in range(n_layers))
+    return nn.ModuleDict({str(i): make() for i in layers})
+
+
+def _check_whole(model: nn.Module) -> None:
+    if isinstance(model.blocks, nn.ModuleDict):
+        raise RuntimeError("this model holds one pipeline stage's layers; "
+                           "it runs through parallel.pipeline")
+
+
 class Llama(nn.Module):
     """The decoder. Parameters are allocated uninitialized: build it with
     :func:`init_params` or :func:`from_jax_params`. ``mesh`` (a
     ``parallel.mesh.Mesh``, None on one device) makes it the rank's
     Megatron slice: local heads ``H/tp`` and ``KV/tp``, FFN ``ffn_dim/tp``
     and vocabulary ``vocab/tp``; fill it with ``parallel.mesh.shard_params``
-    of a full model's state."""
+    of a full model's state. ``layers`` (a pipeline stage's global layer
+    indices, ``parallel.pipeline.stage_layers``) makes it hold only those
+    (:func:`make_blocks`); such a model runs through
+    ``parallel.pipeline.make_pipelined_forward``."""
 
-    def __init__(self, cfg: LlamaConfig, device=None, mesh=None) -> None:
+    def __init__(self, cfg: LlamaConfig, device=None, mesh=None,
+                 layers=None) -> None:
         super().__init__()
         check_tp(cfg, _tp(mesh))
         self.cfg = cfg
@@ -239,9 +259,8 @@ class Llama(nn.Module):
         specs, tp = mesh_mod.PARAM_SPECS, _tp(mesh)
         self.embed = _param(
             mesh_mod.local_shape("embed", (cfg.vocab, cfg.dim), specs, tp), device)
-        self.blocks = nn.ModuleList(
-            Block(cfg, device, mesh) for _ in range(cfg.n_layers)
-        )
+        self.blocks = make_blocks(lambda: Block(cfg, device, mesh), cfg.n_layers,
+                                  layers)
         self.final_norm = _param((cfg.dim,), device)
         self.unembed = _param(
             mesh_mod.local_shape("unembed", (cfg.dim, cfg.vocab), specs, tp), device)
@@ -262,6 +281,7 @@ class Llama(nn.Module):
         (flash attention). ``remat=True`` checkpoints each block, so the
         backward recomputes its activations instead of keeping them.
         """
+        _check_whole(self)
         S = tokens.shape[1]
         x = embed_tokens(self, tokens)
         freqs = rank_freqs(self, S, x.device)

@@ -202,30 +202,48 @@ class MoeBlock(nn.Module):
                 name, shape, mesh_mod.MOE_PARAM_SPECS, _llama._tp(mesh), _ep(mesh))
             setattr(self, name, _llama._param(shape, device))
 
-    def moe_mlp(self, x):
-        """x [B,S,D] → (out [B,S,D], GShard aux loss, a f32 scalar)."""
+    def route_sums(self, x):
+        """x [B,S,D] → (dispatch, combine) of the rank's experts and the
+        aux loss's statistics as token sums over the rank's rows: [2E]
+        f32, the tokens routed to each expert, then each expert's summed
+        probability. Sums, not means, so that a pipeline adds them up over
+        its microbatches (``_moe_mlp_local``)."""
         cfg, mesh = self.cfg, self.mesh
         dispatch, combine, probs = route_tokens(x, self.router, cfg, mesh)
-        # E · Σ_e mean-fraction-routed(e) · mean-prob(e), both means over
-        # the whole batch: on a mesh they average over the data×seq ranks
-        # (the rows are equal shards).
-        frac = dispatch.sum(dim=-1).mean(dim=(0, 1))  # [E]
-        prob = probs.mean(dim=(0, 1))
-        if mesh is not None:
-            frac, prob = mesh_mod.mean_over_data_seq(
-                torch.cat([frac, prob]), mesh).split(cfg.n_experts)
-        aux = cfg.n_experts * (frac / cfg.top_k * prob).sum()
+        sums = torch.cat([dispatch.sum(dim=-1).sum(dim=(0, 1)),  # [E]
+                          probs.sum(dim=(0, 1))])
         if _ep(mesh) > 1:
             # This rank's experts: a slice of the routing, not a collective.
             local = cfg.n_experts // mesh.ep
             start = mesh.coords["expert"] * local
             dispatch = dispatch[:, :, start:start + local]
             combine = combine[:, :, start:start + local]
-        out = expert_ffn(
-            x, dispatch, combine, self.w_gate, self.w_up, self.w_down, cfg,
-            mesh,
+        return dispatch, combine, sums
+
+    def experts(self, x, dispatch, combine):
+        return expert_ffn(x, dispatch, combine, self.w_gate, self.w_up,
+                          self.w_down, self.cfg, self.mesh)
+
+    def moe_mlp(self, x):
+        """x [B,S,D] → (out [B,S,D], GShard aux loss, a f32 scalar). The
+        aux loss is taken before the experts run, so that a remat's
+        recompute stops before the combine's sum over expert."""
+        dispatch, combine, sums = self.route_sums(x)
+        aux = aux_loss(sums / (x.shape[0] * x.shape[1]), self.cfg, self.mesh)
+        return self.experts(x, dispatch, combine), aux
+
+    def moe_mlp_sums(self, x):
+        """x [B,S,D] → (out [B,S,D], the aux statistics' token sums [2E])."""
+        dispatch, combine, sums = self.route_sums(x)
+        return self.experts(x, dispatch, combine), sums
+
+    def forward_sums(self, h, freqs, mask, attn_impl=None):
+        """The layer's output and its aux statistics (``moe_mlp_sums``)."""
+        h = h + _llama.attention(
+            self, rms_norm(h, self.attn_norm), freqs, mask, attn_impl
         )
-        return out, aux
+        out, sums = self.moe_mlp_sums(rms_norm(h, self.mlp_norm))
+        return h + out, sums
 
     def forward(self, h, freqs, mask, attn_impl=None):
         h = h + _llama.attention(
@@ -235,14 +253,28 @@ class MoeBlock(nn.Module):
         return h + out, aux
 
 
+def aux_loss(means: torch.Tensor, cfg: MoeConfig, mesh=None) -> torch.Tensor:
+    """The GShard aux loss E · Σ_e fraction-routed(e) / k · mean-prob(e)
+    from the rank's means ``[..., 2E]`` (``moe_mlp_sums`` over its token
+    count), summed over any leading (layer) dims. Both statistics are
+    means over the whole batch: on a mesh they average over the data×seq
+    ranks (the rows are equal shards) first."""
+    if mesh is not None:
+        means = mesh_mod.mean_over_data_seq(means, mesh)
+    frac, prob = means.split(cfg.n_experts, dim=-1)
+    return cfg.n_experts * (frac / cfg.top_k * prob).sum()
+
+
 class Moe(nn.Module):
     """The MoE decoder. Parameters are allocated uninitialized: build it
     with :func:`init_params` or :func:`from_jax_params`. ``mesh`` makes it
     the rank's slice, as :class:`models.llama.Llama`'s does, with the
     expert banks split on E over expert and on the FFN dim over model,
-    and the router replicated (``moe_param_specs``)."""
+    and the router replicated (``moe_param_specs``); ``layers`` makes it
+    one pipeline stage's, as there."""
 
-    def __init__(self, cfg: MoeConfig, device=None, mesh=None) -> None:
+    def __init__(self, cfg: MoeConfig, device=None, mesh=None,
+                 layers=None) -> None:
         super().__init__()
         tp = _llama._tp(mesh)
         _llama.check_tp(cfg, tp)
@@ -252,9 +284,8 @@ class Moe(nn.Module):
         specs = mesh_mod.MOE_PARAM_SPECS
         self.embed = _llama._param(
             mesh_mod.local_shape("embed", (cfg.vocab, cfg.dim), specs, tp), device)
-        self.blocks = nn.ModuleList(
-            MoeBlock(cfg, device, mesh) for _ in range(cfg.n_layers)
-        )
+        self.blocks = _llama.make_blocks(lambda: MoeBlock(cfg, device, mesh),
+                                         cfg.n_layers, layers)
         self.final_norm = _llama._param((cfg.dim,), device)
         self.unembed = _llama._param(
             mesh_mod.local_shape("unembed", (cfg.dim, cfg.vocab), specs, tp), device)
@@ -268,6 +299,7 @@ class Moe(nn.Module):
         [B,S,E,C] dispatch/combine tensors are the model's largest
         activations, and the backward recomputes them.
         """
+        _llama._check_whole(self)
         cfg = self.cfg
         S = tokens.shape[1]
         x = _llama.embed_tokens(self, tokens)

@@ -13,22 +13,29 @@ import torch
 
 from tpumon.workload_torch import harness
 from tpumon.workload_torch.models import moe as moe_mod
+from tpumon.workload_torch.ops import flash_attention as fa
 from tpumon.workload_torch.parallel import mesh as mesh_mod
 from tpumon.workload_torch.stats import WorkloadStats
 
 
+#: The flash wrappers whose calls a job counts.
+FLASH_WRAPPERS = ("flash_fwd", "flash_dq", "flash_dkv")
+
+
 def run_jobs(rank: int, world: int, jobs: list[dict]) -> list[dict]:
-    """``harness.run`` once per job on a fresh dp×ep×sp×tp mesh: each job
-    is ``{"cfg", "dp", "tp", "kwargs"}`` and optionally ``"sp"`` and
-    ``"ep"`` (``kwargs`` go to ``run``, device cpu, ``sp_layout`` among
-    them), plus ``"stats": True`` to pass a fresh ``WorkloadStats`` (the
+    """``harness.run`` once per job on a fresh dp×pp×ep×sp×tp mesh: each
+    job is ``{"cfg", "dp", "tp", "kwargs"}`` and optionally ``"sp"``,
+    ``"pp"`` and ``"ep"``, and the pipeline's ``"microbatches"`` and
+    ``"interleave"`` (``kwargs`` go to ``run``, device cpu, ``sp_layout``
+    among them), plus ``"stats": True`` to pass a fresh ``WorkloadStats`` (the
     windowed loop) and ``"routes": True`` to record every MoE layer's
     dispatch tensors (the rank's rows); ``{"pair": True}`` runs
     :func:`copy_reduce_pair`, ``{"gather_route": True}``
     :func:`gather_route`.
     Returns each job's losses, grad norms, moment bytes by parameter,
-    collective counts and bytes and the rank's mesh coordinates, and the
-    routes when asked."""
+    collective counts and bytes, the calls of each flash wrapper (on the
+    CPU they run the kernels' plain versions and launch nothing) and the
+    rank's mesh coordinates, and the routes when asked."""
     out = []
     for job in jobs:
         if job.get("pair"):
@@ -38,7 +45,8 @@ def run_jobs(rank: int, world: int, jobs: list[dict]) -> list[dict]:
             out.append(gather_route(rank, world))
             continue
         mesh = mesh_mod.make_mesh(job["dp"], job["tp"], job.get("sp", 1),
-                                  ep=job.get("ep", 1), device=torch.device("cpu"))
+                                  job.get("pp", 1), job.get("ep", 1),
+                                  device=torch.device("cpu"))
         routes: list[np.ndarray] = []
         route_tokens = moe_mod.route_tokens
         if job.get("routes"):
@@ -48,13 +56,29 @@ def run_jobs(rank: int, world: int, jobs: list[dict]) -> list[dict]:
                 return dispatch, combine, probs
 
             moe_mod.route_tokens = recording
+        calls = dict.fromkeys(FLASH_WRAPPERS, 0)
+        wrappers = {name: getattr(fa, name) for name in FLASH_WRAPPERS}
+
+        def counting(name):
+            def call(*args, **kw):
+                calls[name] += 1
+                return wrappers[name](*args, **kw)
+            return call
+
         kwargs = dict(job["kwargs"])
+        for key in ("microbatches", "interleave"):
+            if key in job:
+                kwargs[key] = job[key]
         if job.get("stats"):
             kwargs["stats"] = WorkloadStats()
+        for name in FLASH_WRAPPERS:
+            setattr(fa, name, counting(name))
         try:
             result = harness.run(job["cfg"], mesh=mesh, device="cpu", **kwargs)
         finally:
             moe_mod.route_tokens = route_tokens
+            for name, fn in wrappers.items():
+                setattr(fa, name, fn)
         detail = mesh.counters.detailed_snapshot()
         out.append({
             "losses": result.losses,
@@ -65,6 +89,7 @@ def run_jobs(rank: int, world: int, jobs: list[dict]) -> list[dict]:
             "bytes": detail["bytes"],
             "coords": mesh.coords,
             "routes": routes,
+            "flash_calls": calls,
         })
     return out
 

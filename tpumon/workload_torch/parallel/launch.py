@@ -1,6 +1,6 @@
 """Start one process per mesh position and watch them.
 
-``harness.main`` with ``dp·tp·sp·ep > 1`` and no ``RANK`` in its
+``harness.main`` with ``dp·tp·sp·pp·ep > 1`` and no ``RANK`` in its
 environment calls :func:`launch` to start the mesh's processes with the ``spawn``
 method (never ``fork``); each re-enters ``main`` with ``RANK``,
 ``WORLD_SIZE``, ``MASTER_ADDR`` and ``MASTER_PORT`` set and joins an

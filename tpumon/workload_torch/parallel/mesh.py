@@ -20,6 +20,14 @@ The weights are replicated over ``data`` and ``seq``, so the gradient
 bucket all-reduces over one ``data_seq`` group per (stage, expert, model)
 coordinate: the data group when sp = 1, the seq group when dp = 1.
 
+Pipeline parallelism splits the decoder's layers over ``stage``
+(``parallel/pipeline.py``): a stage holds its layers under their global
+names (:func:`shard_params` keeps them), and the embedding, final norm
+and unembed are replicated over it. The pipe's input enters through
+:func:`copy_to_stage` and its output leaves through
+:func:`reduce_from_stage`, and each schedule tick moves the activations
+one stage on with :func:`stage_hop`.
+
 Expert parallelism splits only the MoE banks over ``expert`` (E, as
 ``moe_param_specs`` does); tokens, activations and the routing are
 replicated over it, as the reference's ``batch_spec``/``activation_spec``
@@ -127,6 +135,10 @@ class Mesh:
     def ep(self) -> int:
         return self.shape["expert"]
 
+    @property
+    def pp(self) -> int:
+        return self.shape["stage"]
+
 
 def make_mesh(dp: int, tp: int, sp: int = 1, pp: int = 1, ep: int = 1, *,
               device: torch.device, counters: CollectiveCounters | None = None
@@ -219,13 +231,26 @@ def local_shape(name: str, shape, specs: dict[str, tuple], tp: int,
     return tuple(shape)
 
 
-def shard_params(tree: dict, mesh: Mesh, specs: dict[str, tuple]) -> dict:
+def layer_index(name: str) -> int | None:
+    """The global layer of a state-dict key ``blocks.<i>.<param>``, None
+    for a parameter outside the layers."""
+    parts = name.split(".")
+    return int(parts[1]) if parts[0] == "blocks" and len(parts) > 2 else None
+
+
+def shard_params(tree: dict, mesh: Mesh, specs: dict[str, tuple],
+                 layers=None) -> dict:
     """The rank's slice of each parameter of the full ``tree`` (a state
     dict that every rank drew from the same seed, as the reference's
     multi-process ``shard_tree`` does), on its expert and model
-    coordinates."""
+    coordinates. ``layers`` (the global layers of the rank's pipeline
+    stage, ``parallel.pipeline.stage_layers``) drops the other stages'
+    layers; the parameters outside the layers are kept on every stage."""
     out = {}
     for name, value in tree.items():
+        index = layer_index(name)
+        if layers is not None and index is not None and index not in layers:
+            continue
         for axis in ("expert", "model"):
             dim = split_dim(name, specs, axis)
             if dim is not None and mesh.shape[axis] > 1:
@@ -400,6 +425,51 @@ def reduce_from_model(x: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
     return _ReduceFrom.apply(x, mesh, "model")
 
 
+def copy_to_stage(x: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
+    """The pipe's input, replicated over stage: only the first stage
+    reads it, and its gradient sums over stage (the other stages add
+    zeros)."""
+    if mesh is None or mesh.groups["stage"] is None:
+        return x
+    return _CopyTo.apply(x, mesh, "stage")
+
+
+def reduce_from_stage(x: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
+    """The sum over stage of the stages' parts (the pipe's output, which
+    only the last stage holds, and the stages' MoE aux losses); every
+    stage computes the same loss from it, so its gradient enters each
+    stage once."""
+    if mesh is None or mesh.groups["stage"] is None:
+        return x
+    return _ReduceFrom.apply(x, mesh, "stage")
+
+
+def _stage_ring(pp: int) -> list[tuple[int, int]]:
+    return [(i, (i + 1) % pp) for i in range(pp)]
+
+
+class _StageHop(torch.autograd.Function):
+    """One hop around the stage ring: each stage sends ``y`` to the next
+    (the last to the first) and returns what the previous one sent; the
+    backward sends the gradient back the other way."""
+
+    @staticmethod
+    def forward(ctx, y, mesh):
+        ctx.mesh = mesh
+        return permute(y, mesh, "stage", _stage_ring(mesh.pp))
+
+    @staticmethod
+    def backward(ctx, g):
+        inverse = [(b, a) for a, b in _stage_ring(ctx.mesh.pp)]
+        return permute(g, ctx.mesh, "stage", inverse), None
+
+
+def stage_hop(y: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """``lax.ppermute`` of ``y`` over the full stage ring (one counted
+    ``collective-permute``; :class:`_StageHop`)."""
+    return _StageHop.apply(y, mesh)
+
+
 def copy_to_expert(x: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
     """A tensor replicated over expert whose uses on each expert rank
     reach only that rank's experts (its gradient sums over expert)."""
@@ -523,8 +593,10 @@ __all__ = [
     "backend_for",
     "copy_to_expert",
     "copy_to_model",
+    "copy_to_stage",
     "data_seq_groups",
     "gather_seq",
+    "layer_index",
     "layout",
     "local_shape",
     "make_mesh",
@@ -534,7 +606,9 @@ __all__ = [
     "rank_devices",
     "reduce_from_expert",
     "reduce_from_model",
+    "reduce_from_stage",
     "shard_params",
     "split_dim",
+    "stage_hop",
     "zero1_dim",
 ]
