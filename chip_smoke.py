@@ -22,7 +22,8 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
               the JAX package takes its streamed kernels, at the tile
               edges (S=4000, S=48, MHA), and at the ring path's zigzag
               stripes (B=2, S=Sk=1024, H=8, KV=2, D=128, non-causal and
-              causal). Prints one JSON line per kernel
+              causal), and at the dryrun's head_dim 32 (B=2, H=2, KV=1:
+              S=32 causal, and S=Sk=8 non-causal). Prints one JSON line per kernel
               and case: errors beside their limits, the kernel's time
               (CUDA events, median), the plain version's, the library
               call's where one computes the same function, and the bound
@@ -98,6 +99,30 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
               batch without --loss-chunk, with the launches of 17 ticks ×
               3 layers a step, pp=2 on the page and the stage hops
               (op="collective-permute") among its families.
+13. hosts     the mesh phase's argv as a job of two hosts on this machine:
+              two harness processes with --coordinator 127.0.0.1:<free
+              port> --num-processes 2 --process-id 0/1, each starting two
+              of the four ranks (on this card, over gloo). Fails unless
+              both exit 0 and log "process i/2, 2 local / 4 global",
+              every rank's losses equal the mesh phase's at rel 1e-6 (the
+              line says whether bit for bit), counts and launches are the
+              formula's on every rank and rank 0's page parses. Prints
+              the window step, tokens/s, wait fraction and each rank's
+              peak memory.
+14. dryrun    tpumon.workload_torch.entry.dryrun_multichip(8): eight ranks
+              sharing the card over gloo run the reference's 13 cells
+              (__graft_entry__.py), each held to the single-device dense
+              step (|Δloss| <= 5e-3, grad-norm rel <= 0.02); one JSON line
+              per cell with rank 0's flash launches, which must be
+              non-zero in the four flash cells (head_dim 32, padded to 64)
+              and zero elsewhere.
+15. entry     entry()'s forward on the card (finite, [2, 32, 512]),
+              probe_compiled_kernel() (validated, naming the card) and
+              gpu_chip_count() (torch's count, "gpu").
+16. drill     the dense argv with --serve in a harness process of its own,
+              sent SIGTERM once its first window is on the page: the page
+              must read tpu_step_terminating 1 within the grace window (3
+              s) and the process must exit 143.
 
 Then it prints the nvidia-smi line, one {"kernels": [...]} JSON line and,
 as the last line, {"ok": true, "device": {...}}.
@@ -115,6 +140,7 @@ import math
 import os
 import re
 import shutil
+import signal
 import socket
 import statistics
 import subprocess
@@ -151,7 +177,10 @@ KERNELS = {
 #: q- and k-blocks, 64-row q tiles in dK/dV): S not a multiple of 128, S
 #: below one tile, and MHA (KV = H). "zz" and "zzc" are one stripe pair of
 #: the ring path (medium at tp=2×sp=2 zigzag, microbatch B=2: 1024-row
-#: stripes): the full pairs of every hop and the causal self pairs.
+#: stripes): the full pairs of every hop and the causal self pairs. "d32"
+#: is one rank's attention in the dryrun's flash cells (the tiny preset's
+#: head_dim 32, which the wrappers pad to the compiled 64: a tp=2 rank at
+#: seq 32) and "d32zz" a zigzag stripe pair there at sp=2.
 CASES = [
     ("main", 2, 4096, 4096, 16, 4, 128, True),
     ("moe", 1, 4096, 4096, 8, 4, 64, True),
@@ -164,6 +193,8 @@ CASES = [
     ("mha", 2, 2048, 2048, 8, 8, 128, True),
     ("zz", 2, 1024, 1024, 8, 2, 128, False),
     ("zzc", 2, 1024, 1024, 8, 2, 128, True),
+    ("d32", 2, 32, 32, 2, 1, 32, True),
+    ("d32zz", 2, 8, 8, 2, 1, 32, False),
 ]
 
 #: Limits: O and lse max-abs; dQ/dK/dV relative L2 (bf16 wgmma products
@@ -222,6 +253,21 @@ PIPE_ARGV = [*PIPE_TRAIN, "--steps", str(MESH_STEPS), "--stats-every",
              str(MESH_STATS_EVERY), "--phase-stats", "--grad-norm"]
 #: The dryrun's dense-parity tolerances (__graft_entry__.py).
 PARITY = {"loss_abs": 5e-3, "grad_norm_rel": 0.02}
+
+#: The hosts phase: the mesh argv as two hosts (processes) of two ranks;
+#: seconds each host (and the drill's harness) gets.
+HOSTS_TIMEOUT_S = 900
+#: The dryrun phase: the reference's cells at n = 8, in its order, and the
+#: cells whose attention runs on the flash kernels (head_dim 32).
+DRYRUN_N = 8
+DRYRUN_CELLS = ["1", "1b", "1c", "1d", "2", "2b", "2c", "2c-flash", "2d", "3",
+                "4", "5", "6"]
+DRYRUN_FLASH = {"1c", "1d", "2c-flash", "5"}
+#: The drill: the dense argv with the serve page, run until SIGTERM; the
+#: grace window it holds the flag up before exiting 143.
+DRILL_ARGV = [*DENSE_TRAIN, "--steps", "1000", "--stats-every", str(STATS_EVERY),
+              "--serve"]
+DRILL_GRACE_S = 3.0
 
 BENCH_ARGV = ["--batch", "2", "--heads", "16", "--kv-heads", "4",
               "--head-dim", "128", "--seq", "4096"]
@@ -888,6 +934,76 @@ def _raw_segments(lines: list[dict], per_step: dict, per_probe: dict,
     return out
 
 
+def mesh_plan(argv_run: list[str]):
+    """A mesh argv, parsed, and what its run implies on each rank:
+    (args, cfg, world, want_of), where ``want_of(seq coordinate)`` gives
+    the collectives per step and per probe, the run's counts and the run's
+    launches (the formula in collective_counters.py, parallel/ring.py)."""
+    from tpumon.workload_torch import harness
+    from tpumon.workload_torch.collective_counters import (
+        expected_per_probe,
+        expected_per_step,
+    )
+    from tpumon.workload_torch.parallel.pipeline import ticks
+    from tpumon.workload_torch.parallel.ring import flash_calls_per_layer
+
+    args = harness.build_parser().parse_args(argv_run)
+    cfg = harness.round_layers(harness.model_config(args), args.pp, args.interleave)
+    dp, tp, sp, pp, ep = args.dp, args.tp, args.sp, args.pp, args.ep
+    world = dp * tp * sp * pp * ep
+    zigzag = args.sp_layout == "zigzag"
+    pipe = (dict(pp=pp, microbatches=args.microbatches, interleave=args.interleave)
+            if pp > 1 else {})
+    shape = dict(n_layers=cfg.n_layers, dp=dp, tp=tp, remat=args.remat,
+                 loss_chunk=args.loss_chunk, seq=args.seq, zero1=args.zero1,
+                 sp=sp, sp_layout=args.sp_layout, attn=args.attn, ep=ep,
+                 moe=args.model == "moe", **pipe)
+    probes = MESH_STEPS // MESH_STATS_EVERY
+    # Layer calls of one microbatch, and microbatches a step: under pp
+    # every tick runs its chunk of lpg layers, bubbles included.
+    if pp > 1:
+        layer_calls = (ticks(args.microbatches, pp, args.interleave)
+                       * cfg.n_layers // (pp * args.interleave))
+    else:
+        layer_calls = cfg.n_layers
+
+    def want_of(coord: int):
+        per_step = expected_per_step(grad_accum=args.grad_accum,
+                                     grad_norm=args.grad_norm, seq_coord=coord,
+                                     **shape)
+        per_probe = expected_per_probe(seq_coord=coord, **shape)
+        counts = {op: (MESH_STEPS + 1) * per_step[op] + probes * per_probe[op]
+                  for op in per_step if per_step[op] or per_probe[op]}
+        calls = flash_calls_per_layer(sp, zigzag, coord) if sp > 1 else 1
+        launches = expected_launches(layer_calls, args.grad_accum,
+                                     MESH_STEPS, MESH_STATS_EVERY, calls)
+        return per_step, per_probe, counts, launches
+
+    return args, cfg, world, want_of
+
+
+def check_rank_reports(ranks: dict, want_of, backend: str) -> list[str]:
+    """What is wrong in the ranks' reports: a backend other than the
+    rule's, non-finite or unequal losses, launches or counted collectives
+    other than the formula's for the rank's seq coordinate."""
+    bad = []
+    for rank, rep in sorted(ranks.items()):
+        _, _, want_counts, want_launches = want_of(rep["coords"]["seq"])
+        if rep["backend"] != backend:
+            bad.append(f"rank {rank} backend {rep['backend']}, the rule names {backend}")
+        if not all(math.isfinite(x) for x in rep["losses"] + rep["grad_norms"]):
+            bad.append(f"rank {rank} non-finite {rep['losses']} {rep['grad_norms']}")
+        if rep["losses"] != ranks[0]["losses"]:
+            bad.append(f"rank {rank} losses {rep['losses']} != rank 0's "
+                       f"{ranks[0]['losses']}")
+        if rep["launches"] != want_launches:
+            bad.append(f"rank {rank} launches {rep['launches']} != {want_launches}")
+        if rep["collectives"]["counts"] != want_counts:
+            bad.append(f"rank {rank} collectives {rep['collectives']['counts']} "
+                       f"!= {want_counts}")
+    return bad
+
+
 def drive_mesh(torch, name: str, argv_run: list[str]) -> dict:
     """One mesh path through harness.main (it starts the ranks itself),
     with the page scraped and parsed, each rank's launches and
@@ -898,19 +1014,10 @@ def drive_mesh(torch, name: str, argv_run: list[str]) -> dict:
     from prometheus_client.parser import text_string_to_metric_families
 
     from tpumon.workload_torch import flops, harness
-    from tpumon.workload_torch.collective_counters import (
-        expected_per_probe,
-        expected_per_step,
-    )
     from tpumon.workload_torch.ops import flash_attention as fa
-    from tpumon.workload_torch.parallel.pipeline import ticks
-    from tpumon.workload_torch.parallel.ring import flash_calls_per_layer
 
-    args = harness.build_parser().parse_args(argv_run)
-    cfg = harness.round_layers(harness.model_config(args), args.pp, args.interleave)
+    args, cfg, world, want_of = mesh_plan(argv_run)
     dp, tp, sp, pp, ep = args.dp, args.tp, args.sp, args.pp, args.ep
-    world = dp * tp * sp * pp * ep
-    zigzag = args.sp_layout == "zigzag"
     backend = "nccl" if torch.cuda.device_count() >= world else "gloo"
 
     # The single-device step on the same seed's weights and tokens.
@@ -949,48 +1056,7 @@ def drive_mesh(torch, name: str, argv_run: list[str]) -> dict:
     if sorted(ranks) != list(range(world)):
         fail(f"{name}: reports from ranks {sorted(ranks)}, not 0..{world - 1}")
 
-    pipe = (dict(pp=pp, microbatches=args.microbatches, interleave=args.interleave)
-            if pp > 1 else {})
-    shape = dict(n_layers=cfg.n_layers, dp=dp, tp=tp, remat=args.remat,
-                 loss_chunk=args.loss_chunk, seq=args.seq, zero1=args.zero1,
-                 sp=sp, sp_layout=args.sp_layout, attn=args.attn, ep=ep,
-                 moe=args.model == "moe", **pipe)
-    probes = MESH_STEPS // MESH_STATS_EVERY
-    # Layer calls of one microbatch, and microbatches a step: under pp
-    # every tick runs its chunk of lpg layers, bubbles included.
-    if pp > 1:
-        layer_calls = (ticks(args.microbatches, pp, args.interleave)
-                       * cfg.n_layers // (pp * args.interleave))
-    else:
-        layer_calls = cfg.n_layers
-
-    def want_of(coord: int):
-        per_step = expected_per_step(grad_accum=args.grad_accum,
-                                     grad_norm=args.grad_norm, seq_coord=coord,
-                                     **shape)
-        per_probe = expected_per_probe(seq_coord=coord, **shape)
-        counts = {op: (MESH_STEPS + 1) * per_step[op] + probes * per_probe[op]
-                  for op in per_step if per_step[op] or per_probe[op]}
-        calls = flash_calls_per_layer(sp, zigzag, coord) if sp > 1 else 1
-        launches = expected_launches(layer_calls, args.grad_accum,
-                                     MESH_STEPS, MESH_STATS_EVERY, calls)
-        return per_step, per_probe, counts, launches
-
-    bad = []
-    for rank, rep in sorted(ranks.items()):
-        _, _, want_counts, want_launches = want_of(rep["coords"]["seq"])
-        if rep["backend"] != backend:
-            bad.append(f"rank {rank} backend {rep['backend']}, the rule names {backend}")
-        if not all(math.isfinite(x) for x in rep["losses"] + rep["grad_norms"]):
-            bad.append(f"rank {rank} non-finite {rep['losses']} {rep['grad_norms']}")
-        if rep["losses"] != ranks[0]["losses"]:
-            bad.append(f"rank {rank} losses {rep['losses']} != rank 0's "
-                       f"{ranks[0]['losses']}")
-        if rep["launches"] != want_launches:
-            bad.append(f"rank {rank} launches {rep['launches']} != {want_launches}")
-        if rep["collectives"]["counts"] != want_counts:
-            bad.append(f"rank {rank} collectives {rep['collectives']['counts']} "
-                       f"!= {want_counts}")
+    bad = check_rank_reports(ranks, want_of, backend)
     first = ranks[0]
     loss_gap = abs(first["losses"][0] - single_loss)
     gnorm_rel = abs(first["grad_norms"][0] - single_gnorm) / single_gnorm
@@ -1064,7 +1130,7 @@ def drive_mesh(torch, name: str, argv_run: list[str]) -> dict:
         "mfu": flops.mfu(cfg, batch, seq, 1.0 / step_s, cards),
         "loop_steps_per_sec": first["steps_per_sec"],
         "loss_first": first["losses"][0], "loss_last": first["losses"][-1],
-        "grad_norm_first": first["grad_norms"][0],
+        "losses": first["losses"], "grad_norm_first": first["grad_norms"][0],
         "single_loss": single_loss, "single_grad_norm": single_gnorm,
         "parity": {"loss_abs": loss_gap, "grad_norm_rel": gnorm_rel,
                    "limits": PARITY},
@@ -1103,7 +1169,231 @@ def phase_pipe(torch) -> dict:
     return drive_mesh(torch, "pipe", PIPE_ARGV)
 
 
-PHASES = "env,build,kernels,main,moe,checkpoint,bench,profile,mesh,ring,expert,pipe"
+def _harness_process(argv: list[str], log_path: str, env: dict | None = None):
+    """``python -m tpumon.workload_torch.harness argv`` in a session of its
+    own (so that it and its ranks can be stopped together), its output
+    going to ``log_path``."""
+    with open(log_path, "w") as out:
+        return subprocess.Popen(
+            [sys.executable, "-m", "tpumon.workload_torch.harness", *argv],
+            cwd=ROOT, env={**os.environ, **(env or {})}, stdout=out,
+            stderr=subprocess.STDOUT, start_new_session=True)
+
+
+def _stop(proc) -> None:
+    """SIGKILL a harness process started by :func:`_harness_process` and
+    every process of its session, if it is still running."""
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait(timeout=60)
+
+
+def _tail(path: str, n: int = 3000) -> str:
+    with open(path) as f:
+        return f.read()[-n:]
+
+
+def phase_hosts(torch, mesh_run: dict) -> dict:
+    """The mesh phase's argv as a job of two hosts on this machine: two
+    harness processes with --coordinator at a free port, --num-processes
+    2 and --process-id 0 and 1, each starting two of the four ranks (all
+    on this card, over gloo). Both must exit 0 and log their share; every
+    rank's losses must equal the single launch's (the mesh phase, rel
+    1e-6); counts and launches must be the formula's on every rank; rank
+    0's page must parse."""
+    args, cfg, world, want_of = mesh_plan(MESH_ARGV)
+    local = world // 2
+    backend = "nccl" if torch.cuda.device_count() >= local else "gloo"
+    coordinator = f"127.0.0.1:{_free_port()}"
+    _release(torch)
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_hosts_") as tmp, \
+            _Scraper("tpu_step_collective_wait_fraction") as scraper:
+        logs = [os.path.join(tmp, f"host{i}.log") for i in range(2)]
+        procs = []
+        t0 = time.perf_counter()
+        try:
+            for i, path in enumerate(logs):
+                procs.append(_harness_process(
+                    [*MESH_ARGV, "--metrics-port", str(scraper.port),
+                     "--coordinator", coordinator, "--num-processes", "2",
+                     "--process-id", str(i)], path))
+            codes = [p.wait(timeout=HOSTS_TIMEOUT_S) for p in procs]
+        finally:
+            wall = time.perf_counter() - t0
+            for p in procs:
+                _stop(p)
+        texts = [_tail(path, 10**7) for path in logs]
+    for i, (code, text) in enumerate(zip(codes, texts)):
+        if code != 0:
+            fail(f"hosts: process {i} exited with {code}: {text[-3000:]}")
+        if f"distributed: process {i}/2, {local} local / {world} global ranks" not in text:
+            fail(f"hosts: process {i} did not log its share: {text[-3000:]}")
+    ranks, by_host = {}, []
+    for text in texts:
+        got = {int(m.group(1)): json.loads(m.group(2))
+               for m in re.finditer(r"rank (\d+) report (\{.*\})", text)}
+        by_host.append(sorted(got))
+        ranks.update(got)
+    if by_host != [[0, 1], [2, 3]]:
+        fail(f"hosts: reports by host {by_host}, not [[0, 1], [2, 3]]")
+    bad = check_rank_reports(ranks, want_of, backend)
+    want = mesh_run["losses"]
+    for rank, rep in sorted(ranks.items()):
+        if len(rep["losses"]) != len(want) or not all(
+                math.isclose(a, b, rel_tol=1e-6) for a, b in zip(rep["losses"], want)):
+            bad.append(f"rank {rank} losses {rep['losses']} != the single "
+                       f"launch's {want} (rel 1e-6)")
+    if bad:
+        fail("hosts: " + "; ".join(bad))
+    if not scraper.pages:
+        fail("hosts: never scraped rank 0's page with the wait fraction")
+    snap = scraper.snapshots()[-1]
+    wait = snap.get("collective_wait_fraction")
+    if wait is None or not 0.0 <= wait <= 1.0:
+        fail(f"hosts: collective wait fraction {wait} not in [0, 1]")
+    step_s = snap["step_seconds"]
+    result = {
+        "phase": "hosts", "argv": MESH_ARGV, "processes": 2, "backend": backend,
+        "window_step_s": step_s, "tokens_per_sec": args.batch * args.seq / step_s,
+        "collective_wait_fraction": wait, "losses": ranks[0]["losses"],
+        "single_launch_losses": want,
+        "bitwise_equal": all(rep["losses"] == want for rep in ranks.values()),
+        "peak_memory_bytes": {r: rep["peak_memory_bytes"] for r, rep in sorted(ranks.items())},
+        "launches": ranks[0]["launches"],
+        "launches_by_rank": {r: rep["launches"] for r, rep in sorted(ranks.items())},
+        "collectives": ranks[0]["collectives"]["counts"], "wall_s": wall,
+    }
+    emit(result)
+    return result
+
+
+def phase_dryrun(torch) -> list[dict]:
+    """``dryrun_multichip(8)`` on the card: eight ranks sharing it over
+    gloo run the reference's 13 cells, each held to the dense step (it
+    raises otherwise); the flash cells run the kernels at the tiny
+    preset's head_dim 32 (padded to 64), so rank 0 must have launched all
+    three in each of them, and none in the others."""
+    from tpumon.workload_torch import entry
+
+    _release(torch)
+    t0 = time.perf_counter()
+    rows = entry.dryrun_multichip(DRYRUN_N)
+    wall = time.perf_counter() - t0
+    names = [row["cell"] for row in rows]
+    if names != DRYRUN_CELLS:
+        fail(f"dryrun: cells {names}, the reference's are {DRYRUN_CELLS}")
+    bad = []
+    for row in rows:
+        emit({"phase": "dryrun", **row})
+        launched = [n for n in row["launches_rank0"].values() if n > 0]
+        if row["cell"] in DRYRUN_FLASH and len(launched) != 3:
+            bad.append(f"{row['cell']}: rank 0 launched {row['launches_rank0']}")
+        if row["cell"] not in DRYRUN_FLASH and launched:
+            bad.append(f"{row['cell']} has no flash, yet launched {row['launches_rank0']}")
+    if bad:
+        fail("dryrun: " + "; ".join(bad))
+    emit({"phase": "dryrun", "n": DRYRUN_N, "cells": names, "wall_s": wall,
+          "max_loss_abs": max(r["loss_abs"] for r in rows),
+          "max_grad_norm_rel": max(r["grad_norm_rel"] for r in rows)})
+    return rows
+
+
+def phase_entry(torch) -> dict:
+    """``entry()``'s forward on the card, the kernel probe and the card
+    count."""
+    from tpumon.workload_torch import entry
+
+    _release(torch)
+    fn, example = entry.entry()
+    with torch.no_grad():
+        out = fn(*example)
+    torch.cuda.synchronize()
+    if tuple(out.shape) != (2, 32, 512) or not torch.isfinite(out).all().item():
+        fail(f"entry: output {tuple(out.shape)}, finite "
+             f"{torch.isfinite(out).all().item()}")
+    t0 = time.perf_counter()
+    probe = entry.probe_compiled_kernel()
+    probe_s = time.perf_counter() - t0
+    name = torch.cuda.get_device_name(0)
+    if not probe["validated"] or name not in probe["detail"]:
+        fail(f"entry: the kernel probe gave {probe}")
+    count = entry.gpu_chip_count()
+    if count != (torch.cuda.device_count(), "gpu"):
+        fail(f"entry: gpu_chip_count() is {count}, torch counts "
+             f"{torch.cuda.device_count()}")
+    result = {"phase": "entry", "shape": list(out.shape), "dtype": str(out.dtype),
+              "probe": probe, "probe_s": probe_s, "gpu_chip_count": list(count)}
+    emit(result)
+    return result
+
+
+def _page(port: int) -> str | None:
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=2) as resp:
+            return resp.read().decode()
+    except OSError:
+        return None
+
+
+def phase_drill(torch) -> dict:
+    """The preemption drill on the main path: the dense argv with --serve
+    and its page, in a process of its own; SIGTERM once the first window
+    is on the page. The page must read tpu_step_terminating 0 before and
+    1 within the grace window, and the process must exit 143."""
+    from tpumon.lifecycle.probe import step_snapshot_from_text
+
+    port = _free_port()
+    _release(torch)
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_drill_") as tmp:
+        path = os.path.join(tmp, "drill.log")
+        proc = _harness_process(
+            [*DRILL_ARGV, "--metrics-port", str(port)], path,
+            env={"TPUMON_STEP_TERM_GRACE_S": str(DRILL_GRACE_S)})
+        try:
+            deadline = time.monotonic() + HOSTS_TIMEOUT_S
+            before = None
+            while before is None and time.monotonic() < deadline:
+                if proc.poll() is not None:
+                    fail(f"drill: the harness exited {proc.returncode} before "
+                         f"its first window: {_tail(path)}")
+                page = _page(port)
+                if page and "tpu_step_duration_seconds" in page:
+                    before = step_snapshot_from_text(page)
+                time.sleep(0.2)
+            if before is None:
+                fail("drill: no window on the page")
+            t_term = time.monotonic()
+            proc.send_signal(signal.SIGTERM)
+            flagged_at = None
+            while flagged_at is None and time.monotonic() - t_term < DRILL_GRACE_S + 5:
+                page = _page(port)
+                if page is None:
+                    break
+                if step_snapshot_from_text(page).get("terminating"):
+                    flagged_at = time.monotonic() - t_term
+                time.sleep(0.1)
+            rc = proc.wait(timeout=DRILL_GRACE_S + 60)
+            exit_s = time.monotonic() - t_term
+        finally:
+            _stop(proc)
+            log_tail = _tail(path)
+    if before.get("terminating"):
+        fail("drill: the page read terminating before the SIGTERM")
+    if flagged_at is None or flagged_at >= DRILL_GRACE_S:
+        fail(f"drill: the flag read 1 at {flagged_at} s, not within the "
+             f"{DRILL_GRACE_S} s grace: {log_tail}")
+    if rc != 143:
+        fail(f"drill: exit code {rc}, not 143: {log_tail}")
+    result = {"phase": "drill", "argv": DRILL_ARGV, "grace_s": DRILL_GRACE_S,
+              "step_before": before.get("step"),
+              "step_seconds_before": before.get("step_seconds"),
+              "flagged_after_s": flagged_at, "exit_code": rc, "exit_after_s": exit_s}
+    emit(result)
+    return result
+
+
+PHASES = ("env,build,kernels,main,moe,checkpoint,bench,profile,mesh,ring,expert,"
+          "pipe,hosts,dryrun,entry,drill")
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -1118,6 +1408,9 @@ def main(argv: list[str] | None = None) -> int:
     unknown = phases - set(PHASES.split(","))
     if unknown:
         parser.error(f"unknown phases {sorted(unknown)}")
+    if "hosts" in phases and "mesh" not in phases:
+        parser.error("the hosts phase holds its losses to the mesh phase's: "
+                     "run both")
 
     import torch
 
@@ -1147,6 +1440,12 @@ def main(argv: list[str] | None = None) -> int:
     ring_run = phase_ring(torch) if "ring" in phases else {}
     expert_run = phase_expert(torch) if "expert" in phases else {}
     pipe_run = phase_pipe(torch) if "pipe" in phases else {}
+    hosts_run = phase_hosts(torch, mesh_run) if "hosts" in phases else {}
+    dryrun_rows = phase_dryrun(torch) if "dryrun" in phases else []
+    if "entry" in phases:
+        phase_entry(torch)
+    if "drill" in phases:
+        phase_drill(torch)
     print(f"total: {time.perf_counter() - t0:.1f} s", flush=True)
 
     line = []
@@ -1162,11 +1461,14 @@ def main(argv: list[str] | None = None) -> int:
             "launches_ring_rank0": ring_run.get("launches", {}).get(name, 0),
             "launches_expert_rank0": expert_run.get("launches", {}).get(name, 0),
             "launches_pipe_rank0": pipe_run.get("launches", {}).get(name, 0),
+            "launches_hosts_rank0": hosts_run.get("launches", {}).get(name, 0),
+            "launches_dryrun_rank0": sum(row["launches_rank0"][name]
+                                         for row in dryrun_rows),
             "max_abs_err": row.get("max_abs_err"), "ms": row.get("ms"),
             "plain_ms": row.get("plain_ms"), "bound_ms": row.get("bound_ms"),
             "bound_by": row.get("bound_by"), "library_ms": row.get("library_ms"),
             **{f"{case}_case": {key: kernels.get(name, {}).get(case, {}).get(key)
-                                for key in keys} for case in ("moe", "tp2", "zz", "zzc")},
+                                for key in keys} for case in ("moe", "tp2", "zz", "zzc", "d32", "d32zz")},
             "passed": all(r["passed"] for r in kernels.get(name, {}).values())
             if name in kernels else None,
         })

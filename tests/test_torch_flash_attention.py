@@ -138,6 +138,47 @@ def test_kernel_input_checks(dtype, D, contiguous, error):
         fa._check_kernel_inputs({"q": q, "k": k, "v": k})
 
 
+@pytest.mark.parametrize("D,width", [(32, 64), (8, 64), (40, 64), (96, 128),
+                                     (64, 64), (128, 128)])
+def test_kernel_width_pads_up_to_the_next_compiled_head_dim(D, width):
+    assert fa.kernel_width(D) == width
+
+
+@pytest.mark.parametrize("D", [136, 256, 36, 0])
+def test_kernel_width_refuses_what_no_padding_serves(D):
+    """Above 128, or not a multiple of 8: raised, naming the widths."""
+    with pytest.raises(ValueError, match=r"takes \(64, 128\)"):
+        fa.kernel_width(D)
+
+
+@pytest.mark.parametrize("B,S,Sk,H,KV,D,causal", [
+    (2, 32, 32, 2, 1, 32, True),   # a tp=2 rank of the tiny dryrun
+    (2, 8, 8, 2, 1, 32, False),    # a zigzag stripe pair at sp=2
+    (1, 48, 80, 4, 2, 96, False),  # pads to 128, Sk != S
+])
+def test_padding_to_the_kernel_width_is_exact(B, S, Sk, H, KV, D, causal):
+    """The wrappers' padding path (``_on_width``: zero columns up to the
+    compiled width, the true D's scale, outputs sliced) run on the plain
+    versions, against the plain versions on the unpadded inputs: forward
+    and backward at f32 rel 1e-6."""
+    q, k, v, do, _ = (torch.from_numpy(a) for a in _inputs(B, S, Sk, H, KV, D, seed=3))
+    assert fa.kernel_width(D) != D
+    o, lse = fa._on_width(fa.flash_fwd_reference, q, k, v, causal=causal)
+    want_o, want_lse = fa.flash_fwd_reference(q, k, v, causal)
+    delta = fa.flash_delta(want_o, do)
+    dq = fa._on_width(fa.flash_dq_reference, q, k, v, do, want_lse, delta,
+                      causal=causal)
+    dk, dv = fa._on_width(fa.flash_dkv_reference, q, k, v, do, want_lse, delta,
+                          causal=causal)
+    want = [want_o, want_lse, fa.flash_dq_reference(q, k, v, do, want_lse, delta, causal),
+            *fa.flash_dkv_reference(q, k, v, do, want_lse, delta, causal)]
+    for name, got, ref in zip(("o", "lse", "dq", "dk", "dv"),
+                              (o, lse, dq, dk, dv), want):
+        assert got.shape == ref.shape and got.is_contiguous(), name
+        np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-6,
+                                   atol=0, err_msg=name)
+
+
 def _card_inputs(B, S, Sk, H, KV, D):
     """Seeded bf16 q, k, v, dO on the card; skips where there is none."""
     if not torch.cuda.is_available():
@@ -166,6 +207,8 @@ def _card_inputs(B, S, Sk, H, KV, D):
         (2, 65, 65, 4, 1, 128, True),
         (2, 129, 129, 4, 2, 64, True),     # one past a 128-row q-block
         (1, 129, 129, 8, 2, 128, True),
+        (2, 32, 32, 2, 1, 32, True),       # head_dim 32, padded to 64
+        (2, 8, 8, 2, 1, 32, False),
     ],
 )
 def test_kernels_match_plain_versions_on_card(B, S, Sk, H, KV, D, causal):

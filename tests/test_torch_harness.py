@@ -145,18 +145,6 @@ def test_platform_cuda_raises_below_hopper(monkeypatch):
         resolve_device("cuda")
 
 
-@pytest.mark.parametrize(
-    "flag",
-    [["--num-processes", "2"],
-     ["--coordinator", "host:1234"], ["--process-id", "1"]],
-)
-def test_later_slice_flags_fail_loudly(flag, capsys):
-    with pytest.raises(SystemExit) as exc:
-        harness.main([*flag, "--platform", "cpu"])
-    assert exc.value.code == 2
-    assert "ROADMAP.md queue 1 item" in capsys.readouterr().err
-
-
 @pytest.mark.parametrize("flags,message", [
     (["--sp", "2", "--loss-chunk", "16"], "composes with dp/tp (not MoE, pp, or sp"),
     (["--sp", "2", "--seq", "33"], r"seq (33) must divide by sp (2)"),
@@ -170,13 +158,20 @@ def test_later_slice_flags_fail_loudly(flag, capsys):
     (["--pp", "2", "--interleave", "2", "--microbatches", "3"],
      "microbatches (3) must divide by pp (2)"),
     (["--pp", "2", "--loss-chunk", "16"], "composes with dp/tp (not MoE, pp, or sp"),
+    (["--dp", "2", "--num-processes", "2"], "--num-processes > 1 requires --coordinator"),
+    (["--dp", "3", "--coordinator", "127.0.0.1:1234", "--num-processes", "2"],
+     "(3) must be divisible by --num-processes (2)"),
+    (["--dp", "2", "--coordinator", "127.0.0.1:1234", "--num-processes", "2",
+      "--process-id", "2"], "--process-id (2) must be in [0, --num-processes (2))"),
 ])
 def test_sp_refusals_before_any_rank_starts(flags, message, capsys, monkeypatch):
     """The reference's refusals of a sequence-parallel run, of expert
     parallelism without a MoE model, of an expert count that ep does not
-    divide, and of a pipelined run with grad_accum, loss_chunk, MoE under
-    sp or microbatches the circular schedule cannot feed in rounds of pp
-    exit with code 2 in the launching process: no rank is started."""
+    divide, of a pipelined run with grad_accum, loss_chunk, MoE under sp
+    or microbatches the circular schedule cannot feed in rounds of pp, and
+    of a multi-host job without a coordinator, with ranks that the hosts
+    cannot share evenly or a host index outside it exit with code 2 in the
+    launching process: no rank is started."""
     from tpumon.workload_torch.parallel import launch
 
     def no_launch(*args, **kwargs):
@@ -206,10 +201,10 @@ bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "optax", "tpumon.workload.")))
 missing = {"tpumon.workload_torch." + m for m in (
     "models.moe", "checkpoint", "bench_attention", "parallel.mesh",
-    "parallel.ring", "bench_ring",
+    "parallel.ring", "bench_ring", "parallel.pipeline", "entry",
     "collective_counters")} - set(names)
 print(len(names), bad, sorted(missing))
-sys.exit(1 if bad or missing or len(names) < 13 else 0)
+sys.exit(1 if bad or missing or len(names) < 20 else 0)
 """
 
 

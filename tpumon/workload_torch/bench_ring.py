@@ -146,8 +146,7 @@ def _run_rank(args, results) -> int:
     device = mesh_mod.rank_device(args.platform, rank)
     if device.type == "cuda":
         torch.cuda.set_device(device)
-    dist.init_process_group(mesh_mod.backend_for(world, device),
-                            init_method="env://", rank=rank, world_size=world)
+    mesh_mod.init_group(mesh_mod.env_store(rank, world), rank, world, device, world)
     try:
         mesh = mesh_mod.make_mesh(world // args.sp, 1, args.sp, device=device)
         rows = bench(mesh, batch=args.batch, heads=args.heads,

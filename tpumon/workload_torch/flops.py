@@ -87,22 +87,28 @@ def train_flops_per_step(cfg, batch: int, seq: int) -> float:
 
 
 def peak_flops_total(devices) -> float | None:
-    """Summed peak of the distinct devices in ``devices`` (one device, or
-    the devices of a mesh's ranks): ranks that share a card share its
-    peak. None when any peak is unknown."""
+    """Summed peak of the distinct cards in ``devices``: one device, or
+    the cards of a mesh's ranks as devices or (host, device) pairs
+    (``parallel.mesh.rank_cards``). Ranks that share a card share its
+    peak; card 0 of two hosts is two cards. None when any peak is
+    unknown."""
     if isinstance(devices, (str, torch.device)):
         devices = [devices]
-    distinct = {torch.device(d) for d in devices}
-    distinct = {torch.device(d.type, d.index or 0) if d.type == "cuda" else d
-                for d in distinct}
-    peaks = [peak_flops_per_device(d) for d in distinct]
+    distinct = set()
+    for item in devices:
+        host, device = item if isinstance(item, tuple) else (0, item)
+        device = torch.device(device)
+        if device.type == "cuda":
+            device = torch.device("cuda", device.index or 0)
+        distinct.add((host, device))
+    peaks = [peak_flops_per_device(device) for _, device in distinct]
     if not peaks or any(p is None for p in peaks):
         return None
     return float(sum(peaks))
 
 
 def mfu(cfg, batch: int, seq: int, steps_per_sec: float, devices) -> float | None:
-    """Model FLOPs utilization in [0, 1] over the distinct devices of
+    """Model FLOPs utilization in [0, 1] over the distinct cards of
     ``devices`` (:func:`peak_flops_total`), or None when a peak is unknown
     (CPU) or throughput wasn't measured."""
     if not steps_per_sec or steps_per_sec <= 0 or not math.isfinite(steps_per_sec):

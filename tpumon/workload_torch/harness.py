@@ -19,6 +19,9 @@ start one process per mesh position (``parallel/launch.py``); rank 0 owns the pa
 and the final log line. ``--pp`` runs the layers as a pipeline over the
 mesh's stage axis (``parallel/pipeline.py``), GPipe or, with
 ``--interleave``, the circular schedule, in ``--microbatches`` microbatches.
+``--coordinator``/``--num-processes``/``--process-id`` make this process
+one host of a multi-host job: it starts its share of the ranks, and all
+hosts' ranks meet at the coordinator.
 
 CLI:  python -m tpumon.workload_torch.harness --steps 20
       python -m tpumon.workload_torch.harness --model moe --preset small
@@ -27,6 +30,8 @@ CLI:  python -m tpumon.workload_torch.harness --steps 20
       python -m tpumon.workload_torch.harness --tp 2 --sp 2 --sp-layout zigzag
       python -m tpumon.workload_torch.harness --model moe --dp 2 --ep 2
       python -m tpumon.workload_torch.harness --pp 2 --tp 2 --interleave 2 --microbatches 4
+      python -m tpumon.workload_torch.harness --dp 2 --tp 2 \
+          --coordinator 10.0.0.1:29500 --num-processes 2 --process-id 0
       (``--platform cpu`` runs on the host; the default is the card)
 """
 
@@ -616,7 +621,7 @@ def run(
         forward_fn=forward_fn,
     )
 
-    run_devices = [device] if mesh is None else mesh_mod.rank_devices(mesh)
+    run_devices = [device] if mesh is None else mesh_mod.rank_cards(mesh)
     flops_per_step = flops_mod.train_flops_per_step(cfg, batch, seq)
     if stats is not None:
         stats.configure(
@@ -903,16 +908,6 @@ def _install_sigterm_marker(stats, grace_s: float | None = None) -> None:
         log.debug("SIGTERM marker not installed (not main thread)")
 
 
-#: Flags of the reference CLI that later slices of the port bring, with
-#: the ROADMAP.md queue-1 item that ports each. Given a non-default value
-#: they fail; they are never silently ignored.
-_LATER = {
-    "coordinator": ("multi-host", 11, None),
-    "num_processes": ("multi-host", 11, 1),
-    "process_id": ("multi-host", 11, None),
-}
-
-
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="tpumon-workload-torch")
     parser.add_argument("--steps", type=int, default=10)
@@ -967,9 +962,19 @@ def build_parser() -> argparse.ArgumentParser:
         help="write one JSON line per collective rank 0 issues (op, bytes, "
         "µs, rank) to this file, up to 4096 lines",
     )
-    parser.add_argument("--coordinator", default=None)
-    parser.add_argument("--num-processes", type=int, default=1)
-    parser.add_argument("--process-id", type=int, default=None)
+    parser.add_argument(
+        "--coordinator", default=None,
+        help="host:port where the hosts of a multi-host job meet (global "
+        "rank 0, on process 0, hosts the group's store there); this "
+        "process is then one host and starts its share of the mesh's ranks; "
+        "pair with --num-processes and --process-id",
+    )
+    parser.add_argument("--num-processes", type=int, default=1,
+                        help="hosts in the job (with --coordinator)")
+    parser.add_argument(
+        "--process-id", type=int, default=None,
+        help="this host's index; defaults to $TPU_WORKER_ID or 0",
+    )
     parser.add_argument(
         "--grad-accum",
         type=int,
@@ -1094,10 +1099,13 @@ def _rank_process(argv: list[str], env: dict, results) -> None:
     sys.exit(_main(argv, results))
 
 
-def _launch_mesh(argv: list[str], args, world: int) -> int:
-    """The launching process of a mesh: it checks the platform, builds
-    the kernels once (the ranks must not race one ``nvcc`` each), starts
-    the ranks and logs each rank's report."""
+def _launch_mesh(argv: list[str], args, world: int, num_processes: int,
+                 process_id: int) -> int:
+    """The launching process of a mesh, or of this host's share of it:
+    it checks the platform, builds the kernels once (the ranks must not
+    race one ``nvcc`` each; two hosts on one machine each build, and the
+    build's rename into place keeps that safe), starts the ranks and logs
+    each rank's report."""
     from tpumon.workload_torch.parallel import launch
 
     device = resolve_device(args.platform)
@@ -1105,7 +1113,13 @@ def _launch_mesh(argv: list[str], args, world: int) -> int:
         from tpumon.workload_torch.ops import _build
 
         _build.build()
-    rc, reports = launch.launch(_rank_process, argv, world)
+    if args.coordinator:
+        log.info("distributed: process %d/%d, %d local / %d global ranks",
+                 process_id, num_processes, world // num_processes, world)
+    rc, reports = launch.launch(_rank_process, argv, world,
+                                coordinator=args.coordinator,
+                                num_processes=num_processes,
+                                process_id=process_id)
     for rank in sorted(reports):
         log.info("rank %d report %s", rank, json.dumps(reports[rank]))
     return rc
@@ -1114,13 +1128,23 @@ def _launch_mesh(argv: list[str], args, world: int) -> int:
 def _main(argv: list[str], results=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
-    for dest, (what, item, default) in _LATER.items():
-        if getattr(args, dest) != default:
-            flag = "--" + dest.replace("_", "-")
-            parser.error(
-                f"{flag} belongs to a later slice of the port ({what}, "
-                f"ROADMAP.md queue 1 item {item})"
-            )
+    # The reference's multi-host refusals, in its order, before any rank
+    # starts.
+    num_processes = args.num_processes if args.coordinator else 1
+    total = max(args.dp * args.tp * args.sp * args.pp * args.ep, 1)
+    if total % max(num_processes, 1):
+        parser.error(
+            f"--dp*--tp*--sp*--pp*--ep ({total}) must be divisible by "
+            f"--num-processes ({num_processes})"
+        )
+    if args.num_processes > 1 and not args.coordinator:
+        parser.error("--num-processes > 1 requires --coordinator")
+    process_id = args.process_id
+    if process_id is None:
+        process_id = int(os.environ.get("TPU_WORKER_ID", "0") or 0)
+    if args.coordinator and not 0 <= process_id < num_processes:
+        parser.error(f"--process-id ({process_id}) must be in [0, "
+                     f"--num-processes ({num_processes}))")
     if args.serve and not args.metrics_port:
         parser.error("--serve publishes tpu_serve_* on the metrics "
                      "port; it needs --metrics-port")
@@ -1157,7 +1181,7 @@ def _main(argv: list[str], results=None) -> int:
     except ValueError as exc:
         parser.error(str(exc))
     if world > 1 and not as_rank:
-        return _launch_mesh(argv, args, world)
+        return _launch_mesh(argv, args, world, num_processes, process_id)
 
     mesh = None
     counters = None
@@ -1169,18 +1193,22 @@ def _main(argv: list[str], results=None) -> int:
         if int(os.environ["WORLD_SIZE"]) != world:
             raise ValueError(f"WORLD_SIZE={os.environ['WORLD_SIZE']} but "
                              f"--dp*--tp*--sp*--pp*--ep is {world}")
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
-        device = mesh_mod.rank_device(args.platform, rank)
+        local_rank = int(os.environ.get("LOCAL_RANK", rank))
+        local_world = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+        # This host's cores over this host's ranks, unless the caller
+        # pinned the threads (OMP_NUM_THREADS, which torch reads itself).
+        if "OMP_NUM_THREADS" not in os.environ:
+            torch.set_num_threads(max(1, (os.cpu_count() or 1) // local_world))
+        device = mesh_mod.rank_device(args.platform, local_rank)
         if device.type == "cuda":
             torch.cuda.set_device(device)
-        dist.init_process_group(
-            mesh_mod.backend_for(world, device), init_method="env://",
-            rank=rank, world_size=world,
-        )
+        mesh_mod.init_group(mesh_mod.env_store(rank, world), rank, world,
+                            device, local_world)
         counters = CollectiveCounters(
             raw_path=args.hlo_raw_dump if rank == 0 else None, rank=rank)
         mesh = mesh_mod.make_mesh(args.dp, args.tp, args.sp, args.pp, args.ep,
-                                  device=device, counters=counters)
+                                  device=device, counters=counters,
+                                  local_world=local_world)
     else:
         device = resolve_device(args.platform)
 
@@ -1189,10 +1217,13 @@ def _main(argv: list[str], results=None) -> int:
     serve_stats = None
     if args.metrics_port and rank != 0:
         # The windows and phase probes issue collectives, so every rank
-        # runs them; only rank 0 publishes.
+        # runs them; only rank 0 publishes. Every rank defers its exit on
+        # SIGTERM by the same grace, so its peers keep stepping (and rank
+        # 0's page shows the flag) through the window.
         from tpumon.workload_torch.stats import WorkloadStats
 
         stats = WorkloadStats()
+        _install_sigterm_marker(stats)
     elif args.metrics_port:
         from prometheus_client.registry import CollectorRegistry
 

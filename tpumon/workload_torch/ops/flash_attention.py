@@ -19,7 +19,10 @@ Each wrapper checks its inputs and then, for a tensor on the card,
 launches its kernel or raises; it counts the launch in :data:`launches`.
 For tensors on the CPU it computes the same function with its plain
 PyTorch version (``*_reference``, dense f32 math), which is also what the
-kernels are held against on the card. The Δ pre-pass (rowsum(dO·O) minus
+kernels are held against on the card. The kernels are compiled for
+head dims 64 and 128; a narrower head dim that is a multiple of 8 (the
+tiny preset's 32) runs on the next of them with zero columns, still one
+launch a call (:func:`kernel_width`, :func:`_on_width`). The Δ pre-pass (rowsum(dO·O) minus
 the lse cotangent) is plain torch, as XLA fused it outside Pallas.
 
 The TPU-only knobs of the reference (``interpret``, ``resident``,
@@ -34,13 +37,16 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 # Finite stand-in for -inf: masked logits underflow to exp(x - m) == 0
 # without ever forming inf - inf (the reference's constant).
 NEG_BIG = -1e30
 
 #: Head dims the CUDA kernels are compiled for (small/medium: 64/128,
-#: llama3_8b: 128). The plain versions take any.
+#: llama3_8b: 128). A smaller head dim that is a multiple of 8 (tiny's
+#: 32) runs on the next of them with zero columns (:func:`kernel_width`).
+#: The plain versions take any.
 HEAD_DIMS = (64, 128)
 
 #: Kernel launches since the last :func:`reset_launches`, one count per
@@ -71,13 +77,17 @@ def _mask(s: torch.Tensor, causal: bool) -> torch.Tensor:
     return s.masked_fill(~live, NEG_BIG)
 
 
-def flash_fwd_reference(q, k, v, causal: bool = True):
+def _scale(q, scale: float | None) -> float:
+    return 1.0 / math.sqrt(q.shape[3]) if scale is None else scale
+
+
+def flash_fwd_reference(q, k, v, causal: bool = True, scale: float | None = None):
     """Plain version of ``flash_fwd``: (O [B,S,H,D] in q's dtype,
     lse [B,H,S] f32). p is cast to v's dtype before the second product,
-    as the kernels do."""
-    H, D = q.shape[2], q.shape[3]
+    as the kernels do. ``scale`` defaults to 1/√D."""
+    H = q.shape[2]
     s = torch.einsum(
-        "bqhd,bkhd->bhqk", q.float() * (1.0 / math.sqrt(D)), _expand(k, H)
+        "bqhd,bkhd->bhqk", q.float() * _scale(q, scale), _expand(k, H)
     )
     s = _mask(s, causal)
     m = s.amax(dim=-1, keepdim=True)
@@ -88,29 +98,30 @@ def flash_fwd_reference(q, k, v, causal: bool = True):
     return out.to(q.dtype), (m + torch.log(denom)).squeeze(-1)
 
 
-def _p_ds(q, k, v, do, lse, delta, causal):
+def _p_ds(q, k, v, do, lse, delta, causal, scale):
     """P and scale·dS, dense f32 [B,H,S,Sk], from the forward's lse."""
-    H, D = q.shape[2], q.shape[3]
-    scale = 1.0 / math.sqrt(D)
+    H, scale = q.shape[2], _scale(q, scale)
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), _expand(k, H)) * scale
     p = torch.exp(_mask(s, causal) - lse.float()[..., None])
     dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), _expand(v, H))
     return p, p * (dp - delta.float()[..., None]) * scale
 
 
-def flash_dq_reference(q, k, v, do, lse, delta, causal: bool = True):
+def flash_dq_reference(q, k, v, do, lse, delta, causal: bool = True,
+                       scale: float | None = None):
     """Plain version of ``flash_dq``: dQ [B,S,H,D] in q's dtype."""
-    _, ds = _p_ds(q, k, v, do, lse, delta, causal)
+    _, ds = _p_ds(q, k, v, do, lse, delta, causal, scale)
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, _expand(k, q.shape[2]))
     return dq.to(q.dtype)
 
 
-def flash_dkv_reference(q, k, v, do, lse, delta, causal: bool = True):
+def flash_dkv_reference(q, k, v, do, lse, delta, causal: bool = True,
+                        scale: float | None = None):
     """Plain version of ``flash_dkv``: (dK, dV) [B,Sk,KV,D] in k's and
     v's dtypes, summed over each kv-head's group of q-heads."""
     B, Sk, KV, D = k.shape
     group = q.shape[2] // KV
-    p, ds = _p_ds(q, k, v, do, lse, delta, causal)
+    p, ds = _p_ds(q, k, v, do, lse, delta, causal, scale)
     dv = torch.einsum("bhqk,bqhd->bkhd", p, do.float())
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
     dk = dk.reshape(B, Sk, KV, group, D).sum(dim=3)
@@ -156,7 +167,8 @@ def _on_cpu(*tensors) -> bool:
 
 def _check_kernel_inputs(named: dict[str, torch.Tensor]) -> None:
     """What the CUDA kernels take: contiguous, 16-byte aligned tensors,
-    bf16 for q/k/v/dO, f32 for lse/delta, head_dim in HEAD_DIMS."""
+    bf16 for q/k/v/dO, f32 for lse/delta, head_dim in HEAD_DIMS (after
+    :func:`_on_width` padded a narrower one)."""
     for name, t in named.items():
         want = torch.float32 if name in ("lse", "delta") else torch.bfloat16
         if t.dtype != want:
@@ -186,19 +198,57 @@ def _launch(name: str, device: torch.device, *args) -> None:
     launches[name] += 1
 
 
+def kernel_width(D: int) -> int:
+    """The compiled head dim a call of head dim ``D`` runs on: ``D``
+    itself when it is one of :data:`HEAD_DIMS`, else the next of them
+    above it for a ``D`` that is a multiple of 8 (:func:`_on_width` pads
+    the columns). Raises for any other ``D``."""
+    if D in HEAD_DIMS:
+        return D
+    if 0 < D < HEAD_DIMS[-1] and D % 8 == 0:
+        return next(width for width in HEAD_DIMS if width > D)
+    raise ValueError(
+        f"flash kernel: head_dim {D} not compiled (takes {HEAD_DIMS}, and "
+        f"multiples of 8 below {HEAD_DIMS[-1]} padded to the next of them)"
+    )
+
+
+def _pad(t: torch.Tensor, width: int) -> torch.Tensor:
+    return t if t.shape[3] == width else F.pad(t, (0, width - t.shape[3]))
+
+
+def _on_width(run, q, k, v, *rest, causal: bool):
+    """``run(q, k, v, *rest, causal, scale)`` at the kernels' width
+    (:func:`kernel_width`): q, k, v and dO (the first of ``rest``, in the
+    backward) padded with zero columns, ``scale`` 1/√D of the true D, and
+    every [B, S, heads, width] output sliced back to D. The padding is
+    exact: zero columns add nothing to QKᵀ or dO·Vᵀ, so P, lse and Δ are
+    unchanged, and the padded columns of O = P·V, dQ = dS·K, dK = dSᵀ·Q
+    and dV = Pᵀ·dO are zeros that the slice drops."""
+    D = q.shape[3]
+    width = kernel_width(D)
+    scale = 1.0 / math.sqrt(D)
+    if width != D:
+        q, k, v = (_pad(t, width) for t in (q, k, v))
+        rest = (_pad(rest[0], width), *rest[1:]) if rest else rest
+    out = run(q, k, v, *rest, causal, scale)
+    if width == D:
+        return out
+
+    def cut(t):
+        return t[..., :D].contiguous() if t.dim() == 4 else t
+
+    return tuple(map(cut, out)) if isinstance(out, tuple) else cut(out)
+
+
 def _dims(q, k):
     B, S, H, D = q.shape
-    return B, H, k.shape[2], S, k.shape[1], D, 1.0 / math.sqrt(D)
+    return B, H, k.shape[2], S, k.shape[1], D
 
 
-def flash_fwd(q, k, v, causal: bool = True):
-    """(O [B,S,H,D], lse [B,H,S] f32) — kernel ``flash_fwd`` on the card,
-    :func:`flash_fwd_reference` for CPU tensors."""
-    _check_shapes(q, k, v, causal)
-    if _on_cpu(q, k, v):
-        return flash_fwd_reference(q, k, v, causal)
+def _fwd_kernel(q, k, v, causal, scale):
     _check_kernel_inputs({"q": q, "k": k, "v": v})
-    B, H, KV, S, Sk, D, scale = _dims(q, k)
+    B, H, KV, S, Sk, D = _dims(q, k)
     out = torch.empty_like(q)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     _launch(
@@ -208,16 +258,11 @@ def flash_fwd(q, k, v, causal: bool = True):
     return out, lse
 
 
-def flash_dq(q, k, v, do, lse, delta, causal: bool = True):
-    """dQ [B,S,H,D] — kernel ``flash_dq`` on the card,
-    :func:`flash_dq_reference` for CPU tensors."""
-    _check_shapes(q, k, v, causal)
-    if _on_cpu(q, k, v, do, lse, delta):
-        return flash_dq_reference(q, k, v, do, lse, delta, causal)
+def _dq_kernel(q, k, v, do, lse, delta, causal, scale):
     _check_kernel_inputs(
         {"q": q, "k": k, "v": v, "do": do, "lse": lse, "delta": delta}
     )
-    B, H, KV, S, Sk, D, scale = _dims(q, k)
+    B, H, KV, S, Sk, D = _dims(q, k)
     dq = torch.empty_like(q)
     _launch(
         "flash_dq", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -227,16 +272,11 @@ def flash_dq(q, k, v, do, lse, delta, causal: bool = True):
     return dq
 
 
-def flash_dkv(q, k, v, do, lse, delta, causal: bool = True):
-    """(dK, dV) [B,Sk,KV,D] — kernel ``flash_dkv`` on the card,
-    :func:`flash_dkv_reference` for CPU tensors."""
-    _check_shapes(q, k, v, causal)
-    if _on_cpu(q, k, v, do, lse, delta):
-        return flash_dkv_reference(q, k, v, do, lse, delta, causal)
+def _dkv_kernel(q, k, v, do, lse, delta, causal, scale):
     _check_kernel_inputs(
         {"q": q, "k": k, "v": v, "do": do, "lse": lse, "delta": delta}
     )
-    B, H, KV, S, Sk, D, scale = _dims(q, k)
+    B, H, KV, S, Sk, D = _dims(q, k)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     _launch(
@@ -245,6 +285,33 @@ def flash_dkv(q, k, v, do, lse, delta, causal: bool = True):
         dv.data_ptr(), B, H, KV, S, Sk, D, scale, int(causal),
     )
     return dk, dv
+
+
+def flash_fwd(q, k, v, causal: bool = True):
+    """(O [B,S,H,D], lse [B,H,S] f32) — kernel ``flash_fwd`` on the card,
+    :func:`flash_fwd_reference` for CPU tensors."""
+    _check_shapes(q, k, v, causal)
+    if _on_cpu(q, k, v):
+        return flash_fwd_reference(q, k, v, causal)
+    return _on_width(_fwd_kernel, q, k, v, causal=causal)
+
+
+def flash_dq(q, k, v, do, lse, delta, causal: bool = True):
+    """dQ [B,S,H,D] — kernel ``flash_dq`` on the card,
+    :func:`flash_dq_reference` for CPU tensors."""
+    _check_shapes(q, k, v, causal)
+    if _on_cpu(q, k, v, do, lse, delta):
+        return flash_dq_reference(q, k, v, do, lse, delta, causal)
+    return _on_width(_dq_kernel, q, k, v, do, lse, delta, causal=causal)
+
+
+def flash_dkv(q, k, v, do, lse, delta, causal: bool = True):
+    """(dK, dV) [B,Sk,KV,D] — kernel ``flash_dkv`` on the card,
+    :func:`flash_dkv_reference` for CPU tensors."""
+    _check_shapes(q, k, v, causal)
+    if _on_cpu(q, k, v, do, lse, delta):
+        return flash_dkv_reference(q, k, v, do, lse, delta, causal)
+    return _on_width(_dkv_kernel, q, k, v, do, lse, delta, causal=causal)
 
 
 def flash_delta(out, g_out, g_lse=None):
@@ -324,6 +391,7 @@ __all__ = [
     "flash_dq_reference",
     "flash_fwd",
     "flash_fwd_reference",
+    "kernel_width",
     "launches",
     "make_flash_attn",
     "reset_launches",

@@ -36,15 +36,21 @@ row, and one all-reduce over ``expert`` combines their outputs
 (:func:`reduce_from_expert`), the traffic the reference's compiled step
 issues (no all-to-all).
 
-The backend rule: ``nccl`` when each rank has a card of its own, ``gloo``
-when ranks share a card or run on the CPU (gloo stages CUDA tensors
-through the host). Rank r uses card ``r % device_count``.
+The backend rule: ``nccl`` when each rank has a card of its own on every
+host, ``gloo`` when ranks share a card or run on the CPU (gloo stages CUDA
+tensors through the host); the hosts agree on it through the job's store
+(:func:`agree_backend`). A rank that is local rank j on its host uses
+card ``j % device_count``. A mesh may take a subset of the world's ranks
+(the dryrun's smaller cells); the other ranks create its groups too and
+sit it out.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import logging
+import os
 
 import numpy as np
 import torch
@@ -78,38 +84,87 @@ def data_seq_groups(grid: np.ndarray) -> list[list[int]]:
     return np.moveaxis(grid, (d, s), (-2, -1)).reshape(-1, size).tolist()
 
 
-def backend_for(world_size: int, device: torch.device) -> str:
-    """``nccl`` when the host has a card for every rank, else ``gloo``."""
-    if device.type == "cuda" and torch.cuda.device_count() >= world_size:
-        backend = "nccl"
-    else:
-        backend = "gloo"
-    log.info("backend %s: %d ranks on %s (%d CUDA devices)", backend,
-             world_size, device.type, torch.cuda.device_count())
+#: Seconds a rank waits for a peer, in a collective or while the group
+#: forms, before it raises (TPUMON_DIST_TIMEOUT_S overrides): a rank
+#: whose peer died or hangs exits non-zero instead of waiting forever.
+GROUP_TIMEOUT_S = 600.0
+
+
+def group_timeout() -> datetime.timedelta:
+    """The process group's timeout: :data:`GROUP_TIMEOUT_S`, or
+    ``$TPUMON_DIST_TIMEOUT_S`` seconds."""
+    raw = os.environ.get("TPUMON_DIST_TIMEOUT_S")
+    return datetime.timedelta(seconds=float(raw) if raw else GROUP_TIMEOUT_S)
+
+
+def agree_backend(store, rank: int, world: int, device: torch.device,
+                  local_world: int) -> str:
+    """``nccl`` when every host has a card for each of its local ranks,
+    else ``gloo``. Each rank posts on ``store`` (the job's, which every
+    host reaches) whether its host has a card for each of the host's
+    ``local_world`` ranks, then reads every rank's answer, so the ranks of
+    every host pick the same backend before the group exists; a host
+    deciding alone would pick nccl beside a gloo peer and hang."""
+    own = device.type == "cuda" and torch.cuda.device_count() >= local_world
+    store.set(f"backend/cards/{rank}", "1" if own else "0")
+    keys = [f"backend/cards/{r}" for r in range(world)]
+    store.wait(keys)
+    backend = "nccl" if all(store.get(key) == b"1" for key in keys) else "gloo"
+    log.info("backend %s: %d ranks, %d on this host on %s (%d CUDA devices)",
+             backend, world, local_world, device.type, torch.cuda.device_count())
     return backend
 
 
-def rank_device(platform: str, rank: int) -> torch.device:
-    """Rank ``rank``'s device: the host, or card ``rank % device_count``
-    (raises when a card is asked for and there is none)."""
+def init_group(store, rank: int, world: int, device: torch.device,
+               local_world: int) -> str:
+    """Join the job's default process group on ``store`` with the backend
+    the hosts agree on (:func:`agree_backend`) and the finite
+    :func:`group_timeout`; returns the backend."""
+    backend = agree_backend(store, rank, world, device, local_world)
+    dist.init_process_group(backend, store=store, rank=rank, world_size=world,
+                            timeout=group_timeout())
+    return backend
+
+
+def env_store(rank: int, world: int) -> "dist.TCPStore":
+    """The job's store at ``$MASTER_ADDR:$MASTER_PORT`` (the coordinator
+    of a multi-host job), hosted by global rank 0 as ``env://`` does, or
+    by torchrun's agent when it says it hosts one."""
+    agent = os.environ.get("TORCHELASTIC_USE_AGENT_STORE") == str(True)
+    return dist.TCPStore(os.environ["MASTER_ADDR"], int(os.environ["MASTER_PORT"]),
+                         world, is_master=rank == 0 and not agent,
+                         timeout=group_timeout())
+
+
+def rank_device(platform: str, local_rank: int) -> torch.device:
+    """The device of a rank that is ``local_rank`` on its host: the host,
+    or card ``local_rank % device_count`` (raises when a card is asked for
+    and there is none)."""
     if platform == "cpu":
         return resolve_device("cpu")
     if not torch.cuda.is_available():
         return resolve_device("cuda")  # raises, naming what is missing
-    return resolve_device("cuda", rank % torch.cuda.device_count())
+    return resolve_device("cuda", local_rank % torch.cuda.device_count())
 
 
-def rank_devices(mesh: "Mesh") -> list[torch.device]:
-    """The device of every rank of ``mesh`` (ranks may share a card)."""
-    world = int(np.prod(list(mesh.shape.values())))
-    return [rank_device(mesh.device.type, r) for r in range(world)]
+def rank_cards(mesh: "Mesh") -> list[tuple[int, torch.device]]:
+    """(host, device) of every rank of ``mesh``: global rank r is local
+    rank r % local_world on host r // local_world (the launcher's
+    layout), and every host has this host's devices. Ranks may share a
+    card; card 0 of two hosts is two cards."""
+    return [(r // mesh.local_world,
+             rank_device(mesh.device.type, r % mesh.local_world))
+            for r in mesh.ranks]
 
 
 @dataclasses.dataclass(eq=False)
 class Mesh:
     """One rank's view of the mesh: the axis sizes, its coordinates, its
     card, and the process group of each axis it is on (None for an axis
-    of size 1), plus ``data_seq``, the gradient bucket's group."""
+    of size 1), plus ``data_seq``, the gradient bucket's group. ``ranks``
+    are the global ranks the mesh is laid out over, ``rank`` this rank's
+    place among them (its checkpoint shard), ``local_world`` the ranks a
+    host runs."""
 
     shape: dict[str, int]
     coords: dict[str, int]
@@ -118,6 +173,8 @@ class Mesh:
     backend: str
     groups: dict[str, object]
     counters: CollectiveCounters
+    ranks: list[int] = dataclasses.field(default_factory=list)
+    local_world: int = 1
 
     @property
     def dp(self) -> int:
@@ -141,47 +198,56 @@ class Mesh:
 
 
 def make_mesh(dp: int, tp: int, sp: int = 1, pp: int = 1, ep: int = 1, *,
-              device: torch.device, counters: CollectiveCounters | None = None
-              ) -> Mesh:
+              device: torch.device, counters: CollectiveCounters | None = None,
+              ranks=None, local_world: int | None = None) -> "Mesh | None":
     """This rank's :class:`Mesh` over the initialized default process
-    group, whose world must be exactly the mesh. Every rank creates every
-    axis group, in the same order, as ``new_group`` requires."""
+    group. The mesh takes the whole world, or the global ``ranks`` given
+    (laid out in that order). Every rank of the world calls it with the
+    same arguments and creates every axis group, in the same order, as
+    ``new_group`` requires; a rank outside ``ranks`` gets None.
+    ``local_world`` is the ranks a host runs (default: the world, one
+    host)."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs an initialized process group "
                            "(harness.main starts one per rank)")
     world = dist.get_world_size()
+    ranks = list(range(world)) if ranks is None else [int(r) for r in ranks]
     total = dp * tp * sp * pp * ep
-    if total > world:
+    if total != len(ranks) or len(set(ranks)) != total or not set(ranks) <= set(range(world)):
         raise ValueError(
             f"mesh dp={dp} pp={pp} ep={ep} sp={sp} tp={tp} needs {total} "
-            f"ranks, have {world}"
+            f"distinct ranks of the world of {world}, got {len(ranks)}"
+            + ("" if len(ranks) != world else
+               ": start one process per mesh position")
         )
-    if total < world:
-        raise ValueError(f"mesh of {total} ranks in a world of {world}: "
-                         "start one process per mesh position")
     rank = dist.get_rank()
-    grid = layout(dp, tp, sp, pp, ep)
-    where = np.argwhere(grid == rank)[0]
+    timeout = group_timeout()  # new_group does not inherit the world's
+    grid = np.asarray(ranks).reshape(dp, pp, ep, sp, tp)
     groups: dict[str, object] = {}
     for axis, size in zip(AXES, grid.shape):
         groups[axis] = None
         if size == 1:
             continue
-        for ranks in axis_groups(grid, axis):
-            group = dist.new_group(ranks)
-            if rank in ranks:
+        for members in axis_groups(grid, axis):
+            group = dist.new_group(members, timeout=timeout)
+            if rank in members:
                 groups[axis] = group
     groups["data_seq"] = groups["data"] if sp == 1 else groups["seq"]
     if dp > 1 and sp > 1:
-        for ranks in data_seq_groups(grid):
-            group = dist.new_group(ranks)
-            if rank in ranks:
+        for members in data_seq_groups(grid):
+            group = dist.new_group(members, timeout=timeout)
+            if rank in members:
                 groups["data_seq"] = group
+    if rank not in ranks:
+        return None
+    where = np.argwhere(grid == rank)[0]
+    place = ranks.index(rank)
     return Mesh(
         shape=dict(zip(AXES, grid.shape)),
         coords={axis: int(c) for axis, c in zip(AXES, where)},
-        rank=rank, device=torch.device(device), backend=dist.get_backend(),
-        groups=groups, counters=counters or CollectiveCounters(rank=rank),
+        rank=place, device=torch.device(device), backend=dist.get_backend(),
+        groups=groups, counters=counters or CollectiveCounters(rank=place),
+        ranks=ranks, local_world=world if local_world is None else local_world,
     )
 
 
@@ -590,12 +656,16 @@ __all__ = [
     "all_gather",
     "all_reduce",
     "axis_groups",
-    "backend_for",
+    "GROUP_TIMEOUT_S",
+    "agree_backend",
     "copy_to_expert",
     "copy_to_model",
     "copy_to_stage",
     "data_seq_groups",
+    "env_store",
     "gather_seq",
+    "group_timeout",
+    "init_group",
     "layer_index",
     "layout",
     "local_shape",
@@ -603,7 +673,7 @@ __all__ = [
     "mean_over_data_seq",
     "permute",
     "rank_device",
-    "rank_devices",
+    "rank_cards",
     "reduce_from_expert",
     "reduce_from_model",
     "reduce_from_stage",
