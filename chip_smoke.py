@@ -10,9 +10,10 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
 1. env        torch/CUDA versions, device name and capability, nvidia-smi's
               name and power limit, nvcc --version.
 2. build      build the three flash kernels from ops/csrc/*.cu and print
-              the build seconds and ptxas' register/shared-memory report;
-              fails on any spilled register, ignored setmaxnreg or
-              serialized wgmma (ptxas' "(C7512)"/"(C7520)" lines).
+              the build seconds and ptxas' register/shared-memory report
+              for every instantiation (head dim x tile pair); fails on
+              any spilled register, ignored setmaxnreg or serialized
+              wgmma (ptxas' "(C7512)"/"(C7520)" lines) in any of them.
 3. kernels    each kernel against its plain PyTorch version on the card,
               at the main path's attention shape (medium microbatch: B=2,
               S=4096, H=16, KV=4, D=128, causal), at the MoE path's (B=1,
@@ -23,13 +24,19 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
               edges (S=4000, S=48, MHA), and at the ring path's zigzag
               stripes (B=2, S=Sk=1024, H=8, KV=2, D=128, non-causal and
               causal), and at the dryrun's head_dim 32 (B=2, H=2, KV=1:
-              S=32 causal, and S=Sk=8 non-causal). Prints one JSON line per kernel
-              and case: errors beside their limits, the kernel's time
-              (CUDA events, median), the plain version's, the library
-              call's where one computes the same function, and the bound
-              (the least time for the same work at the card's peaks);
-              then one line per case for the backward as a whole against
-              SDPA's backward.
+              S=32 causal, and S=Sk=8 non-causal). Every kernel runs at
+              every tile pair it is compiled for (ops/flash_attention.py
+              COMPILED: block_q, block_k in TILES = 64, 128), the chooser's
+              default among them, each held to the plain version's
+              outputs, computed once a case. Prints one JSON line per
+              kernel, case and tile pair: errors beside their limits, the
+              kernel's time (CUDA events, median), the bound (the least
+              time for the same work at the card's peaks) and whether the
+              pair is the default; the plain version's and the library
+              call's times (where one computes the same function) ride
+              on the default's line. Then one line per case naming each
+              kernel's default and fastest pair, and one for the
+              backward as a whole (default tiles) against SDPA's.
 4. main       tpumon.workload_torch.harness.main on the medium preset
               (--seq 4096 --batch 8 --grad-accum 4 --attn flash --remat
               --loss-chunk 1024 --steps 10 --phase-stats --serve) with the
@@ -50,8 +57,9 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
               resumed run's page must show the save and restore spans and
               a step counter that counts on from 2.
 7. bench      tpumon.workload_torch.bench_attention.main at --batch 2
-              --heads 16 --kv-heads 4 --head-dim 128 --seq 4096; prints
-              its rows; fails if the flash row has an error.
+              --heads 16 --kv-heads 4 --head-dim 128 --seq 4096, then the
+              same with --sweep-blocks (one row per distinct tile pair);
+              prints their rows; fails if a flash row has an error.
 8. profile    the main and the MoE argv for 3 steps each, without --serve
               and --phase-stats, with the timed steps under
               torch.profiler (CUDA activity): one JSON line per path with
@@ -124,8 +132,13 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
               must read tpu_step_terminating 1 within the grace window (3
               s) and the process must exit 143.
 
-Then it prints the nvidia-smi line, one {"kernels": [...]} JSON line and,
-as the last line, {"ok": true, "device": {...}}.
+Every path phase (main, moe, checkpoint, mesh, ring, expert, pipe,
+hosts, dryrun, entry, drill) also reports rank 0's flash launches by
+tile pair (``tile_launches``).
+
+Then it prints the nvidia-smi line, one {"kernels": [...]} JSON line (with
+each kernel's compiled tile pairs) and, as the last line, {"ok": true,
+"device": {...}}.
 """
 
 from __future__ import annotations
@@ -173,7 +186,7 @@ KERNELS = {
 #: the main path, "moe" the moe-small microbatch of the MoE path and
 #: "tp2" one rank's microbatch of the mesh path (medium at tp = 2);
 #: "long" is in the range where the JAX package streams; "ragged4000",
-#: "small48" and "mha" hit the tile edges of the wgmma kernels (128-row
+#: "small48" and "mha" hit the tile edges of the wgmma kernels (64- and 128-row
 #: q- and k-blocks, 64-row q tiles in dK/dV): S not a multiple of 128, S
 #: below one tile, and MHA (KV = H). "zz" and "zzc" are one stripe pair of
 #: the ring path (medium at tp=2×sp=2 zigzag, microbatch B=2: 1024-row
@@ -331,35 +344,56 @@ def phase_env(torch) -> None:
     print(f"nvcc: {out[-1] if out else '?'}", flush=True)
 
 
-def phase_build() -> None:
+def instantiation(mangled: str) -> str:
+    """``kernel<args>`` from a mangled entry name in ptxas' report, e.g.
+    ``_ZN3fwd10fwd_kernelILi128ELi64ELi128EEEv...`` → ``fwd_kernel<128,
+    64, 128>`` (D, then the tile pair; flash_dkv: D, part, k rows, q
+    rows)."""
+    match = re.search(r"([A-Za-z_]+_kernel)I((?:Li\d+E)+)E", mangled)
+    if not match:
+        return mangled
+    args = re.findall(r"Li(\d+)E", match.group(2))
+    return f"{match.group(1)}<{', '.join(args)}>"
+
+
+def phase_build() -> dict:
     """Build every kernel and fail if ptxas reports spilled registers in
-    any instantiation, ignored a setmaxnreg or serialized a wgmma."""
+    any instantiation, ignored a setmaxnreg or serialized a wgmma. Prints
+    each instantiation's report; returns the build seconds and the
+    instantiations."""
     from tpumon.workload_torch.ops import _build
 
     t0 = time.perf_counter()
     report = _build.build(tuple(KERNELS))
-    print(f"build: {time.perf_counter() - t0:.2f} s "
-          f"({len(report)} compiled)", flush=True)
-    bad = []
+    seconds = time.perf_counter() - t0
+    print(f"build: {seconds:.2f} s ({len(report)} compiled)", flush=True)
+    bad, seen = [], []
     for name, info in report.items():
         print(f"build: {name} {info['seconds']:.2f} s", flush=True)
+        entry = name
         for line in info["ptxas"]:
             print(f"  {line.strip()}", flush=True)
+            found = re.search(r"Compiling entry function '(\w+)'", line)
+            if found:
+                entry = instantiation(found.group(1))
+                seen.append(entry)
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
             if spill and (int(spill.group(1)) or int(spill.group(2))):
-                bad.append(f"{name}: {line.strip()}")
+                bad.append(f"{entry}: {line.strip()}")
             # "(C7512) ... wgmma.mma_async instructions are serialized"
             # (or C7520, the same loss from another cause): a wgmma kernel
             # lost its pipelining.
             if any(s in line for s in ("setmaxnreg ignored", "(C7512)",
                                        "instructions are serialized")):
-                bad.append(f"{name}: {line.strip()}")
+                bad.append(f"{entry}: {line.strip()}")
+    emit({"phase": "build", "seconds": seconds, "instantiations": seen})
     if bad:
         fail("ptxas: " + "; ".join(bad))
+    return {"seconds": seconds, "instantiations": seen}
 
 
-def time_ms(torch, fn, reps: int) -> float:
-    """Median milliseconds of ``fn`` over ``reps`` runs, each between two
+def time_samples(torch, fn, reps: int) -> list[float]:
+    """Milliseconds of ``fn`` in each of ``reps`` runs, each between two
     CUDA events, after two warm-up runs."""
     for _ in range(2):
         fn()
@@ -373,7 +407,13 @@ def time_ms(torch, fn, reps: int) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return times
+
+
+def time_ms(torch, fn, reps: int) -> float:
+    """Median milliseconds of ``fn`` over ``reps`` runs
+    (:func:`time_samples`)."""
+    return statistics.median(time_samples(torch, fn, reps))
 
 
 def bound(B, S, Sk, H, KV, D, causal, kernel, peak_flops, peak_bytes):
@@ -394,6 +434,20 @@ def bound(B, S, Sk, H, KV, D, causal, kernel, peak_flops, peak_bytes):
         moved = 2 * q_bytes + 4 * kv_bytes + 2 * row_bytes
     t_ops, t_bytes = ops / peak_flops * 1e3, moved / peak_bytes * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def tile_requests(fa, name: str, shape: tuple) -> dict:
+    """Kernel ``name``'s distinct effective tiles at ``shape`` (B, S, Sk,
+    H, KV, D, causal) → the first (block_q, block_k) request over
+    ``fa.TILES``² that runs them: every tile pair the kernel is compiled
+    for at this head dim, the chooser's default among them."""
+    B, S, Sk, H, KV, D, causal = shape
+    out: dict = {}
+    for bq in fa.TILES:
+        for bk in fa.TILES:
+            eff = fa.effective_blocks(B, H, KV, S, Sk, D, causal, bq, bk)[name]
+            out.setdefault(eff, (bq, bk))
+    return out
 
 
 def phase_kernels(torch, reps: int, seed: int) -> dict:
@@ -420,18 +474,14 @@ def phase_kernels(torch, reps: int, seed: int) -> dict:
         q, k, v, do = randn(B, S, H, D), randn(B, Sk, KV, D), randn(B, Sk, KV, D), randn(B, S, H, D)
         shape = {"B": B, "S": S, "Sk": Sk, "H": H, "KV": KV, "D": D,
                  "causal": causal}
+        default = fa.effective_blocks(B, H, KV, S, Sk, D, causal)
 
-        o, lse = fa.flash_fwd(q, k, v, causal)
+        # The plain outputs, once a case. Each backward kernel gets the
+        # same inputs as its plain version: the plain forward's lse and Δ,
+        # so its error is its own.
         ref_o, ref_lse = fa.flash_fwd_reference(q, k, v, causal)
-        torch.cuda.synchronize()
-        err_o = (o.float() - ref_o.float()).abs().max().item()
-        err_lse = (lse - ref_lse).abs().max().item()
-        # Each backward kernel gets the same inputs as its plain version:
-        # the plain forward's lse and Δ, so its error is its own.
         delta = fa.flash_delta(ref_o, do)
-        dq = fa.flash_dq(q, k, v, do, ref_lse, delta, causal)
         ref_dq = fa.flash_dq_reference(q, k, v, do, ref_lse, delta, causal)
-        dk, dv = fa.flash_dkv(q, k, v, do, ref_lse, delta, causal)
         ref_dk, ref_dv = fa.flash_dkv_reference(q, k, v, do, ref_lse, delta, causal)
         torch.cuda.synchronize()
 
@@ -442,25 +492,30 @@ def phase_kernels(torch, reps: int, seed: int) -> dict:
         def max_abs(a, b):
             return (a.float() - b.float()).abs().max().item()
 
-        errs = {
-            "flash_fwd": ({"o_max_abs": err_o, "lse_max_abs": err_lse},
-                          {"o_max_abs": LIMITS["o"], "lse_max_abs": LIMITS["lse"]},
-                          max(err_o, err_lse)),
-            "flash_dq": ({"dq_rel_l2": rel_l2(dq, ref_dq)},
-                         {"dq_rel_l2": LIMITS["grad_rel_l2"]},
-                         max_abs(dq, ref_dq)),
-            "flash_dkv": ({"dk_rel_l2": rel_l2(dk, ref_dk),
-                           "dv_rel_l2": rel_l2(dv, ref_dv)},
-                          {"dk_rel_l2": LIMITS["grad_rel_l2"],
-                           "dv_rel_l2": LIMITS["grad_rel_l2"]},
-                          max(max_abs(dk, ref_dk), max_abs(dv, ref_dv))),
-        }
+        def errors(name, tiles):
+            """(errors, limits, worst max-abs) of one kernel at ``tiles``."""
+            if name == "flash_fwd":
+                o, lse = fa.flash_fwd(q, k, v, causal, **tiles)
+                err_o, err_lse = max_abs(o, ref_o), (lse - ref_lse).abs().max().item()
+                return ({"o_max_abs": err_o, "lse_max_abs": err_lse},
+                        {"o_max_abs": LIMITS["o"], "lse_max_abs": LIMITS["lse"]},
+                        max(err_o, err_lse))
+            if name == "flash_dq":
+                dq = fa.flash_dq(q, k, v, do, ref_lse, delta, causal, **tiles)
+                return ({"dq_rel_l2": rel_l2(dq, ref_dq)},
+                        {"dq_rel_l2": LIMITS["grad_rel_l2"]}, max_abs(dq, ref_dq))
+            dk, dv = fa.flash_dkv(q, k, v, do, ref_lse, delta, causal, **tiles)
+            return ({"dk_rel_l2": rel_l2(dk, ref_dk), "dv_rel_l2": rel_l2(dv, ref_dv)},
+                    {"dk_rel_l2": LIMITS["grad_rel_l2"],
+                     "dv_rel_l2": LIMITS["grad_rel_l2"]},
+                    max(max_abs(dk, ref_dk), max_abs(dv, ref_dv)))
+
         calls = {
-            "flash_fwd": (lambda: fa.flash_fwd(q, k, v, causal),
+            "flash_fwd": (lambda t: fa.flash_fwd(q, k, v, causal, **t),
                           lambda: fa.flash_fwd_reference(q, k, v, causal)),
-            "flash_dq": (lambda: fa.flash_dq(q, k, v, do, ref_lse, delta, causal),
+            "flash_dq": (lambda t: fa.flash_dq(q, k, v, do, ref_lse, delta, causal, **t),
                          lambda: fa.flash_dq_reference(q, k, v, do, ref_lse, delta, causal)),
-            "flash_dkv": (lambda: fa.flash_dkv(q, k, v, do, ref_lse, delta, causal),
+            "flash_dkv": (lambda t: fa.flash_dkv(q, k, v, do, ref_lse, delta, causal, **t),
                           lambda: fa.flash_dkv_reference(q, k, v, do, ref_lse, delta, causal)),
         }
         # Library yardstick for the forward: SDPA on the same inputs in
@@ -471,30 +526,61 @@ def phase_kernels(torch, reps: int, seed: int) -> dict:
         vt = v.repeat_interleave(H // KV, dim=2).transpose(1, 2).contiguous()
         library = {"flash_fwd": lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal)}
-        for name, (got, limit, worst_abs) in errs.items():
+        summary = {}
+        for name in KERNELS:
             kernel_fn, plain_fn = calls[name]
-            ms = time_ms(torch, kernel_fn, reps)
             plain_ms = time_ms(torch, plain_fn, reps)
             lib = library.get(name)
             library_ms = time_ms(torch, lib, reps) if lib else None
             bound_ms, bound_by = bound(B, S, Sk, H, KV, D, causal, name,
                                        peak_flops, peak_bytes)
-            ok = all(got[key] <= limit[key] for key in got)
-            if not ok:
-                failed.append(f"{name}@{case}: {got} over {limit}")
-            row = {
-                "case": case, "kernel": name, "shape": shape, "err": got,
-                "limit": limit, "max_abs_err": worst_abs, "passed": ok,
-                "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                "bound_ms": bound_ms, "bound_by": bound_by, "reps": reps,
-            }
-            emit(row)
+            by_tiles = {}
+            for eff, (bq, bk) in tile_requests(fa, name, (B, S, Sk, H, KV, D, causal)).items():
+                tiles = {"block_q": bq, "block_k": bk}
+                got, limit, worst_abs = errors(name, tiles)
+                samples = time_samples(torch, lambda: kernel_fn(tiles), reps)
+                ms = statistics.median(samples)
+                ok = all(got[key] <= limit[key] for key in got)
+                if not ok:
+                    failed.append(f"{name}@{case}[{eff[0]}x{eff[1]}]: {got} over {limit}")
+                is_default = eff == default[name]
+                row = {
+                    "case": case, "kernel": name, "shape": shape,
+                    "tiles": list(eff), "requested": [bq, bk],
+                    "default": is_default, "err": got, "limit": limit,
+                    "max_abs_err": worst_abs, "passed": ok, "ms": ms,
+                    "ms_min": min(samples), "ms_max": max(samples),
+                    "bound_ms": bound_ms, "bound_by": bound_by, "reps": reps,
+                }
+                if is_default:
+                    row.update(plain_ms=plain_ms, library_ms=library_ms)
+                emit(row)
+                by_tiles[eff] = row
+            if default[name] not in by_tiles:
+                fail(f"{name}@{case}: the default tiles {default[name]} are "
+                     f"not among the compiled ones {sorted(by_tiles)}")
+            fastest = min(by_tiles, key=lambda eff: by_tiles[eff]["ms"])
+            row = dict(by_tiles[default[name]])
+            row["tile_ms"] = {f"{a}x{b}": r["ms"] for (a, b), r in by_tiles.items()}
+            row["passed"] = all(r["passed"] for r in by_tiles.values())
             results.setdefault(name, {})[case] = row
+            # Within the spread: the default's fastest run is no slower
+            # than the fastest pair's slowest.
+            summary[name] = {
+                "default": list(default[name]), "default_ms": row["ms"],
+                "fastest": list(fastest), "fastest_ms": by_tiles[fastest]["ms"],
+                "default_over_fastest": row["ms"] / by_tiles[fastest]["ms"],
+                "within_spread": row["ms_min"] <= by_tiles[fastest]["ms_max"],
+            }
+        emit({"case": case, "tile_choice": summary})
 
-        # The backward as a whole: the Δ pre-pass, flash_dq and flash_dkv,
-        # beside the library's backward (SDPA forward + backward minus its
-        # forward, on the K/V expanded to H heads). No single library call
-        # computes dQ or dK/dV alone, so the kernels' rows keep null.
+        # The backward as a whole at the default tiles: the Δ pre-pass,
+        # flash_dq and flash_dkv, beside the library's backward (SDPA
+        # forward + backward minus its forward, on the K/V expanded to H
+        # heads). No single library call computes dQ or dK/dV alone, so
+        # the kernels' rows keep null.
+        o, lse = fa.flash_fwd(q, k, v, causal)
+
         def backward():
             d = fa.flash_delta(o, do)
             fa.flash_dq(q, k, v, do, lse, d, causal)
@@ -513,11 +599,12 @@ def phase_kernels(torch, reps: int, seed: int) -> dict:
         emit({"case": case, "backward": {
             "ms": bwd_ms, "library_ms": fwd_bwd_ms - sdpa_fwd_ms,
             "sdpa_fwd_bwd_ms": fwd_bwd_ms, "sdpa_fwd_ms": sdpa_fwd_ms,
-            "kernels": ["delta (torch)", "flash_dq", "flash_dkv"]},
+            "kernels": ["delta (torch)", "flash_dq", "flash_dkv"],
+            "tiles": {name: list(default[name]) for name in KERNELS}},
             "reps": reps})
         del qg, kg, vg, dot
-        del q, k, v, do, o, lse, ref_o, ref_lse, delta, dq, ref_dq
-        del dk, dv, ref_dk, ref_dv, qt, kt, vt
+        del q, k, v, do, o, lse, ref_o, ref_lse, delta, ref_dq
+        del ref_dk, ref_dv, qt, kt, vt
         torch.cuda.empty_cache()
     if failed:
         fail("kernels disagree with their plain versions: " + "; ".join(failed))
@@ -648,6 +735,7 @@ def drive_path(torch, name: str, argv: list[str]) -> dict:
         finally:
             wall = time.perf_counter() - t0
             counts = dict(fa.launches)
+            tile_counts = dict(fa.tile_launches)
             log.removeHandler(records)
     peak_mem = torch.cuda.max_memory_allocated()
     if rc != 0:
@@ -680,6 +768,11 @@ def drive_path(torch, name: str, argv: list[str]) -> dict:
     expected = expected_launches(cfg.n_layers, grad_accum)
     if counts != expected:
         fail(f"{name}: launch counts {counts} differ from the expected {expected}")
+    by_kernel = {kernel: sum(n for key, n in tile_counts.items()
+                             if key.startswith(f"{kernel}["))
+                 for kernel in counts}
+    if by_kernel != counts:
+        fail(f"{name}: launches by tiles {tile_counts} do not add up to {counts}")
     L = cfg.n_layers
     result = {
         "phase": name, "argv": argv, "loss_first": first, "loss_last": last,
@@ -688,7 +781,7 @@ def drive_path(torch, name: str, argv: list[str]) -> dict:
         "model_flops_per_step": flops.train_flops_per_step(cfg, batch, seq),
         "mfu": flops.mfu(cfg, batch, seq, steps_per_sec, torch.device("cuda", 0)),
         "max_memory_allocated": peak_mem, "launches": counts,
-        "launches_expected": expected,
+        "tile_launches": tile_counts, "launches_expected": expected,
         "launches_per_step": {"flash_fwd": grad_accum * 2 * L,
                               "flash_dq": grad_accum * L,
                               "flash_dkv": grad_accum * L},
@@ -710,6 +803,7 @@ def phase_checkpoint(torch) -> dict:
     """Stop and resume the MoE path; see the module docstring."""
     from tpumon.workload_torch import harness
     from tpumon.workload_torch.checkpoint import STATE_FILE, CheckpointStore
+    from tpumon.workload_torch.ops import flash_attention as fa
 
     def argv(steps: int, every: int, directory: str) -> list[str]:
         return [*MOE_TRAIN, "--steps", str(steps), "--checkpoint-every",
@@ -721,6 +815,7 @@ def phase_checkpoint(torch) -> dict:
     with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_ckpt_") as tmp:
         full_dir, resume_dir = os.path.join(tmp, "full"), os.path.join(tmp, "resume")
         t0 = time.perf_counter()
+        fa.reset_launches()
         with _capture_runs(harness) as runs:
             if harness.main(argv(4, 2, full_dir)) != 0:
                 fail("checkpoint: the uninterrupted run failed")
@@ -735,6 +830,7 @@ def phase_checkpoint(torch) -> dict:
                 fail("checkpoint: the resumed run failed")
         kept = CheckpointStore(resume_dir).steps()
         wall = time.perf_counter() - t0
+        tile_counts = dict(fa.tile_launches)
     full, part, cont = runs
     if full.start_step != 0 or len(full.losses) != 4:
         fail(f"checkpoint: uninterrupted run {full.start_step} / {full.losses}")
@@ -773,27 +869,32 @@ def phase_checkpoint(torch) -> dict:
         "steps_on_page": steps_seen, "checkpoints": spans[-1]["checkpoints"],
         "state_bytes": state_bytes, "kept_steps": kept,
         "steps_per_sec": {"full": full.steps_per_sec, "resumed": cont.steps_per_sec},
-        "wall_s": wall,
+        "tile_launches": tile_counts, "wall_s": wall,
     }
     emit(result)
     return result
 
 
 def phase_bench(torch) -> list[dict]:
+    """The attention bench at ``main``'s shape, then its tiling sweep
+    there (``--sweep-blocks``: a row per distinct tile pair)."""
     from tpumon.workload_torch import bench_attention
 
-    _release(torch)
-    out = io.StringIO()
-    with contextlib.redirect_stdout(out):
-        rc = bench_attention.main(BENCH_ARGV)
-    if rc != 0:
-        fail(f"bench: bench_attention.main returned {rc}")
-    rows = [json.loads(line) for line in out.getvalue().splitlines()]
-    for row in rows:
-        emit({"phase": "bench", "argv": BENCH_ARGV, **row})
-    flash = [r for r in rows if r["impl"] == "flash"]
-    if not flash or any("error" in r for r in flash):
-        fail(f"bench: the flash row failed: {flash}")
+    rows = []
+    for argv in (BENCH_ARGV, [*BENCH_ARGV, "--sweep-blocks"]):
+        _release(torch)
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = bench_attention.main(argv)
+        if rc != 0:
+            fail(f"bench: bench_attention.main({argv}) returned {rc}")
+        got = [json.loads(line) for line in out.getvalue().splitlines()]
+        for row in got:
+            emit({"phase": "bench", "argv": argv, **row})
+        flash = [r for r in got if r["impl"] == "flash"]
+        if not flash or any("error" in r for r in flash):
+            fail(f"bench: a flash row failed: {flash}")
+        rows += got
     return rows
 
 
@@ -1137,7 +1238,8 @@ def drive_mesh(torch, name: str, argv_run: list[str]) -> dict:
         "single_device_s": single_s,
         "peak_memory_bytes": peaks, "peak_memory_sum": sum(peaks.values()),
         "moment_bytes": {rank: rep["moment_bytes"] for rank, rep in sorted(ranks.items())},
-        "launches": first["launches"], "launches_expected": want_launches,
+        "launches": first["launches"], "tile_launches": first["tile_launches"],
+        "launches_expected": want_launches,
         "launches_by_rank": {rank: rep["launches"] for rank, rep in sorted(ranks.items())},
         "collectives": first["collectives"], "collectives_per_step": per_step,
         "collectives_per_probe": per_probe, "per_op_per_step": per_op,
@@ -1260,6 +1362,7 @@ def phase_hosts(torch, mesh_run: dict) -> dict:
         "bitwise_equal": all(rep["losses"] == want for rep in ranks.values()),
         "peak_memory_bytes": {r: rep["peak_memory_bytes"] for r, rep in sorted(ranks.items())},
         "launches": ranks[0]["launches"],
+        "tile_launches": ranks[0]["tile_launches"],
         "launches_by_rank": {r: rep["launches"] for r, rep in sorted(ranks.items())},
         "collectives": ranks[0]["collectives"]["counts"], "wall_s": wall,
     }
@@ -1288,6 +1391,9 @@ def phase_dryrun(torch) -> list[dict]:
         launched = [n for n in row["launches_rank0"].values() if n > 0]
         if row["cell"] in DRYRUN_FLASH and len(launched) != 3:
             bad.append(f"{row['cell']}: rank 0 launched {row['launches_rank0']}")
+        if sum(row["tile_launches_rank0"].values()) != sum(row["launches_rank0"].values()):
+            bad.append(f"{row['cell']}: tile launches {row['tile_launches_rank0']} "
+                       f"do not add up to {row['launches_rank0']}")
         if row["cell"] not in DRYRUN_FLASH and launched:
             bad.append(f"{row['cell']} has no flash, yet launched {row['launches_rank0']}")
     if bad:
@@ -1302,12 +1408,15 @@ def phase_entry(torch) -> dict:
     """``entry()``'s forward on the card, the kernel probe and the card
     count."""
     from tpumon.workload_torch import entry
+    from tpumon.workload_torch.ops import flash_attention as fa
 
     _release(torch)
+    fa.reset_launches()
     fn, example = entry.entry()
     with torch.no_grad():
         out = fn(*example)
     torch.cuda.synchronize()
+    tile_counts = dict(fa.tile_launches)
     if tuple(out.shape) != (2, 32, 512) or not torch.isfinite(out).all().item():
         fail(f"entry: output {tuple(out.shape)}, finite "
              f"{torch.isfinite(out).all().item()}")
@@ -1322,7 +1431,8 @@ def phase_entry(torch) -> dict:
         fail(f"entry: gpu_chip_count() is {count}, torch counts "
              f"{torch.cuda.device_count()}")
     result = {"phase": "entry", "shape": list(out.shape), "dtype": str(out.dtype),
-              "probe": probe, "probe_s": probe_s, "gpu_chip_count": list(count)}
+              "tile_launches": tile_counts, "probe": probe, "probe_s": probe_s,
+              "gpu_chip_count": list(count)}
     emit(result)
     return result
 
@@ -1377,6 +1487,8 @@ def phase_drill(torch) -> dict:
         finally:
             _stop(proc)
             log_tail = _tail(path)
+    # The harness logs its launches by tiles as it exits after the grace.
+    logged = re.findall(r"flash launches .* by tiles (\{.*\})", log_tail)
     if before.get("terminating"):
         fail("drill: the page read terminating before the SIGTERM")
     if flagged_at is None or flagged_at >= DRILL_GRACE_S:
@@ -1384,10 +1496,13 @@ def phase_drill(torch) -> dict:
              f"{DRILL_GRACE_S} s grace: {log_tail}")
     if rc != 143:
         fail(f"drill: exit code {rc}, not 143: {log_tail}")
+    if not logged:
+        fail(f"drill: the harness logged no flash launches at its exit: {log_tail}")
     result = {"phase": "drill", "argv": DRILL_ARGV, "grace_s": DRILL_GRACE_S,
               "step_before": before.get("step"),
               "step_seconds_before": before.get("step_seconds"),
-              "flagged_after_s": flagged_at, "exit_code": rc, "exit_after_s": exit_s}
+              "flagged_after_s": flagged_at, "exit_code": rc, "exit_after_s": exit_s,
+              "tile_launches": json.loads(logged[-1])}
     emit(result)
     return result
 
@@ -1424,8 +1539,7 @@ def main(argv: list[str] | None = None) -> int:
     t0 = time.perf_counter()
     if "env" in phases:
         phase_env(torch)
-    if "build" in phases:
-        phase_build()
+    build = phase_build() if "build" in phases else {}
     kernels = phase_kernels(torch, args.reps, args.seed) if "kernels" in phases else {}
     main_run = phase_main(torch) if "main" in phases else {}
     moe_run = phase_moe(torch) if "moe" in phases else {}
@@ -1448,6 +1562,8 @@ def main(argv: list[str] | None = None) -> int:
         phase_drill(torch)
     print(f"total: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    from tpumon.workload_torch.ops import flash_attention as fa
+
     line = []
     for name, (source, replaces) in KERNELS.items():
         row = kernels.get(name, {}).get("main", {})
@@ -1469,6 +1585,12 @@ def main(argv: list[str] | None = None) -> int:
             "bound_by": row.get("bound_by"), "library_ms": row.get("library_ms"),
             **{f"{case}_case": {key: kernels.get(name, {}).get(case, {}).get(key)
                                 for key in keys} for case in ("moe", "tp2", "zz", "zzc", "d32", "d32zz")},
+            "tiles": row.get("tiles"),
+            "compiled_tiles": {str(D): [list(p) for p in pairs]
+                               for D, pairs in fa.COMPILED[name].items()},
+            "tile_ms_by_case": {case: r.get("tile_ms")
+                                for case, r in kernels.get(name, {}).items()},
+            "build_s": build.get("seconds"),
             "passed": all(r["passed"] for r in kernels.get(name, {}).values())
             if name in kernels else None,
         })

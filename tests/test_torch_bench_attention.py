@@ -1,10 +1,12 @@
 """The port's attention bench against tpumon/workload/bench_attention.py.
 
 On the host the bench times the plain versions (a check of the rows, not
-a device number). The rows must carry the reference's fields, less the
-TPU tile sizes the Hopper kernels do not take; the two impls' forwards
-must agree (f32 atol 1e-5: the plain attention path against the flash
-kernels' plain version, which sum in other orders).
+a device number). The rows must carry the reference's fields, the flash
+rows' tiles included, plus one ``effective_<kernel>`` key per kernel; the
+tiling sweep's rows the reference's sweep fields, one row per distinct
+effective tiling. The two impls' forwards must agree (f32 atol 1e-5: the
+plain attention path against the flash kernels' plain version, which sum
+in other orders).
 """
 
 import io
@@ -18,6 +20,7 @@ torch = pytest.importorskip("torch")
 from tpumon.workload_torch import bench_attention  # noqa: E402
 
 SHAPE = dict(batch=1, heads=4, kv_heads=2, head_dim=16, seqs=(32,), iters=1)
+EFFECTIVE = {"effective_flash_fwd", "effective_flash_dq", "effective_flash_dkv"}
 
 
 def test_cpu_rows_have_the_reference_shape():
@@ -31,7 +34,8 @@ def test_cpu_rows_have_the_reference_shape():
     assert [(r["impl"], r["seq"]) for r in rows] == [
         (r["impl"], r["seq"]) for r in ref_rows]
     for row, ref in zip(rows, ref_rows):
-        assert set(row) == set(ref) - {"block_q", "block_k"}
+        extra = EFFECTIVE if row["impl"] == "flash" else set()
+        assert set(row) == set(ref) | extra
         assert "error" not in row
         assert row["platform"] == row["device_kind"] == "cpu"
         assert row["fwd_ms"] > 0 and row["fwd_bwd_ms"] > 0 and row["fwd_tflops"] > 0
@@ -65,13 +69,71 @@ def test_error_row_keeps_the_bench_going():
     assert json.loads(out.getvalue()) == row
 
 
-@pytest.mark.parametrize(
-    "flag", [["--sweep-blocks"], ["--block-q", "128"], ["--block-k", "256"]])
-def test_tile_flags_fail_loudly(flag, capsys):
+CLI_SHAPE = ["--platform", "cpu", "--seq", "32", "--iters", "1", "--batch", "1",
+             "--heads", "4", "--kv-heads", "2", "--head-dim", "16"]
+
+
+@pytest.mark.parametrize("flags,fwd", [
+    (["--block-q", "64"], [64, 64]),
+    (["--block-k", "256"], [64, 128]),
+    (["--block-q", "128", "--block-k", "100"], [128, 64]),
+])
+def test_tile_flags_reach_the_flash_rows(flags, fwd, capsys):
+    """--block-q/--block-k run: the flash row records the forward's
+    effective tiles as block_q/block_k and every kernel's own."""
+    assert bench_attention.main([*flags, *CLI_SHAPE]) == 0
+    rows = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    flash = [r for r in rows if r["impl"] == "flash"]
+    assert len(flash) == 1 and "error" not in flash[0]
+    assert [flash[0]["block_q"], flash[0]["block_k"]] == fwd
+    assert flash[0]["effective_flash_fwd"] == fwd
+
+
+@pytest.mark.parametrize("value", ["0", "-64"])
+def test_tile_flags_below_one_exit_2(value, capsys):
     with pytest.raises(SystemExit) as exc:
-        bench_attention.main([*flag, "--platform", "cpu"])
+        bench_attention.main(["--block-q", value, *CLI_SHAPE])
     assert exc.value.code == 2
-    assert "fix their tiles at compile time" in capsys.readouterr().err
+    assert "must be >= 1" in capsys.readouterr().err
+
+
+def test_sweep_rows_have_the_reference_shape():
+    """--sweep-blocks: the reference's sweep fields plus each kernel's
+    effective tiles, one row per distinct effective tiling."""
+    pytest.importorskip("jax")
+    from tpumon.workload import bench_attention as ref_bench
+
+    shape = dict(SHAPE, seqs=(32,))
+    ref_rows = ref_bench.sweep_blocks(**shape, blocks=(16, 32), out=io.StringIO())
+    out = io.StringIO()
+    rows = bench_attention.sweep_blocks(**shape, platform="cpu", out=out)
+    assert [json.loads(line) for line in out.getvalue().splitlines()] == rows
+    assert len(rows) == 4  # every pair of TILES runs other tiles in flash_fwd
+    for row in rows:
+        assert set(row) == set(ref_rows[0]) | EFFECTIVE
+        assert "error" not in row and row["impl"] == "flash"
+        assert [row["effective_block_q"], row["effective_block_k"]] == \
+            row["effective_flash_fwd"]
+    assert {(r["block_q"], r["block_k"]) for r in rows} == {
+        (64, 64), (64, 128), (128, 64), (128, 128)}
+
+
+def test_sweep_skips_requests_that_run_timed_tiles():
+    """As the reference's: a request whose effective tiles (every
+    kernel's) were already timed gives no second row."""
+    rows = bench_attention.sweep_blocks(**SHAPE, blocks=(32, 64, 100, 128),
+                                        platform="cpu", out=io.StringIO())
+    effective = [tuple(tuple(r[f"effective_{n}"]) for n in
+                       ("flash_fwd", "flash_dq", "flash_dkv")) for r in rows]
+    assert len(effective) == len(set(effective)) == 4
+    assert [(r["block_q"], r["block_k"]) for r in rows] == [
+        (32, 32), (32, 128), (128, 32), (128, 128)]
+
+
+def test_sweep_cli_on_cpu(capsys):
+    assert bench_attention.main(["--sweep-blocks", *CLI_SHAPE]) == 0
+    rows = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    assert len(rows) == 4 and all(r["impl"] == "flash" for r in rows)
 
 
 def test_platform_cuda_raises_without_a_card(monkeypatch):

@@ -136,6 +136,36 @@ def test_multi_host_refusals(flags, message, capsys, monkeypatch):
     assert message in capsys.readouterr().err
 
 
+BAD_WORKER_ID = ("WARNING: could not determine TPU worker number, please set "
+                 "env var `TPU_WORKER_ID` manually")
+
+
+def test_one_host_ignores_tpu_worker_id(monkeypatch):
+    """Without --coordinator the launch is host 0 whatever $TPU_WORKER_ID
+    holds (loading libtpu can leave a warning in it), as the reference,
+    which reads it only under --coordinator."""
+    seen = {}
+
+    def no_launch(*args, **kwargs):
+        seen.update(kwargs)
+        raise RuntimeError("stop before the ranks")
+
+    monkeypatch.setenv("TPU_WORKER_ID", BAD_WORKER_ID)
+    monkeypatch.setattr(launch, "launch", no_launch)
+    with pytest.raises(RuntimeError, match="stop before the ranks"):
+        harness.main(["--dp", "2", "--platform", "cpu"])
+    assert seen["process_id"] == 0 and seen["num_processes"] == 1
+
+
+def test_unreadable_tpu_worker_id_exits_2(capsys, monkeypatch):
+    monkeypatch.setenv("TPU_WORKER_ID", BAD_WORKER_ID)
+    with pytest.raises(SystemExit) as exc:
+        harness.main(["--dp", "2", "--coordinator", "127.0.0.1:1",
+                      "--num-processes", "2", "--platform", "cpu"])
+    assert exc.value.code == 2
+    assert "is not a host index; pass --process-id" in capsys.readouterr().err
+
+
 def test_process_id_defaults_to_tpu_worker_id(capsys, monkeypatch):
     def no_launch(*args, **kwargs):
         raise AssertionError("a rank was started")

@@ -4,9 +4,11 @@ On the CPU the port's wrappers compute with their plain versions; the
 reference runs its Pallas kernels in interpret mode, as its own tests do.
 The same numpy inputs (fixed seed) go through both, over the cases of
 tests/test_flash_attention.py (MHA, GQA, MQA, S not a power of two; causal
-and not) plus one non-causal Sk != S. Tolerances: O and lse atol 1e-5,
-gradients atol 1e-4 (f32; the two sides only sum in other orders), one
-bf16 case atol 2e-2 (bf16 output rounding).
+and not) plus one non-causal Sk != S, each side at the same requested
+block_q/block_k. Tolerances: O and lse atol 1e-5, gradients atol 1e-4
+(f32; the two sides only sum in other orders), one bf16 case atol 2e-2
+(bf16 output rounding). The tile chooser (pick_block, default_blocks,
+effective_blocks) is pure Python and is checked here too.
 """
 
 import numpy as np
@@ -48,9 +50,10 @@ def _reference(q, k, v, g_out, g_lse, causal, bq, bk):
     return np.asarray(out), np.asarray(lse), [np.asarray(g) for g in grads]
 
 
-def _port(q, k, v, g_out, g_lse, causal):
+def _port(q, k, v, g_out, g_lse, causal, bq=None, bk=None):
     tq, tk, tv = (torch.tensor(a, requires_grad=True) for a in (q, k, v))
-    out, lse = fa.flash_attention_with_lse(tq, tk, tv, causal=causal)
+    out, lse = fa.flash_attention_with_lse(tq, tk, tv, causal=causal,
+                                           block_q=bq, block_k=bk)
     torch.autograd.backward(
         (out, lse), (torch.from_numpy(g_out), torch.from_numpy(g_lse))
     )
@@ -76,7 +79,7 @@ def _port(q, k, v, g_out, g_lse, causal):
 def test_matches_pallas_kernels(B, S, Sk, H, KV, D, bq, bk, causal):
     q, k, v, g_out, g_lse = _inputs(B, S, Sk, H, KV, D)
     ref_out, ref_lse, ref_grads = _reference(q, k, v, g_out, g_lse, causal, bq, bk)
-    out, lse, grads = _port(q, k, v, g_out, g_lse, causal)
+    out, lse, grads = _port(q, k, v, g_out, g_lse, causal, bq, bk)
     assert out.shape == (B, S, H, D) and lse.shape == (B, H, S)
     np.testing.assert_allclose(out, ref_out, rtol=0, atol=1e-5)
     np.testing.assert_allclose(lse, ref_lse, rtol=0, atol=1e-5)
@@ -98,6 +101,110 @@ def test_bfloat16_matches_pallas_kernels():
     )
 
 
+@pytest.mark.parametrize("requested,tile", [
+    (256, 128), (128, 128), (100, 64), (64, 64), (32, 64), (1, 64),
+])
+def test_pick_block_clamps_to_a_compiled_tile(requested, tile):
+    """The largest compiled tile not above the request, at least 64 (the
+    kernels mask ragged edges, so no divisor is needed)."""
+    assert fa.pick_block(requested) == tile
+
+
+@pytest.mark.parametrize("requested", [0, -64])
+def test_pick_block_raises_below_one(requested):
+    with pytest.raises(ValueError, match="below 1"):
+        fa.pick_block(requested)
+
+
+@pytest.mark.parametrize("kwargs", [{"block_q": 0}, {"block_k": -1}])
+def test_entry_points_check_the_request_on_cpu(kwargs):
+    """The plain versions serve CPU tensors but still check a request."""
+    q, k, v, _, _ = (torch.from_numpy(a) for a in _inputs(1, 32, 32, 2, 1, 8))
+    with pytest.raises(ValueError, match="below 1"):
+        fa.flash_attention(q, k, v, **kwargs)
+    with pytest.raises(ValueError, match="below 1"):
+        fa.flash_fwd(q, k, v, True, **kwargs)
+
+
+# (case, B, S, H, KV, D, flash_fwd, flash_dq, flash_dkv) at the shapes of
+# chip_smoke.py's CASES: the grid at 128 rows against one wave of 132.
+DEFAULTS = [
+    ("main", 2, 4096, 16, 4, 128, (128, 128), (128, 64), (64, 128)),
+    ("moe", 1, 4096, 8, 4, 64, (128, 128), (128, 64), (64, 64)),
+    ("tp2", 1, 4096, 8, 2, 128, (128, 128), (128, 64), (64, 64)),
+    ("long", 1, 16384, 4, 1, 128, (128, 128), (128, 64), (64, 64)),
+    ("zz", 2, 1024, 8, 2, 128, (64, 64), (64, 64), (64, 64)),
+    ("d32", 2, 32, 2, 1, 32, (64, 64), (64, 64), (64, 64)),
+]
+
+
+@pytest.mark.parametrize("case,B,S,H,KV,D,fwd,dq,dkv", DEFAULTS)
+def test_default_blocks_take_64_rows_below_one_wave(case, B, S, H, KV, D,
+                                                    fwd, dq, dkv):
+    got = fa.default_blocks(B, H, KV, S, S, D, True)
+    assert got == {"flash_fwd": fwd, "flash_dq": dq, "flash_dkv": dkv}, case
+
+
+@pytest.mark.parametrize("D,block_q,block_k,want", [
+    # flash_dkv streams its q rows at the register cap: 32 at D = 128.
+    (128, None, None, {"flash_fwd": (128, 128), "flash_dq": (128, 64),
+                       "flash_dkv": (32, 128)}),
+    (64, None, None, {"flash_fwd": (128, 128), "flash_dq": (128, 64),
+                      "flash_dkv": (64, 128)}),
+    # flash_dq is not compiled at 128 x 128: its k tile clamps to 64.
+    (128, 256, 256, {"flash_fwd": (128, 128), "flash_dq": (128, 64),
+                     "flash_dkv": (32, 128)}),
+    (128, 100, 32, {"flash_fwd": (64, 64), "flash_dq": (64, 64),
+                    "flash_dkv": (32, 64)}),
+    (64, 64, 128, {"flash_fwd": (64, 128), "flash_dq": (64, 128),
+                   "flash_dkv": (64, 128)}),
+    # head_dim 32 runs padded to 64, at 64's caps.
+    (32, 128, 64, {"flash_fwd": (128, 64), "flash_dq": (128, 64),
+                   "flash_dkv": (64, 64)}),
+])
+def test_effective_blocks(D, block_q, block_k, want):
+    """What each kernel runs at the main path's shape for a request: the
+    clamps, flash_dq's compiled set and flash_dkv's q cap."""
+    got = fa.effective_blocks(2, 16, 4, 4096, 4096, D, True, block_q, block_k)
+    assert got == want
+    for name, pair in got.items():
+        assert pair[1] in fa.TILES
+        if name != "flash_dkv":
+            assert pair in fa.COMPILED[name][fa.kernel_width(D)]
+
+
+def test_one_request_sets_only_its_own_tile():
+    """block_q alone keeps each kernel's default k tile, and back."""
+    only_q = fa.effective_blocks(1, 8, 2, 4096, 4096, 128, True, block_q=64)
+    only_k = fa.effective_blocks(1, 8, 2, 4096, 4096, 128, True, block_k=128)
+    assert only_q == {"flash_fwd": (64, 128), "flash_dq": (64, 64),
+                      "flash_dkv": (32, 64)}
+    assert only_k == {"flash_fwd": (128, 128), "flash_dq": (128, 64),
+                      "flash_dkv": (32, 128)}
+
+
+@pytest.mark.parametrize("tiles", [(64, 64), (128, 64), (64, 128), (256, 1)])
+def test_tile_requests_leave_the_cpu_math_unchanged(tiles):
+    """Every request computes the same dense math on the CPU, forward and
+    backward, bit for bit; and launches nothing."""
+    q, k, v, g_out, g_lse = _inputs(1, 48, 48, 4, 2, 16, seed=7)
+    fa.reset_launches()
+    plain = _port(q, k, v, g_out, g_lse, True)
+    tiled = _port(q, k, v, g_out, g_lse, True, *tiles)
+    for a, b in zip((plain[0], plain[1], *plain[2]), (tiled[0], tiled[1], *tiled[2])):
+        np.testing.assert_array_equal(a, b)
+    assert fa.tile_launches == {}
+
+
+def test_make_flash_attn_takes_tiles():
+    q, k, v, _, _ = (torch.from_numpy(a) for a in _inputs(1, 32, 32, 4, 2, 8))
+    attn = fa.make_flash_attn(block_q=64, block_k=128)
+    torch.testing.assert_close(attn(q, k, v), fa.flash_attention(q, k, v),
+                               rtol=0, atol=0)
+    with pytest.raises(ValueError, match="below 1"):
+        fa.make_flash_attn(block_k=0)(q, k, v)
+
+
 def test_rejects_bad_head_ratio():
     q, k, v, _, _ = _inputs(1, 32, 32, 4, 3, 8, seed=5)
     with pytest.raises(ValueError, match="multiple"):
@@ -117,6 +224,7 @@ def test_cpu_tensors_launch_no_kernel():
     fa.reset_launches()
     _port(q, k, v, g_out, g_lse, causal=True)
     assert fa.launches == {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+    assert fa.tile_launches == {}
 
 
 @pytest.mark.parametrize(
@@ -193,6 +301,7 @@ def _card_inputs(B, S, Sk, H, KV, D):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("tiles", [(bq, bk) for bq in fa.TILES for bk in fa.TILES])
 @pytest.mark.parametrize(
     "B,S,Sk,H,KV,D,causal",
     [
@@ -211,24 +320,29 @@ def _card_inputs(B, S, Sk, H, KV, D):
         (2, 8, 8, 2, 1, 32, False),
     ],
 )
-def test_kernels_match_plain_versions_on_card(B, S, Sk, H, KV, D, causal):
-    """Each CUDA kernel against its plain version on the card (bf16:
-    O atol 2e-2, lse atol 1e-4, gradients relative L2 1e-2)."""
+def test_kernels_match_plain_versions_on_card(B, S, Sk, H, KV, D, causal, tiles):
+    """Each CUDA kernel at each requested tile pair against its plain
+    version on the card (bf16: O atol 2e-2, lse atol 1e-4, gradients
+    relative L2 1e-2); the launches are counted under the tiles that
+    effective_blocks names."""
     q, k, v, do = _card_inputs(B, S, Sk, H, KV, D)
+    req = {"block_q": tiles[0], "block_k": tiles[1]}
     fa.reset_launches()
-    o, lse = fa.flash_fwd(q, k, v, causal)
+    o, lse = fa.flash_fwd(q, k, v, causal, **req)
     ref_o, ref_lse = fa.flash_fwd_reference(q, k, v, causal)
     assert (o.float() - ref_o.float()).abs().max().item() <= 2e-2
     assert (lse - ref_lse).abs().max().item() <= 1e-4
     delta = fa.flash_delta(ref_o, do)
-    got = [fa.flash_dq(q, k, v, do, ref_lse, delta, causal),
-           *fa.flash_dkv(q, k, v, do, ref_lse, delta, causal)]
+    got = [fa.flash_dq(q, k, v, do, ref_lse, delta, causal, **req),
+           *fa.flash_dkv(q, k, v, do, ref_lse, delta, causal, **req)]
     want = [fa.flash_dq_reference(q, k, v, do, ref_lse, delta, causal),
             *fa.flash_dkv_reference(q, k, v, do, ref_lse, delta, causal)]
     for a, b in zip(got, want):
         rel = ((a.float() - b.float()).norm() / b.float().norm()).item()
         assert rel <= 1e-2
     assert fa.launches == {"flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1}
+    eff = fa.effective_blocks(B, H, KV, S, Sk, D, causal, *tiles)
+    assert fa.tile_launches == {f"{name}[{a}x{b}]": 1 for name, (a, b) in eff.items()}
 
 
 @pytest.mark.cuda

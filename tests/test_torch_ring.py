@@ -184,10 +184,11 @@ def _stripes(x, n):
     return list(torch.chunk(x, 2 * n, dim=1))
 
 
-def _ring_outputs(q, k, v, n, variant):
+def _ring_outputs(q, k, v, n, variant, **tiles):
     """The full output of the ring's local math run for every rank d in
     one process, blocks cut from the full k/v as the hops would deliver
-    them (block i from rank (d − i) mod n)."""
+    them (block i from rank (d − i) mod n); ``tiles`` (block_q, block_k)
+    go to the flash variants."""
     zigzag, flash = variant.startswith("zigzag"), variant.endswith("flash")
     if zigzag:
         def shard(x, d):
@@ -201,10 +202,9 @@ def _ring_outputs(q, k, v, n, variant):
         blocks = [(shard(k, (d - i) % n), shard(v, (d - i) % n)) for i in range(n)]
         if zigzag:
             math_fn = ring._zigzag_flash_math if flash else ring._zigzag_attention_math
-            outs.append(math_fn(shard(q, d), blocks, d, n))
         else:
             math_fn = ring._ring_flash_math if flash else ring._ring_attention_math
-            outs.append(math_fn(shard(q, d), blocks, d, n))
+        outs.append(math_fn(shard(q, d), blocks, d, n, **tiles))
     if not zigzag:
         return torch.cat(outs, dim=1)
     stripes = [None] * (2 * n)
@@ -259,6 +259,55 @@ def test_local_math_matches_reference_ring(variant, n):
                                atol=MATH_ATOL, rtol=0)
     for mine, theirs in zip((tq.grad, tk.grad, tv.grad), (dq.grad, dk.grad, dv.grad)):
         np.testing.assert_allclose(mine.numpy(), theirs.numpy(), atol=MATH_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("tiles", [(64, 64), (256, 100)])
+@pytest.mark.parametrize("variant", ("contiguous-flash", "zigzag-flash"))
+def test_flash_ring_with_tiles_equals_without(variant, tiles):
+    """Explicit block_q/block_k through the flash ring's local math give
+    the same output and gradients as the chooser's (the plain versions on
+    the CPU, f32, bit for bit)."""
+    rng = np.random.default_rng(3)
+    B, S, H, KV, D = 2, 32, 4, 2, 16
+    arrays = [rng.standard_normal(s).astype(np.float32)
+              for s in ((B, S, H, D), (B, S, KV, D), (B, S, KV, D))]
+    g = torch.from_numpy(rng.standard_normal((B, S, H, D)).astype(np.float32))
+    results = []
+    for kw in ({}, {"block_q": tiles[0], "block_k": tiles[1]}):
+        leaves = [torch.from_numpy(a).requires_grad_(True) for a in arrays]
+        out = _ring_outputs(*leaves, 2, variant, **kw)
+        (out * g).sum().backward()
+        results.append([out.detach(), *(t.grad for t in leaves)])
+    for plain, tiled in zip(*results):
+        assert torch.equal(plain, tiled)
+
+
+@pytest.mark.parametrize("zigzag", (False, True))
+def test_ring_flash_passes_tiles_to_every_kernel_call(monkeypatch, zigzag):
+    """``ring_flash_local``/``zigzag_ring_flash_local`` (and
+    ``make_ring_attn`` for the contiguous ring) hand block_q/block_k to
+    every flash call, as the reference's ``_make_flash_partial``."""
+    calls = []
+    real_flash = ring._flash
+
+    def recording_flash(q, k, v, causal, block_q=None, block_k=None):
+        calls.append((block_q, block_k))
+        return real_flash(q, k, v, causal, block_q, block_k)
+
+    n, d = 2, 1
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               for s in ((1, 16, 4, 8), (1, 16, 2, 8), (1, 16, 2, 8)))
+    monkeypatch.setattr(ring, "_flash", recording_flash)
+    monkeypatch.setattr(ring, "ring_hops", lambda k, v, mesh, hops: [(k, v)] * (hops + 1))
+    mesh = type("Mesh", (), {"sp": n, "coords": {ring.AXIS: d}})()
+    if zigzag:
+        ring.zigzag_ring_flash_local(q, k, v, mesh, block_q=64, block_k=128)
+        assert len(calls) == ring.flash_calls_per_layer(n, True, d)
+    else:
+        ring.make_ring_attn(mesh, flash=True, block_q=64, block_k=128)(q, k, v)
+        assert len(calls) == ring.flash_calls_per_layer(n, False, d)
+    assert set(calls) == {(64, 128)}
 
 
 def test_merge_partials_and_its_gradient_match_reference():

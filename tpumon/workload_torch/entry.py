@@ -186,7 +186,8 @@ def run_cells(rank: int, world: int, cells: list[Cell], platform: str) -> list:
     (after the warm-up) over the cell's mesh on the world's first
     ``cell.ranks`` ranks, with the grad norm. The other ranks create the
     cell's groups and sit it out (None). Returns, per cell, the last loss,
-    the grad norm and the rank's kernel launches."""
+    the grad norm and the rank's kernel launches (by kernel and by
+    tiles)."""
     from tpumon.workload_torch import harness
     from tpumon.workload_torch.ops import flash_attention as fa
     from tpumon.workload_torch.parallel import mesh as mesh_mod
@@ -204,7 +205,8 @@ def run_cells(rank: int, world: int, cells: list[Cell], platform: str) -> list:
         result = harness.run(cell.cfg, steps=1, batch=cell.batch, seq=SEQ,
                              mesh=mesh, with_grad_norm=True, **cell.kwargs)
         out.append({"loss": result.losses[-1], "grad_norm": result.grad_norm,
-                    "launches": dict(fa.launches)})
+                    "launches": dict(fa.launches),
+                    "tile_launches": dict(fa.tile_launches)})
     return out
 
 
@@ -273,7 +275,8 @@ def dryrun_multichip(n: int, platform: str = "cuda", *,
                      "ranks": cell.ranks, "loss": loss,
                      "dense_loss": ref.losses[-1], "loss_abs": delta,
                      "grad_norm": got["grad_norm"], "dense_grad_norm": ref.grad_norm,
-                     "grad_norm_rel": grad_rel, "launches_rank0": got["launches"]})
+                     "grad_norm_rel": grad_rel, "launches_rank0": got["launches"],
+                     "tile_launches_rank0": got["tile_launches"]})
     print(f"dryrun_multichip OK: {', '.join(ran)} exercised on {n} ranks — "
           "every composition's loss AND gradient norm dense-parity-checked",
           flush=True)

@@ -870,6 +870,15 @@ def _run_checkpointed(
         result.grad_norm = result.grad_norms[-1]
 
 
+def _log_launches() -> None:
+    """One log line with this process's flash launches, by kernel and by
+    the tiles they ran (``ops.flash_attention`` counters)."""
+    from tpumon.workload_torch.ops import flash_attention as fa
+
+    log.info("flash launches %s by tiles %s", json.dumps(fa.launches),
+             json.dumps(fa.tile_launches))
+
+
 def _install_sigterm_marker(stats, grace_s: float | None = None) -> None:
     """Flag a SIGTERM on the metrics page for the preemption grace
     window, then exit with the conventional 143.
@@ -892,12 +901,16 @@ def _install_sigterm_marker(stats, grace_s: float | None = None) -> None:
 
     state = {"seen": False}
 
+    def _exit_after_grace():
+        _log_launches()
+        os._exit(143)
+
     def _on_term(signum, frame):
         if state["seen"]:
             os._exit(143)
         state["seen"] = True
         stats.mark_terminating()
-        timer = threading.Timer(grace_s, lambda: os._exit(143))
+        timer = threading.Timer(grace_s, _exit_after_grace)
         timer.daemon = True  # a finished run must not wait on the timer
         timer.start()
 
@@ -1141,7 +1154,15 @@ def _main(argv: list[str], results=None) -> int:
         parser.error("--num-processes > 1 requires --coordinator")
     process_id = args.process_id
     if process_id is None:
-        process_id = int(os.environ.get("TPU_WORKER_ID", "0") or 0)
+        # $TPU_WORKER_ID names this host only in a job of several, as the
+        # reference reads it (under --coordinator): one host is host 0,
+        # whatever a process that loaded libtpu left in the variable.
+        raw = os.environ.get("TPU_WORKER_ID", "0") if args.coordinator else "0"
+        try:
+            process_id = int(raw or 0)
+        except ValueError:
+            parser.error(f"$TPU_WORKER_ID ({raw!r}) is not a host index; "
+                         "pass --process-id")
     if args.coordinator and not 0 <= process_id < num_processes:
         parser.error(f"--process-id ({process_id}) must be in [0, "
                      f"--num-processes ({num_processes}))")
@@ -1311,6 +1332,7 @@ def _main(argv: list[str], results=None) -> int:
                 result.ep,
                 torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
             )
+            _log_launches()
         if mesh is not None:
             report = {
                 "rank": rank, "coords": mesh.coords, "backend": mesh.backend,
@@ -1321,6 +1343,7 @@ def _main(argv: list[str], results=None) -> int:
                 "peak_memory_bytes": (torch.cuda.max_memory_allocated(device)
                                       if device.type == "cuda" else None),
                 "launches": dict(fa.launches),
+                "tile_launches": dict(fa.tile_launches),
                 "collectives": counters.detailed_snapshot(),
                 "moment_bytes": sum(result.moment_bytes.values()),
             }

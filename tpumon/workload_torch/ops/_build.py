@@ -26,12 +26,15 @@ BUILD = Path(__file__).resolve().parent.parent / "build"
 #: Kernel name -> ctypes argument types of its C entry (same name).
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES: dict[str, list] = {
-    # q, k, v, o, lse, B, H, KV, S, Sk, D, scale, causal, stream
-    "flash_fwd": [_P] * 5 + [_I] * 6 + [_F, _I, _P],
-    # q, k, v, dO, lse, delta, dq, B, H, KV, S, Sk, D, scale, causal, stream
-    "flash_dq": [_P] * 7 + [_I] * 6 + [_F, _I, _P],
-    # q, k, v, dO, lse, delta, dk, dv, B, H, KV, S, Sk, D, scale, causal, stream
-    "flash_dkv": [_P] * 8 + [_I] * 6 + [_F, _I, _P],
+    # q, k, v, o, lse, B, H, KV, S, Sk, D, block_q, block_k, scale, causal,
+    # stream
+    "flash_fwd": [_P] * 5 + [_I] * 8 + [_F, _I, _P],
+    # q, k, v, dO, lse, delta, dq, B, H, KV, S, Sk, D, block_q, block_k,
+    # scale, causal, stream
+    "flash_dq": [_P] * 7 + [_I] * 8 + [_F, _I, _P],
+    # q, k, v, dO, lse, delta, dk, dv, B, H, KV, S, Sk, D, block_q, block_k,
+    # scale, causal, stream
+    "flash_dkv": [_P] * 8 + [_I] * 8 + [_F, _I, _P],
 }
 
 NVCC_FLAGS = [

@@ -16,10 +16,13 @@
 // KV=4, D=128, causal) that is 274.9 GFLOP, 0.278 ms at 989 TFLOP/s bf16,
 // against 0.020 ms for its 67.4 MB of bytes: bound by operations.
 //
-// Design (one CTA per batch, kv-head and 128-row k-block; 384 threads):
+// Design (one CTA per batch, kv-head and BK-row k-block; BK, 64 or 128,
+// is a template parameter that the wrapper picks per call, as the
+// reference's block_k, which is its dK/dV grid's k block):
 // - The scores are computed transposed, with the k rows as wgmma's M:
 //   S^T = k q^T and dP^T = v dO^T, all four operands K-major in shared
-//   memory. Warpgroups 0 and 1 own 64 k rows each, exactly the rows of dK
+//   memory. The first BK / 64 warpgroups own 64 k rows each, exactly the
+//   rows of dK
 //   and dV they accumulate, so P^T and dS^T come out in registers as the
 //   A operands of dV += P^T dO and dK += dS^T q (dO and q read MN-major
 //   through the trans-b flag). No shared-memory transpose and no
@@ -33,15 +36,20 @@
 //   64 + 32 accumulator registers and the DK part 64 + 16 + 16, at the
 //   price of computing S^T twice (five products instead of four). At
 //   D = 64 one CTA holds both (PART BOTH: 32 + 32 + 32 + 32).
-// - q rows per ring stage: 64, except 32 for PART DK at D = 128 (a 64-row
-//   tile put its accumulators at 128 and spilled 8 bytes).
-// - Warp 8, the first of warpgroup 2, is the producer (its other three
+// - BQ q rows per ring stage, the reference's block_q of this grid, capped
+//   by the registers: 64, and 32 for PART DK at D = 128 (a 64-row tile put
+//   its accumulators at 128 and spilled 8 bytes). Every block_q the
+//   wrapper takes (64 or 128) therefore streams at the cap.
+// - BK = 64 halves the CTA and doubles the grid, for shapes whose 128-row
+//   grid leaves SMs idle (few kv heads, short ring stripes).
+// - The first warp of the last warpgroup is the producer (its other three
 //   warps exit at once). One lane loads k (and v) once and streams q and
 //   dO tiles through a ring of STAGES stages with TMA; the warp's 32
 //   lanes copy the tile's lse (times log2 e) and delta into the same stage
 //   and arrive on its full barrier beside the TMA bytes. lse and delta are
-//   per q row, so per column here. setmaxnreg moves registers from the
-//   producer's warpgroup (24) to the consumers (240).
+//   per q row, so per column here. At BK = 128 ptxas fits every thread in
+//   168 registers and setmaxnreg moves the producer's to the consumers;
+//   at BK = 64 a thread may take 255 and none move (hopper::Warps).
 // - Shared memory at D = 128: k and v 64 KB, a stage 16 to 32.5 KB, two
 //   stages: at most 129 KB, one CTA per SM.
 // - Causal: the q loop starts at the first q tile that reaches the
@@ -58,22 +66,26 @@ namespace dkv {
 
 using namespace hopper;
 
-constexpr int BKR = 128;  // k rows per CTA: two consumer warpgroups of 64
 constexpr int STAGES = 2;
-constexpr int THREADS = 384;  // two consumer warpgroups + the producer's
-constexpr int CONSUMER_REGS = 240;
-constexpr int PRODUCER_REGS = 24;
-constexpr int CONSUMER_WARPS = 8;
 
 // Which gradients a CTA accumulates.
 enum Part { BOTH = 0, DV = 1, DK = 2 };
 
+// The most q rows a stage that a part's registers hold.
 template <int D, int PART>
+constexpr int q_cap() {
+  return (D == 128 && PART == DK) ? 32 : 64;
+}
+
+template <int D, int PART, int BK, int BQ_>
 struct Cfg {
+  static_assert(BK == 64 || BK == 128, "k tiles of 64 or 128 rows");
+  static_assert(BQ_ == 32 || BQ_ == 64, "q stages of 32 or 64 rows");
+  static_assert(BQ_ <= q_cap<D, PART>(), "over the part's register cap");
   static constexpr bool kDV = PART != DK;  // dV += P^T dO
   static constexpr bool kDK = PART != DV;  // dK += dS^T q, needs dP^T
-  static constexpr int BQ = (D == 128 && PART == DK) ? 32 : 64;
-  static constexpr int KV_BYTES = BKR * D * 2;
+  static constexpr int BQ = BQ_;
+  static constexpr int KV_BYTES = BK * D * 2;
   static constexpr int Q_BYTES = BQ * D * 2;
   static constexpr int V_OFF = KV_BYTES;
   static constexpr int Q_OFF = 2 * KV_BYTES;
@@ -87,8 +99,8 @@ struct Cfg {
   static_assert(LAUNCH <= 232448, "over the 227 KB a block may use");
 };
 
-template <int D, int PART>
-__global__ void __launch_bounds__(THREADS, 1)
+template <int D, int PART, int BK, int BQ_>
+__global__ void __launch_bounds__(Warps<BK>::THREADS, 1)
     dkv_kernel(const __grid_constant__ CUtensorMap map_q,
                const __grid_constant__ CUtensorMap map_k,
                const __grid_constant__ CUtensorMap map_v,
@@ -96,7 +108,8 @@ __global__ void __launch_bounds__(THREADS, 1)
                const float* __restrict__ lse, const float* __restrict__ delta,
                bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int KV,
                int S, int Sk, float scale, int causal) {
-  using C = Cfg<D, PART>;
+  using C = Cfg<D, PART, BK, BQ_>;
+  using W = Warps<BK>;
   constexpr int BQ = C::BQ;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = smem_base_1k(smem_raw);
@@ -111,7 +124,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   uint64_t* empty = full + STAGES;
 
   const int b = blockIdx.x / KV, kvh = blockIdx.x % KV;
-  const int k0 = blockIdx.y * BKR;  // the heaviest k-blocks come first
+  const int k0 = blockIdx.y * BK;  // the heaviest k-blocks come first
   const int group = H / KV;
   const int n_qb = (S + BQ - 1) / BQ;
   const int qb_lo = causal ? k0 / BQ : 0;
@@ -121,23 +134,23 @@ __global__ void __launch_bounds__(THREADS, 1)
     mbar_init(full_kv, 1);
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(&full[s], 32);  // the producer warp's lanes, one with tx
-      mbar_init(&empty[s], CONSUMER_WARPS);
+      mbar_init(&empty[s], W::CONSUMER_WARPS);
     }
     mbar_fence_init();
   }
   __syncthreads();
 
-  if (wg == 2) {
-    // ---- producer: warp 8 streams q, dO, lse and delta ----
-    reg_dealloc<PRODUCER_REGS>();
-    if (threadIdx.x < 288) {
+  if (wg == W::PRODUCER) {
+    // ---- producer: the warpgroup's first warp streams q, dO, lse, delta ----
+    producer_regs<W>();
+    if (threadIdx.x < W::PRODUCER * 128 + 32) {
       const int lane = threadIdx.x % 32;
       if (lane == 0) {
         prefetch_map(&map_q);
         prefetch_map(&map_do);
         mbar_arrive_tx(full_kv, (C::kDK ? 2 : 1) * C::KV_BYTES);
-        tma_load_tile<D>(sK, BKR, &map_k, full_kv, kvh, k0, b);
-        if (C::kDK) tma_load_tile<D>(sV, BKR, &map_v, full_kv, kvh, k0, b);
+        tma_load_tile<D>(sK, BK, &map_k, full_kv, kvh, k0, b);
+        if (C::kDK) tma_load_tile<D>(sV, BK, &map_v, full_kv, kvh, k0, b);
       }
       int it = 0;
       for (int g = 0; g < group; ++g) {
@@ -167,7 +180,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
   } else {
     // ---- consumers: 64 k rows per warpgroup ----
-    reg_alloc<CONSUMER_REGS>();
+    consumer_regs<W>();
     const int t = threadIdx.x % 128, lane = t % 32;
     const int row0 = k0 + wg * 64 + (t / 32) * 16 + lane / 4;  // and +8
     const int cq = (lane % 4) * 2;
@@ -211,7 +224,7 @@ __global__ void __launch_bounds__(THREADS, 1)
           for (int kk = 0; kk < D / 16; ++kk) {
             // k16 slice kk: box kk / 4, then 32 bytes (2 units of 16) a slice.
             const int box = kk / 4, slice = (kk % 4) * 2;
-            wgmma_ss<BQ>(st, d_k + box * (BKR * ROW_BYTES / 16) + slice,
+            wgmma_ss<BQ>(st, d_k + box * (BK * ROW_BYTES / 16) + slice,
                          d_q + box * (BQ * ROW_BYTES / 16) + slice, kk > 0);
           }
           if constexpr (C::kDK) {
@@ -220,7 +233,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
             for (int kk = 0; kk < D / 16; ++kk) {
               const int box = kk / 4, slice = (kk % 4) * 2;
-              wgmma_ss<BQ>(dpt, d_v + box * (BKR * ROW_BYTES / 16) + slice,
+              wgmma_ss<BQ>(dpt, d_v + box * (BK * ROW_BYTES / 16) + slice,
                            d_do + box * (BQ * ROW_BYTES / 16) + slice, kk > 0);
             }
           }
@@ -325,44 +338,84 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-template <int D, int PART>
+template <int D, int PART, int BK, int BQ>
 int run_part(const void* q, const void* k, const void* v, const void* dout,
              const void* lse, const void* delta, void* dk, void* dv, int B,
              int H, int KV, int S, int Sk, float scale, int causal,
              void* stream) {
-  using C = Cfg<D, PART>;
+  using C = Cfg<D, PART, BK, BQ>;
   CUtensorMap map_q, map_k, map_v, map_do;
-  int err = make_map(&map_q, q, B, S, H, D, C::BQ);
-  if (!err) err = make_map(&map_do, dout, B, S, H, D, C::BQ);
-  if (!err) err = make_map(&map_k, k, B, Sk, KV, D, BKR);
-  if (!err) err = make_map(&map_v, v, B, Sk, KV, D, BKR);
+  int err = make_map(&map_q, q, B, S, H, D, BQ);
+  if (!err) err = make_map(&map_do, dout, B, S, H, D, BQ);
+  if (!err) err = make_map(&map_k, k, B, Sk, KV, D, BK);
+  if (!err) err = make_map(&map_v, v, B, Sk, KV, D, BK);
   if (err) return err;
-  const dim3 grid(B * KV, (Sk + BKR - 1) / BKR);
-  return launch(dkv_kernel<D, PART>, grid, THREADS, C::LAUNCH, stream, map_q,
-                map_k, map_v, map_do, static_cast<const float*>(lse),
-                static_cast<const float*>(delta), static_cast<bf16*>(dk),
-                static_cast<bf16*>(dv), H, KV, S, Sk, scale, causal);
+  const dim3 grid(B * KV, (Sk + BK - 1) / BK);
+  return launch(dkv_kernel<D, PART, BK, BQ>, grid, Warps<BK>::THREADS,
+                C::LAUNCH, stream, map_q, map_k, map_v, map_do,
+                static_cast<const float*>(lse), static_cast<const float*>(delta),
+                static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, KV, S, Sk,
+                scale, causal);
+}
+
+// Every part of one call at k tile BK: at D = 128 the dV part, then the
+// dK part, each at its q cap; at D = 64 both gradients in one launch.
+template <int D, int BK>
+int run(const void* q, const void* k, const void* v, const void* dout,
+        const void* lse, const void* delta, void* dk, void* dv, int B, int H,
+        int KV, int S, int Sk, float scale, int causal, void* stream) {
+  if constexpr (D == 128) {
+    int err = run_part<128, DV, BK, q_cap<128, DV>()>(
+        q, k, v, dout, lse, delta, dk, dv, B, H, KV, S, Sk, scale, causal,
+        stream);
+    if (err) return err;
+    return run_part<128, DK, BK, q_cap<128, DK>()>(
+        q, k, v, dout, lse, delta, dk, dv, B, H, KV, S, Sk, scale, causal,
+        stream);
+  } else {
+    return run_part<D, BOTH, BK, q_cap<D, BOTH>()>(
+        q, k, v, dout, lse, delta, dk, dv, B, H, KV, S, Sk, scale, causal,
+        stream);
+  }
+}
+
+// The compiled tile pairs at head dim D (ops/flash_attention.py COMPILED
+// lists the same): block_q 64 or 128, both streamed at the q cap, and
+// block_k 64 or 128.
+template <int D>
+int dispatch(int block_q, int block_k, const void* q, const void* k,
+             const void* v, const void* dout, const void* lse,
+             const void* delta, void* dk, void* dv, int B, int H, int KV,
+             int S, int Sk, float scale, int causal, void* stream) {
+  if (block_q != 64 && block_q != 128) return TILE_ERROR;
+  if (block_k == 64) {
+    return run<D, 64>(q, k, v, dout, lse, delta, dk, dv, B, H, KV, S, Sk,
+                      scale, causal, stream);
+  }
+  if (block_k == 128) {
+    return run<D, 128>(q, k, v, dout, lse, delta, dk, dv, B, H, KV, S, Sk,
+                       scale, causal, stream);
+  }
+  return TILE_ERROR;
 }
 
 }  // namespace dkv
 
 // Plain C entry for ctypes. Returns 0 when launched, else a cudaError_t
-// value (or hopper::TMAP_ERROR + CUresult when a tensor map is refused).
+// value, hopper::TMAP_ERROR + CUresult when a tensor map is refused, or
+// hopper::TILE_ERROR for a (block_q, block_k) pair that is not compiled.
 extern "C" int flash_dkv(const void* q, const void* k, const void* v,
                          const void* dout, const void* lse, const void* delta,
                          void* dk, void* dv, int B, int H, int KV, int S,
-                         int Sk, int D, float scale, int causal,
-                         void* stream) {
+                         int Sk, int D, int block_q, int block_k, float scale,
+                         int causal, void* stream) {
   if (D == 128) {
-    int err = dkv::run_part<128, dkv::DV>(q, k, v, dout, lse, delta, dk, dv, B,
-                                          H, KV, S, Sk, scale, causal, stream);
-    if (err) return err;
-    return dkv::run_part<128, dkv::DK>(q, k, v, dout, lse, delta, dk, dv, B, H,
-                                       KV, S, Sk, scale, causal, stream);
+    return dkv::dispatch<128>(block_q, block_k, q, k, v, dout, lse, delta, dk,
+                              dv, B, H, KV, S, Sk, scale, causal, stream);
   }
   if (D == 64) {
-    return dkv::run_part<64, dkv::BOTH>(q, k, v, dout, lse, delta, dk, dv, B,
-                                        H, KV, S, Sk, scale, causal, stream);
+    return dkv::dispatch<64>(block_q, block_k, q, k, v, dout, lse, delta, dk,
+                             dv, B, H, KV, S, Sk, scale, causal, stream);
   }
   return int(cudaErrorInvalidValue);
 }

@@ -16,9 +16,11 @@
 // H=16, KV=4, D=128, causal) that is 206.2 GFLOP, 0.209 ms at 989 TFLOP/s
 // bf16, against 0.035 ms for its 118.5 MB of bytes: bound by operations.
 //
-// Design (one CTA per batch, q-head and 128-row q-block; 384 threads):
-// - It is flash_fwd with one more product. Warpgroups 0 and 1 are
-//   consumers, 64 q rows each (wgmma's M), and keep their dQ accumulator
+// Design (one CTA per batch, q-head and BQ-row q-block; the tile pair
+// BQ x BK, 64 or 128 rows each, is a template parameter that the wrapper
+// picks per call, as the reference's block_q / block_k):
+// - It is flash_fwd with one more product. The first BQ / 64 warpgroups
+//   are consumers, 64 q rows each (wgmma's M), and keep their dQ accumulator
 //   (64 x D f32) in registers for the whole k loop. Per k tile they issue
 //   S = q k^T and dP = dO v^T (all four operands K-major in shared memory)
 //   as one commit group, so they wait once for both; form P and dS on the
@@ -28,25 +30,27 @@
 //   flag: no copies, no shared-memory round trip.
 // - lse (times log2 e) and delta are per q row and constant over the k
 //   loop: each consumer thread reads its two rows once into registers.
-// - Warpgroup 2 is the producer: one of its threads loads the q and dO
+// - The last warpgroup is the producer: one of its threads loads the q and dO
 //   tiles once, on one barrier, and keeps K and V tiles in flight through
 //   a ring of STAGES stages with full/empty mbarriers. K and V share a
 //   stage's full barrier: waiting for V between the S and dP issues (to
 //   start S while V still arrives) made ptxas serialize every wgmma
 //   ("(C7520) ... WG.AR in divergent path": the wait is a loop).
-//   setmaxnreg moves registers inside the block: 24 for the producer's
-//   warpgroup and 240 for each consumer (24 * 128 + 240 * 256 = 168 * 384).
-// - BK = 64 k rows a stage. A consumer thread then holds dQ (D / 2), S and
-//   dP (32 each) and the packed dS (16): 144 registers at D = 128. BK = 128
-//   would hold 224, the size at which flash_dkv spilled and serialized its
-//   wgmma. Shared memory at D = 128: q and dO 64 KB, a stage 32 KB, two
-//   stages: 129 KB with the barriers, one CTA per SM (a third stage would
-//   fit in 161 KB).
+//   At BQ = 128 ptxas fits every thread in 168 registers and setmaxnreg
+//   moves the producer's to the consumers; at BQ = 64 a thread may take
+//   255 and none move (hopper::Warps).
+// - BK k rows a stage. At BK = 64 a consumer thread holds dQ (D / 2), S
+//   and dP (32 each) and the packed dS (16): 144 registers at D = 128.
+//   BK = 128 holds 224 there (192 at D = 64): past the 168 of a 128-row
+//   CTA, where ptxas spilled and serialized every wgmma at both head
+//   dims, so the pair 128 x 128 is not compiled; 64 x 128 is. Shared
+//   memory at D = 128, BQ = 128, BK = 64: q and dO 64 KB, a stage 32 KB,
+//   two stages: 129 KB with the barriers, one CTA per SM.
 // - Causal: the k loop ends at the diagonal; only tiles that cross it (or
 //   the Sk edge) are masked; the heaviest q-blocks launch first. With
-//   BQ = 128 and BK = 64 the last k tile of a q-block lies wholly above
-//   warpgroup 0's rows: that warpgroup skips its products there but still
-//   releases the stage. The Sk edge is masked explicitly: a K row past Sk
+//   BK < BQ the last k tile of a q-block lies wholly above warpgroup 0's
+//   rows: that warpgroup skips its products there but still releases the
+//   stage. The Sk edge is masked explicitly: a K row past Sk
 //   arrives as zeros, so s = 0 and P = 2^-lse, not 0.
 // - dQ is stored from registers in q's dtype, each row once (no atomics):
 //   bit-for-bit deterministic.
@@ -61,15 +65,9 @@ namespace dq {
 
 using namespace hopper;
 
-constexpr int BQ = 128;  // q rows per CTA: two consumer warpgroups of 64
-constexpr int BK = 64;   // k rows per ring stage
 constexpr int STAGES = 2;
-constexpr int THREADS = 384;  // two consumer warpgroups + the producer's
-constexpr int CONSUMER_REGS = 240;
-constexpr int PRODUCER_REGS = 24;
-constexpr int CONSUMER_WARPS = 8;
 
-template <int D>
+template <int D, int BQ, int BK>
 struct Smem {
   static constexpr int Q_BYTES = BQ * D * 2;
   static constexpr int KV_BYTES = BK * D * 2;
@@ -83,8 +81,8 @@ struct Smem {
   static_assert(LAUNCH <= 232448, "over the 227 KB a block may use");
 };
 
-template <int D>
-__global__ void __launch_bounds__(THREADS, 1)
+template <int D, int BQ, int BK>
+__global__ void __launch_bounds__(Warps<BQ>::THREADS, 1)
     dq_kernel(const __grid_constant__ CUtensorMap map_q,
               const __grid_constant__ CUtensorMap map_k,
               const __grid_constant__ CUtensorMap map_v,
@@ -92,7 +90,9 @@ __global__ void __launch_bounds__(THREADS, 1)
               const float* __restrict__ lse, const float* __restrict__ delta,
               bf16* __restrict__ dq_out, int H, int KV, int S, int Sk,
               float scale, int causal) {
-  using L = Smem<D>;
+  static_assert(BK == 64 || BK == 128, "k tiles of 64 or 128 rows");
+  using L = Smem<D, BQ, BK>;
+  using W = Warps<BQ>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = smem_base_1k(smem_raw);
   unsigned char* sQ = sm;
@@ -116,16 +116,16 @@ __global__ void __launch_bounds__(THREADS, 1)
     mbar_init(full_q, 1);
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], CONSUMER_WARPS);
+      mbar_init(&empty[s], W::CONSUMER_WARPS);
     }
     mbar_fence_init();
   }
   __syncthreads();
 
-  if (wg == 2) {
+  if (wg == W::PRODUCER) {
     // ---- producer: one thread issues every copy ----
-    reg_dealloc<PRODUCER_REGS>();
-    if (threadIdx.x == 256) {
+    producer_regs<W>();
+    if (threadIdx.x == W::PRODUCER * 128) {
       prefetch_map(&map_q);
       prefetch_map(&map_do);
       prefetch_map(&map_k);
@@ -145,7 +145,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
   } else {
     // ---- consumers: 64 q rows per warpgroup ----
-    reg_alloc<CONSUMER_REGS>();
+    consumer_regs<W>();
     const int t = threadIdx.x % 128, lane = t % 32;
     const int row0 = q0 + wg * 64 + (t / 32) * 16 + lane / 4;  // and +8
     const int cq = (lane % 4) * 2;
@@ -267,7 +267,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-template <int D>
+template <int D, int BQ, int BK>
 int run(const void* q, const void* k, const void* v, const void* dout,
         const void* lse, const void* delta, void* dq_out, int B, int H,
         int KV, int S, int Sk, float scale, int causal, void* stream) {
@@ -278,27 +278,48 @@ int run(const void* q, const void* k, const void* v, const void* dout,
   if (!err) err = make_map(&map_v, v, B, Sk, KV, D, BK);
   if (err) return err;
   const dim3 grid(B * H, (S + BQ - 1) / BQ);
-  return launch(dq_kernel<D>, grid, THREADS, Smem<D>::LAUNCH, stream, map_q,
-                map_k, map_v, map_do, static_cast<const float*>(lse),
-                static_cast<const float*>(delta), static_cast<bf16*>(dq_out), H,
-                KV, S, Sk, scale, causal);
+  return launch(dq_kernel<D, BQ, BK>, grid, Warps<BQ>::THREADS,
+                Smem<D, BQ, BK>::LAUNCH, stream, map_q, map_k, map_v, map_do,
+                static_cast<const float*>(lse), static_cast<const float*>(delta),
+                static_cast<bf16*>(dq_out), H, KV, S, Sk, scale, causal);
+}
+
+// The compiled tile pairs at head dim D (ops/flash_attention.py COMPILED
+// lists the same): every (BQ, BK) in {64, 128}^2 but 128 x 128.
+template <int D>
+int dispatch(int block_q, int block_k, const void* q, const void* k,
+             const void* v, const void* dout, const void* lse,
+             const void* delta, void* dq_out, int B, int H, int KV, int S,
+             int Sk, float scale, int causal, void* stream) {
+#define DQ_TILE(BQ, BK)                                                    \
+  if (block_q == BQ && block_k == BK) {                                    \
+    return run<D, BQ, BK>(q, k, v, dout, lse, delta, dq_out, B, H, KV, S,  \
+                          Sk, scale, causal, stream);                      \
+  }
+  DQ_TILE(64, 64)
+  DQ_TILE(64, 128)
+  DQ_TILE(128, 64)
+#undef DQ_TILE
+  return TILE_ERROR;
 }
 
 }  // namespace dq
 
 // Plain C entry for ctypes. Returns 0 when launched, else a cudaError_t
-// value (or hopper::TMAP_ERROR + CUresult when a tensor map is refused).
+// value, hopper::TMAP_ERROR + CUresult when a tensor map is refused, or
+// hopper::TILE_ERROR for a (block_q, block_k) pair that is not compiled.
 extern "C" int flash_dq(const void* q, const void* k, const void* v,
                         const void* dout, const void* lse, const void* delta,
                         void* dq, int B, int H, int KV, int S, int Sk, int D,
-                        float scale, int causal, void* stream) {
+                        int block_q, int block_k, float scale, int causal,
+                        void* stream) {
   if (D == 128) {
-    return dq::run<128>(q, k, v, dout, lse, delta, dq, B, H, KV, S, Sk, scale,
-                        causal, stream);
+    return dq::dispatch<128>(block_q, block_k, q, k, v, dout, lse, delta, dq,
+                             B, H, KV, S, Sk, scale, causal, stream);
   }
   if (D == 64) {
-    return dq::run<64>(q, k, v, dout, lse, delta, dq, B, H, KV, S, Sk, scale,
-                       causal, stream);
+    return dq::dispatch<64>(block_q, block_k, q, k, v, dout, lse, delta, dq,
+                            B, H, KV, S, Sk, scale, causal, stream);
   }
   return int(cudaErrorInvalidValue);
 }

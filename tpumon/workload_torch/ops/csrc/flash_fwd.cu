@@ -13,32 +13,38 @@
 // 0.139 ms at 989 TFLOP/s bf16, against 0.017 ms for its 56.6 MB of bytes:
 // bound by operations.
 //
-// Design (one CTA per batch, q-head and 128-row q-block; 384 threads):
-// - Warpgroups 0 and 1 are consumers, 64 q rows each (wgmma's M). Each
-//   holds its S tile (64 x BK f32, 64 registers a thread) and its O
-//   accumulator (64 x D f32, 64 registers) in registers for the whole
-//   k loop; the online softmax runs on the S registers (a row sits in a
-//   quad of lanes: two shuffles for the max, the sum reduced once at the
-//   end), and P is converted to bf16 in registers, where the accumulator
-//   layout already is the A operand of the P.V product. V is read
-//   transposed through the descriptor's trans-b flag: no copies.
-// - Warpgroup 2 is the producer: one of its threads loads the q tile once
-//   and keeps K and V tiles in flight through a ring of STAGES stages with
-//   full/empty mbarriers (K and V on separate full barriers, so S = q k^T
-//   starts while V is still arriving). The launch gives every thread 168
-//   registers (65,536 / 384, rounded down to 8); setmaxnreg then moves
-//   them inside the block: the producer warpgroup drops to 24 and each
-//   consumer rises to 240 (24 * 128 + 240 * 256 = 168 * 384 = 64,512).
+// Design (one CTA per batch, q-head and BQ-row q-block; the tile pair
+// BQ x BK, 64 or 128 rows each, is a template parameter that the wrapper
+// picks per call, as the reference's block_q / block_k):
+// - The first BQ / 64 warpgroups are consumers, 64 q rows each (wgmma's
+//   M). Each holds its S tile (64 x BK f32, BK / 2 registers a thread)
+//   and its O accumulator (64 x D f32, D / 2 registers) in registers for
+//   the whole k loop; the online softmax runs on the S registers (a row
+//   sits in a quad of lanes: two shuffles for the max, the sum reduced
+//   once at the end), and P is converted to bf16 in registers, where the
+//   accumulator layout already is the A operand of the P.V product. V is
+//   read transposed through the descriptor's trans-b flag: no copies.
+// - The last warpgroup is the producer: one of its threads loads the q
+//   tile once and keeps K and V tiles in flight through a ring of STAGES
+//   stages with full/empty mbarriers (K and V on separate full barriers,
+//   so S = q k^T starts while V is still arriving). At BQ = 128 ptxas
+//   fits every thread in 168 registers and setmaxnreg moves the
+//   producer's to the consumers; at BQ = 64 a thread may take 255 and
+//   none move (hopper::Warps).
+// - BQ = 64 halves the CTA and doubles the grid, for shapes whose 128-row
+//   grid leaves SMs idle (few heads, short ring stripes).
 // - BK = 128: S = q k^T is one m64n128 wgmma per k16 slice, and the tiles
-//   of a stage (2 x 32 KB at D = 128) leave room for two stages beside
-//   the 32 KB q tile: 160 KB of the 227 KB, one CTA per SM. A third stage
-//   would fit (224 KB) but the consumers, not the copies, are the limit
-//   at two.
+//   of a stage (2 x 32 KB at D = 128) leave room for two stages beside the
+//   32 KB q tile: 160 KB of the 227 KB at BQ = 128. A third stage would
+//   fit (224 KB) but the consumers, not the copies, are the limit at two.
+//   BK = 64 halves the stages and the S registers.
 // - Causal: the k loop ends at the diagonal; only tiles that cross it (or
-//   the Sk edge) are masked; the heaviest q-blocks launch first.
+//   the Sk edge) are masked; a warpgroup skips the products of a tile
+//   wholly above its rows (which exists only when BK < BQ); the heaviest
+//   q-blocks launch first.
 // - q, k and v are read as 4-D tensor maps (D, heads, seq, batch) in
-//   boxes of 64 columns (D = 128 is two boxes a tile); a box past seq is
-//   zero-filled inside its own batch.
+//   boxes of 64 columns by BQ or BK rows (D = 128 is two boxes a tile); a
+//   box past seq is zero-filled inside its own batch.
 //
 // What still holds it below half its bound: each consumer warpgroup runs
 // its softmax between its two products with nothing of its own in flight
@@ -51,15 +57,9 @@ namespace fwd {
 
 using namespace hopper;
 
-constexpr int BQ = 128;  // q rows per CTA: two consumer warpgroups of 64
-constexpr int BK = 128;  // k rows per ring stage
 constexpr int STAGES = 2;
-constexpr int THREADS = 384;  // two consumer warpgroups + the producer's
-constexpr int CONSUMER_REGS = 240;
-constexpr int PRODUCER_REGS = 24;
-constexpr int CONSUMER_WARPS = 8;
 
-template <int D>
+template <int D, int BQ, int BK>
 struct Smem {
   static constexpr int Q_BYTES = BQ * D * 2;
   static constexpr int KV_BYTES = BK * D * 2;
@@ -72,14 +72,16 @@ struct Smem {
   static_assert(LAUNCH <= 232448, "over the 227 KB a block may use");
 };
 
-template <int D>
-__global__ void __launch_bounds__(THREADS, 1)
+template <int D, int BQ, int BK>
+__global__ void __launch_bounds__(Warps<BQ>::THREADS, 1)
     fwd_kernel(const __grid_constant__ CUtensorMap map_q,
                const __grid_constant__ CUtensorMap map_k,
                const __grid_constant__ CUtensorMap map_v,
                bf16* __restrict__ o, float* __restrict__ lse, int H, int KV,
                int S, int Sk, float scale_log2, int causal) {
-  using L = Smem<D>;
+  static_assert(BK == 64 || BK == 128, "k tiles of 64 or 128 rows");
+  using L = Smem<D, BQ, BK>;
+  using W = Warps<BQ>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = smem_base_1k(smem_raw);
   unsigned char* sQ = sm;
@@ -104,16 +106,16 @@ __global__ void __launch_bounds__(THREADS, 1)
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(&full_k[s], 1);
       mbar_init(&full_v[s], 1);
-      mbar_init(&empty[s], CONSUMER_WARPS);
+      mbar_init(&empty[s], W::CONSUMER_WARPS);
     }
     mbar_fence_init();
   }
   __syncthreads();
 
-  if (wg == 2) {
+  if (wg == W::PRODUCER) {
     // ---- producer: one thread issues every copy ----
-    reg_dealloc<PRODUCER_REGS>();
-    if (threadIdx.x == 256) {
+    producer_regs<W>();
+    if (threadIdx.x == W::PRODUCER * 128) {
       prefetch_map(&map_q);
       prefetch_map(&map_k);
       prefetch_map(&map_v);
@@ -132,7 +134,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
   } else {
     // ---- consumers: 64 q rows per warpgroup ----
-    reg_alloc<CONSUMER_REGS>();
+    consumer_regs<W>();
     const int t = threadIdx.x % 128, lane = t % 32;
     const int row0 = q0 + wg * 64 + (t / 32) * 16 + lane / 4;  // and +8
     const int cq = (lane % 4) * 2;
@@ -152,6 +154,17 @@ __global__ void __launch_bounds__(THREADS, 1)
       const int k0 = kb * BK;
       const unsigned char* sKs = sK + s * L::KV_BYTES;
       const unsigned char* sVs = sV + s * L::KV_BYTES;
+
+      if (causal && k0 > wg_row_min + 63) {
+        // A tile wholly above this warpgroup's rows adds nothing. The
+        // stage is released only after it was filled: an arrival before
+        // would count toward the stage's previous fill.
+        mbar_wait(&full_k[s], parity);
+        mbar_wait(&full_v[s], parity);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[s]);
+        continue;
+      }
 
       // S = q k^T: K-major q and k, the head dim is the contraction.
       float sc[BK / 2];
@@ -255,7 +268,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-template <int D>
+template <int D, int BQ, int BK>
 int run(const void* q, const void* k, const void* v, void* o, void* lse,
         int B, int H, int KV, int S, int Sk, float scale, int causal,
         void* stream) {
@@ -265,25 +278,47 @@ int run(const void* q, const void* k, const void* v, void* o, void* lse,
   if (!err) err = make_map(&map_v, v, B, Sk, KV, D, BK);
   if (err) return err;
   const dim3 grid(B * H, (S + BQ - 1) / BQ);
-  return launch(fwd_kernel<D>, grid, THREADS, Smem<D>::LAUNCH, stream, map_q,
-                map_k, map_v, static_cast<bf16*>(o), static_cast<float*>(lse),
-                H, KV, S, Sk, scale * LOG2E, causal);
+  return launch(fwd_kernel<D, BQ, BK>, grid, Warps<BQ>::THREADS,
+                Smem<D, BQ, BK>::LAUNCH, stream, map_q, map_k, map_v,
+                static_cast<bf16*>(o), static_cast<float*>(lse), H, KV, S, Sk,
+                scale * LOG2E, causal);
+}
+
+// The compiled tile pairs at head dim D (ops/flash_attention.py COMPILED
+// lists the same): every (BQ, BK) in {64, 128}^2.
+template <int D>
+int dispatch(int block_q, int block_k, const void* q, const void* k,
+             const void* v, void* o, void* lse, int B, int H, int KV, int S,
+             int Sk, float scale, int causal, void* stream) {
+#define FWD_TILE(BQ, BK)                                                   \
+  if (block_q == BQ && block_k == BK) {                                    \
+    return run<D, BQ, BK>(q, k, v, o, lse, B, H, KV, S, Sk, scale, causal, \
+                          stream);                                         \
+  }
+  FWD_TILE(64, 64)
+  FWD_TILE(64, 128)
+  FWD_TILE(128, 64)
+  FWD_TILE(128, 128)
+#undef FWD_TILE
+  return TILE_ERROR;
 }
 
 }  // namespace fwd
 
 // Plain C entry for ctypes. Returns 0 when launched, else a cudaError_t
-// value (or hopper::TMAP_ERROR + CUresult when a tensor map is refused).
+// value, hopper::TMAP_ERROR + CUresult when a tensor map is refused, or
+// hopper::TILE_ERROR for a (block_q, block_k) pair that is not compiled.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
                          void* lse, int B, int H, int KV, int S, int Sk, int D,
-                         float scale, int causal, void* stream) {
+                         int block_q, int block_k, float scale, int causal,
+                         void* stream) {
   if (D == 128) {
-    return fwd::run<128>(q, k, v, o, lse, B, H, KV, S, Sk, scale, causal,
-                         stream);
+    return fwd::dispatch<128>(block_q, block_k, q, k, v, o, lse, B, H, KV, S,
+                              Sk, scale, causal, stream);
   }
   if (D == 64) {
-    return fwd::run<64>(q, k, v, o, lse, B, H, KV, S, Sk, scale, causal,
-                        stream);
+    return fwd::dispatch<64>(block_q, block_k, q, k, v, o, lse, B, H, KV, S,
+                             Sk, scale, causal, stream);
   }
   return int(cudaErrorInvalidValue);
 }

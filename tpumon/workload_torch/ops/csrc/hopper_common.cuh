@@ -75,6 +75,37 @@ inline EncodeTiledFn encode_tiled() {
 // encoded (outside the cudaError_t range the launches return).
 constexpr int TMAP_ERROR = 10000;
 
+// Error code handed back when a kernel has no instantiation for the
+// requested (block_q, block_k) pair at this head dim: nothing launched.
+constexpr int TILE_ERROR = 20000;
+
+// The threads of a CTA whose tile of ROWS rows (64 or 128) is split among
+// consumer warpgroups of 64 rows each (wgmma's M), with one producer
+// warpgroup after them; one CTA an SM.
+// - 128 rows: 384 threads, 168 registers a thread at launch (65,536 / 384
+//   rounded down to 8), and ptxas allocates every path within those 168.
+//   setmaxnreg then moves registers from the producer (24) to the two
+//   consumers (240: 24 * 128 + 240 * 256 = 168 * 384).
+// - 64 rows: 256 threads, up to 255 registers a thread, no setmaxnreg.
+//   Asking for two CTAs an SM (128 a thread) made ptxas fit the consumer
+//   in 128 and spill, whatever setmaxnreg budget followed: ptxas sizes
+//   every path by the launch count, not by setmaxnreg.
+template <int ROWS>
+struct Warps {
+  static_assert(ROWS == 64 || ROWS == 128, "tiles of 64 or 128 rows");
+  static constexpr int CONSUMERS = ROWS / 64;  // consumer warpgroups
+  static constexpr int PRODUCER = CONSUMERS;   // the producer's warpgroup
+  static constexpr int THREADS = 128 * (CONSUMERS + 1);
+  static constexpr int CONSUMER_WARPS = 4 * CONSUMERS;
+  static constexpr bool MOVE_REGS = CONSUMERS == 2;
+  static constexpr int PRODUCER_REGS = 24;
+  static constexpr int CONSUMER_REGS = 240;
+  static_assert(!MOVE_REGS || (PRODUCER_REGS + CONSUMERS * CONSUMER_REGS) *
+                                      128 <=
+                                  65536 / THREADS / 8 * 8 * THREADS,
+                "setmaxnreg budgets over the CTA's launch registers");
+};
+
 // A map of a contiguous bf16 [batch, seq, heads, D] array as the 4-D
 // tensor (D, heads, seq, batch), innermost first, read in boxes of 64
 // columns x box_rows rows of one head and one batch. A box that runs past
@@ -222,6 +253,17 @@ HOPPER_DEV void reg_alloc() {
 template <int R>
 HOPPER_DEV void reg_dealloc() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+// The producer's and the consumers' setmaxnreg, where Warps moves any.
+template <class W>
+HOPPER_DEV void producer_regs() {
+  if constexpr (W::MOVE_REGS) reg_dealloc<W::PRODUCER_REGS>();
+}
+
+template <class W>
+HOPPER_DEV void consumer_regs() {
+  if constexpr (W::MOVE_REGS) reg_alloc<W::CONSUMER_REGS>();
 }
 
 // Two f32 into one register of bf16 pairs, the first in the low half.

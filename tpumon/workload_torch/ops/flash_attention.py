@@ -25,15 +25,25 @@ tiny preset's 32) runs on the next of them with zero columns, still one
 launch a call (:func:`kernel_width`, :func:`_on_width`). The Δ pre-pass (rowsum(dO·O) minus
 the lse cotangent) is plain torch, as XLA fused it outside Pallas.
 
-The TPU-only knobs of the reference (``interpret``, ``resident``,
-``block_q``/``block_k`` and its tuned tile tables) are not ported: each
-kernel fixes its own tiles for Hopper (``flash_fwd``: 128 q rows by 128
-k rows; ``flash_dq``: 128 q rows by 64 k rows; ``flash_dkv``: 128 k rows
-by 32 or 64 q rows), and its source says why.
+Tiles: ``block_q``/``block_k`` keep the reference's meaning (q rows and
+k rows of a tile) on every entry point. Each kernel is compiled for tiles
+of 64 and 128 rows (:data:`TILES`; ``flash_fwd``/``flash_dq``: block_q q
+rows a CTA, block_k k rows a ring stage; ``flash_dkv``: block_k k rows a
+CTA, q rows a stage capped by its registers, as the reference's dK/dV
+grid). A request is clamped to a compiled tile (:func:`pick_block`) and
+to each kernel's compiled set (:data:`COMPILED`); ``None`` takes the
+H100 table (:func:`default_blocks`); :func:`effective_blocks` says what
+each kernel runs, and :data:`tile_launches` counts launches by tiles.
+The plain versions check a request and compute the same dense math.
+
+The TPU-only knobs of the reference (``interpret``, ``resident``) are not
+ported: on Hopper K/V tiles always stream, and the kernels have no
+interpret mode.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -49,14 +59,130 @@ NEG_BIG = -1e30
 #: The plain versions take any.
 HEAD_DIMS = (64, 128)
 
+#: Tile rows the kernels are compiled for: the values a ``block_q`` or
+#: ``block_k`` request is clamped to (:func:`pick_block`).
+TILES = (64, 128)
+
+#: kernel -> kernel head dim -> the (block_q, block_k) pairs its C entry
+#: takes (``ops/csrc/*.cu`` dispatch the same). flash_dq leaves out
+#: 128 x 128 (ptxas spilled it at both head dims; ``csrc/flash_dq.cu``).
+#: flash_dkv takes both block_q and streams each at its register cap
+#: (:data:`DKV_Q_ROWS`).
+_ALL_PAIRS = tuple((bq, bk) for bq in TILES for bk in TILES)
+COMPILED: dict[str, dict[int, tuple[tuple[int, int], ...]]] = {
+    "flash_fwd": {D: _ALL_PAIRS for D in HEAD_DIMS},
+    "flash_dq": {D: tuple(p for p in _ALL_PAIRS if p != (128, 128))
+                 for D in HEAD_DIMS},
+    "flash_dkv": {D: _ALL_PAIRS for D in HEAD_DIMS},
+}
+
+#: flash_dkv's q rows a stage at each kernel head dim, whatever block_q
+#: asks (the registers' cap; at D = 128 the dK launch's, where the dV
+#: launch streams 64).
+DKV_Q_ROWS = {64: 64, 128: 32}
+
+#: SMs of an H100: a grid below one wave of them leaves SMs idle.
+H100_SMS = 132
+
 #: Kernel launches since the last :func:`reset_launches`, one count per
 #: wrapper, raised only where the wrapper launches its kernel.
 launches: dict[str, int] = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+
+#: The same launches by tiles, ``"<kernel>[<block_q>x<block_k>]"`` with
+#: the tiles the kernel ran (:func:`effective_blocks`).
+tile_launches: dict[str, int] = {}
 
 
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+    tile_launches.clear()
+
+
+# ---------------------------------------------------------------------------
+# Tile selection
+# ---------------------------------------------------------------------------
+
+
+def pick_block(requested: int) -> int:
+    """The compiled tile a ``block_q``/``block_k`` request runs at: the
+    largest of :data:`TILES` not above it, and at least the smallest
+    (256 → 128, 100 → 64, 32 → 64). Raises below 1.
+
+    The reference's ``_pick_block`` clamps to a divisor of the length,
+    because a Pallas block must tile the array; the Hopper kernels mask
+    their ragged edges themselves, so here only the compiled set bounds a
+    tile."""
+    if requested < 1:
+        raise ValueError(f"flash attention: block size {requested} is below 1")
+    return max((t for t in TILES if t <= requested), default=TILES[0])
+
+
+def _grid(rows: int, heads: int, B: int, tile: int) -> int:
+    return B * heads * -(-rows // tile)
+
+
+def default_blocks(B: int, H: int, KV: int, S: int, Sk: int, D: int,
+                   causal: bool = True) -> dict[str, tuple[int, int]]:
+    """The H100 table: kernel -> (block_q, block_k) for a shape.
+
+    A kernel's CTA tile is 128 rows unless its grid at 128 rows falls
+    below one wave of :data:`H100_SMS` CTAs, then 64 (flash_fwd and
+    flash_dq: B·H·⌈S/128⌉ q-blocks; flash_dkv: B·KV·⌈Sk/128⌉ k-blocks).
+    The streamed tile: flash_fwd's k tile equals its q tile (64 × 128 was
+    never the fastest pair), flash_dq's stays 64 k rows (128 × 128 is not
+    compiled, 64 × 128 never clearly faster), flash_dkv's q rows are its
+    register cap. From the tile table of ``chip_smoke.py``'s kernels
+    phase on an H100 80GB HBM3 at 700 W (PERF.md, "Tile table"): 64-row
+    dK/dV tiles cut flash_dkv at ``tp2`` (64 CTAs at 128 rows) from 0.916
+    to 0.593 ms and at the ring's ``zz`` from 0.252 to 0.182, while at
+    ``main`` (256 CTAs) 128 rows stay faster (0.990 against 1.191). ``D``
+    and ``causal`` do not move the rule.
+    """
+    del D, causal
+    q_tile = 128 if _grid(S, H, B, 128) >= H100_SMS else 64
+    k_tile = 128 if _grid(Sk, KV, B, 128) >= H100_SMS else 64
+    return {"flash_fwd": (q_tile, q_tile), "flash_dq": (q_tile, 64),
+            "flash_dkv": (64, k_tile)}
+
+
+def _requested(name: str, B, H, KV, S, Sk, D, causal, block_q, block_k):
+    """(block_q, block_k) that kernel ``name`` is asked for: each request
+    through :func:`pick_block`, the default table where it is None, then
+    clamped to the largest pair the kernel is compiled for at its width."""
+    width = kernel_width(D)
+    default = default_blocks(B, H, KV, S, Sk, width, causal)[name]
+    bq = default[0] if block_q is None else pick_block(block_q)
+    bk = default[1] if block_k is None else pick_block(block_k)
+    pairs = COMPILED[name][width]
+    bq = max((p for p, _ in pairs if p <= bq), default=min(p for p, _ in pairs))
+    bk = max((p for q_, p in pairs if q_ == bq and p <= bk),
+             default=min(p for q_, p in pairs if q_ == bq))
+    return bq, bk
+
+
+def effective_blocks(B: int, H: int, KV: int, S: int, Sk: int, D: int,
+                     causal: bool = True, block_q: int | None = None,
+                     block_k: int | None = None) -> dict[str, tuple[int, int]]:
+    """kernel -> the (block_q, block_k) it runs on the card for this shape
+    and request (``D`` the caller's head dim, padded as the wrappers pad
+    it): :func:`default_blocks` where a request is None, else
+    :func:`pick_block` of it, clamped to the kernel's compiled pairs, with
+    flash_dkv's q rows at its register cap (:data:`DKV_Q_ROWS`)."""
+    out = {}
+    for name in launches:
+        bq, bk = _requested(name, B, H, KV, S, Sk, D, causal, block_q, block_k)
+        if name == "flash_dkv":
+            bq = min(bq, DKV_Q_ROWS[kernel_width(D)])
+        out[name] = (bq, bk)
+    return out
+
+
+def _check_request(block_q, block_k) -> None:
+    """What the plain versions do with a tile request: check it."""
+    for block in (block_q, block_k):
+        if block is not None:
+            pick_block(block)
 
 
 # ---------------------------------------------------------------------------
@@ -184,18 +310,30 @@ def _check_kernel_inputs(named: dict[str, torch.Tensor]) -> None:
         )
 
 
-def _launch(name: str, device: torch.device, *args) -> None:
+#: The C entries' code for a tile pair they are not compiled for
+#: (``hopper::TILE_ERROR``).
+TILE_ERROR = 20000
+
+
+def _launch(name: str, device: torch.device, effective: tuple[int, int],
+            *args) -> None:
+    """Launch kernel ``name`` with its C entry's ``args`` and count it
+    under the ``effective`` tiles it runs."""
     from tpumon.workload_torch.ops._build import load
 
     fn = getattr(load(name), name)
     with torch.cuda.device(device):
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err == TILE_ERROR:
+        raise RuntimeError(f"{name}: the requested tile pair is not compiled")
     if err != 0:
         raise RuntimeError(
             f"{name} launch failed: error {err} (a cudaError_t, or 10000 + "
             "the CUresult of a refused TMA tensor map)"
         )
     launches[name] += 1
+    key = f"{name}[{effective[0]}x{effective[1]}]"
+    tile_launches[key] = tile_launches.get(key, 0) + 1
 
 
 def kernel_width(D: int) -> int:
@@ -246,72 +384,104 @@ def _dims(q, k):
     return B, H, k.shape[2], S, k.shape[1], D
 
 
-def _fwd_kernel(q, k, v, causal, scale):
+def _tiles(name, q, k, causal, block_q, block_k):
+    """(requested, effective) tiles of kernel ``name`` for this call."""
+    return _tiles_of(name, *_dims(q, k), bool(causal), block_q, block_k)
+
+
+@functools.lru_cache(maxsize=1024)
+def _tiles_of(name, B, H, KV, S, Sk, D, causal, block_q, block_k):
+    """:func:`_tiles` by shape, cached: the choice is pure, and a launch
+    at a small shape costs about as much as this Python."""
+    dims = (B, H, KV, S, Sk, D, causal)
+    tiles = _requested(name, *dims, block_q, block_k)
+    return tiles, effective_blocks(*dims, block_q, block_k)[name]
+
+
+def _fwd_kernel(q, k, v, causal, scale, *, block_q=None, block_k=None):
     _check_kernel_inputs({"q": q, "k": k, "v": v})
     B, H, KV, S, Sk, D = _dims(q, k)
+    tiles, eff = _tiles("flash_fwd", q, k, causal, block_q, block_k)
     out = torch.empty_like(q)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     _launch(
-        "flash_fwd", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), lse.data_ptr(), B, H, KV, S, Sk, D, scale, int(causal),
+        "flash_fwd", q.device, eff, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        out.data_ptr(), lse.data_ptr(), B, H, KV, S, Sk, D, *tiles, scale,
+        int(causal),
     )
     return out, lse
 
 
-def _dq_kernel(q, k, v, do, lse, delta, causal, scale):
+def _dq_kernel(q, k, v, do, lse, delta, causal, scale, *, block_q=None,
+               block_k=None):
     _check_kernel_inputs(
         {"q": q, "k": k, "v": v, "do": do, "lse": lse, "delta": delta}
     )
     B, H, KV, S, Sk, D = _dims(q, k)
+    tiles, eff = _tiles("flash_dq", q, k, causal, block_q, block_k)
     dq = torch.empty_like(q)
     _launch(
-        "flash_dq", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        "flash_dq", q.device, eff, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        B, H, KV, S, Sk, D, scale, int(causal),
+        B, H, KV, S, Sk, D, *tiles, scale, int(causal),
     )
     return dq
 
 
-def _dkv_kernel(q, k, v, do, lse, delta, causal, scale):
+def _dkv_kernel(q, k, v, do, lse, delta, causal, scale, *, block_q=None,
+                block_k=None):
     _check_kernel_inputs(
         {"q": q, "k": k, "v": v, "do": do, "lse": lse, "delta": delta}
     )
     B, H, KV, S, Sk, D = _dims(q, k)
+    tiles, eff = _tiles("flash_dkv", q, k, causal, block_q, block_k)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     _launch(
-        "flash_dkv", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        "flash_dkv", q.device, eff, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), B, H, KV, S, Sk, D, scale, int(causal),
+        dv.data_ptr(), B, H, KV, S, Sk, D, *tiles, scale, int(causal),
     )
     return dk, dv
 
 
-def flash_fwd(q, k, v, causal: bool = True):
-    """(O [B,S,H,D], lse [B,H,S] f32) — kernel ``flash_fwd`` on the card,
-    :func:`flash_fwd_reference` for CPU tensors."""
+def flash_fwd(q, k, v, causal: bool = True, *, block_q: int | None = None,
+              block_k: int | None = None):
+    """(O [B,S,H,D], lse [B,H,S] f32) — kernel ``flash_fwd`` on the card
+    at the tiles of :func:`effective_blocks`, :func:`flash_fwd_reference`
+    for CPU tensors."""
     _check_shapes(q, k, v, causal)
+    _check_request(block_q, block_k)
     if _on_cpu(q, k, v):
         return flash_fwd_reference(q, k, v, causal)
-    return _on_width(_fwd_kernel, q, k, v, causal=causal)
+    run = functools.partial(_fwd_kernel, block_q=block_q, block_k=block_k)
+    return _on_width(run, q, k, v, causal=causal)
 
 
-def flash_dq(q, k, v, do, lse, delta, causal: bool = True):
-    """dQ [B,S,H,D] — kernel ``flash_dq`` on the card,
-    :func:`flash_dq_reference` for CPU tensors."""
+def flash_dq(q, k, v, do, lse, delta, causal: bool = True, *,
+             block_q: int | None = None, block_k: int | None = None):
+    """dQ [B,S,H,D] — kernel ``flash_dq`` on the card at the tiles of
+    :func:`effective_blocks`, :func:`flash_dq_reference` for CPU
+    tensors."""
     _check_shapes(q, k, v, causal)
+    _check_request(block_q, block_k)
     if _on_cpu(q, k, v, do, lse, delta):
         return flash_dq_reference(q, k, v, do, lse, delta, causal)
-    return _on_width(_dq_kernel, q, k, v, do, lse, delta, causal=causal)
+    run = functools.partial(_dq_kernel, block_q=block_q, block_k=block_k)
+    return _on_width(run, q, k, v, do, lse, delta, causal=causal)
 
 
-def flash_dkv(q, k, v, do, lse, delta, causal: bool = True):
-    """(dK, dV) [B,Sk,KV,D] — kernel ``flash_dkv`` on the card,
-    :func:`flash_dkv_reference` for CPU tensors."""
+def flash_dkv(q, k, v, do, lse, delta, causal: bool = True, *,
+              block_q: int | None = None, block_k: int | None = None):
+    """(dK, dV) [B,Sk,KV,D] — kernel ``flash_dkv`` on the card at the
+    tiles of :func:`effective_blocks`, :func:`flash_dkv_reference` for CPU
+    tensors."""
     _check_shapes(q, k, v, causal)
+    _check_request(block_q, block_k)
     if _on_cpu(q, k, v, do, lse, delta):
         return flash_dkv_reference(q, k, v, do, lse, delta, causal)
-    return _on_width(_dkv_kernel, q, k, v, do, lse, delta, causal=causal)
+    run = functools.partial(_dkv_kernel, block_q=block_q, block_k=block_k)
+    return _on_width(run, q, k, v, do, lse, delta, causal=causal)
 
 
 def flash_delta(out, g_out, g_lse=None):
@@ -334,11 +504,12 @@ class _FlashLse(torch.autograd.Function):
     from their kernels, recomputing P from the saved lse."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal):
+    def forward(ctx, q, k, v, causal, block_q, block_k):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        out, lse = flash_fwd(q, k, v, causal)
+        tiles = {"block_q": block_q, "block_k": block_k}
+        out, lse = flash_fwd(q, k, v, causal, **tiles)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal = causal
+        ctx.causal, ctx.tiles = causal, tiles
         return out, lse
 
     @staticmethod
@@ -346,42 +517,58 @@ class _FlashLse(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         g_out = g_out.contiguous()
         delta = flash_delta(out, g_out, g_lse)
-        dq = flash_dq(q, k, v, g_out, lse, delta, ctx.causal)
-        dk, dv = flash_dkv(q, k, v, g_out, lse, delta, ctx.causal)
-        return dq, dk, dv, None
+        dq = flash_dq(q, k, v, g_out, lse, delta, ctx.causal, **ctx.tiles)
+        dk, dv = flash_dkv(q, k, v, g_out, lse, delta, ctx.causal, **ctx.tiles)
+        return dq, dk, dv, None, None, None
 
 
-def flash_attention_with_lse(q, k, v, *, causal: bool = True):
+def flash_attention_with_lse(q, k, v, *, causal: bool = True,
+                             block_q: int | None = None,
+                             block_k: int | None = None):
     """Flash attention returning ``(out [B,S,H,D], lse [B,H,S] f32)``.
 
     Both outputs are differentiable: the lse cotangent folds into the
     backward's Δ (:func:`flash_delta`), so two partials over the same
     queries and different keys merge exactly (lse = logaddexp(lse_a,
     lse_b); out = out_a·e^{lse_a−lse} + out_b·e^{lse_b−lse}).
+    ``block_q``/``block_k`` reach all three kernels, the backward's too,
+    as the reference's custom VJP passes them (None: the H100 table,
+    :func:`default_blocks`).
     """
     _check_shapes(q, k, v, causal)
-    return _FlashLse.apply(q, k, v, causal)
+    return _FlashLse.apply(q, k, v, causal, block_q, block_k)
 
 
-def flash_attention(q, k, v, *, causal: bool = True):
+def flash_attention(q, k, v, *, causal: bool = True,
+                    block_q: int | None = None, block_k: int | None = None):
     """Flash attention over [B, S, H, D] tensors (model layout); K/V may
-    carry fewer heads than Q (grouped-query, never materialized)."""
-    out, _ = flash_attention_with_lse(q, k, v, causal=causal)
+    carry fewer heads than Q (grouped-query, never materialized).
+    ``block_q``/``block_k`` as in :func:`flash_attention_with_lse`."""
+    out, _ = flash_attention_with_lse(q, k, v, causal=causal, block_q=block_q,
+                                      block_k=block_k)
     return out
 
 
-def make_flash_attn(*, causal: bool = True):
-    """``attn_impl`` factory for :meth:`models.llama.Llama.forward`."""
+def make_flash_attn(*, causal: bool = True, block_q: int | None = None,
+                    block_k: int | None = None):
+    """``attn_impl`` factory for :meth:`models.llama.Llama.forward`; the
+    tiles default to the H100 table (:func:`default_blocks`)."""
 
     def attn(q, k, v):
-        return flash_attention(q, k, v, causal=causal)
+        return flash_attention(q, k, v, causal=causal, block_q=block_q,
+                               block_k=block_k)
 
     return attn
 
 
 __all__ = [
+    "COMPILED",
+    "DKV_Q_ROWS",
     "HEAD_DIMS",
     "NEG_BIG",
+    "TILES",
+    "default_blocks",
+    "effective_blocks",
     "flash_attention",
     "flash_attention_with_lse",
     "flash_delta",
@@ -394,5 +581,7 @@ __all__ = [
     "kernel_width",
     "launches",
     "make_flash_attn",
+    "pick_block",
     "reset_launches",
+    "tile_launches",
 ]

@@ -32,6 +32,7 @@ communication (``tests/test_torch_ring.py``).
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -264,13 +265,15 @@ def _zigzag_attention_math(q, blocks, d: int, n: int):
     return out.transpose(1, 2).to(q.dtype)
 
 
-def _flash(q, k, v, causal):
+def _flash(q, k, v, causal, block_q=None, block_k=None):
     """The (q, k, v, causal) → (o f32, lse) kernel call both flash rings
-    share (``flash_attention_with_lse``: the Hopper kernels on the card,
-    their plain versions for CPU tensors)."""
+    share (``flash_attention_with_lse``: the Hopper kernels on the card at
+    the requested tiles, None for the H100 table; their plain versions for
+    CPU tensors)."""
     from tpumon.workload_torch.ops.flash_attention import flash_attention_with_lse
 
-    o, lse = flash_attention_with_lse(q, k, v, causal=causal)
+    o, lse = flash_attention_with_lse(q, k, v, causal=causal, block_q=block_q,
+                                      block_k=block_k)
     return o.float(), lse
 
 
@@ -287,16 +290,17 @@ def _merge_partials(o_a, lse_a, o_b, lse_b):
     return o_a * w_a + o_b * w_b, lse
 
 
-def _zigzag_flash_math(q, blocks, d: int, n: int):
+def _zigzag_flash_math(q, blocks, d: int, n: int, block_q=None, block_k=None):
     """The zigzag ring with a flash call per stripe pair: hop 0 as three
     statically masked calls (lo × lo causal, hi × hi causal, hi × lo
     full), then two unmasked calls a hop, merged by log-sum-exp."""
+    flash = functools.partial(_flash, block_q=block_q, block_k=block_k)
     s = q.shape[1] // 2
     q_lo, q_hi = q[:, :s], q[:, s:]
     k, v = blocks[0]
-    o_lo, lse_lo = _flash(q_lo, k[:, :s], v[:, :s], True)
-    o_hh, lse_hh = _flash(q_hi, k[:, s:], v[:, s:], True)
-    o_hl, lse_hl = _flash(q_hi, k[:, :s], v[:, :s], False)
+    o_lo, lse_lo = flash(q_lo, k[:, :s], v[:, :s], True)
+    o_hh, lse_hh = flash(q_hi, k[:, s:], v[:, s:], True)
+    o_hl, lse_hl = flash(q_hi, k[:, :s], v[:, :s], False)
     o_hi, lse_hi = _merge_partials(o_hh, lse_hh, o_hl, lse_hl)
     for i, (k, v) in enumerate(blocks[1:], start=1):
         older = (d - i) % n < d
@@ -304,29 +308,31 @@ def _zigzag_flash_math(q, blocks, d: int, n: int):
         v_lo, v_hi = v[:, :s], v[:, s:]
         # Slot 1: (lo if older else hi) × sender's lo.
         if older:
-            o1, lse1 = _flash(q_lo, k_lo, v_lo, False)
+            o1, lse1 = flash(q_lo, k_lo, v_lo, False)
             o_lo, lse_lo = _merge_partials(o_lo, lse_lo, o1, lse1)
         else:
-            o1, lse1 = _flash(q_hi, k_lo, v_lo, False)
+            o1, lse1 = flash(q_hi, k_lo, v_lo, False)
             o_hi, lse_hi = _merge_partials(o_hi, lse_hi, o1, lse1)
         # Slot 2: hi × (sender's lo if older else sender's hi).
         k2, v2 = (k_lo, v_lo) if older else (k_hi, v_hi)
-        o2, lse2 = _flash(q_hi, k2, v2, False)
+        o2, lse2 = flash(q_hi, k2, v2, False)
         o_hi, lse_hi = _merge_partials(o_hi, lse_hi, o2, lse2)
     return torch.cat([o_lo, o_hi], dim=1).to(q.dtype)
 
 
-def _ring_flash_math(q, blocks, d: int, n: int, causal: bool = True):
+def _ring_flash_math(q, blocks, d: int, n: int, causal: bool = True,
+                     block_q=None, block_k=None):
     """The contiguous ring with a flash call per attended hop: the self
     block (causal or not), then each arriving block in full; under
     ``causal`` a block from a later rank (src > d) is skipped, as the
     reference's ``lax.cond`` skips it."""
+    flash = functools.partial(_flash, block_q=block_q, block_k=block_k)
     k, v = blocks[0]
-    o, lse = _flash(q, k, v, causal)  # hop 0: the self block
+    o, lse = flash(q, k, v, causal)  # hop 0: the self block
     for i, (k, v) in enumerate(blocks[1:], start=1):
         if causal and (d - i) % n > d:
             continue
-        o2, lse2 = _flash(q, k, v, False)
+        o2, lse2 = flash(q, k, v, False)
         o, lse = _merge_partials(o, lse, o2, lse2)
     return o.to(q.dtype)
 
@@ -353,24 +359,30 @@ def zigzag_ring_attention_local(q, k, v, mesh):
     return _zigzag_attention_math(q, blocks, mesh.coords[AXIS], n)
 
 
-def zigzag_ring_flash_local(q, k, v, mesh):
+def zigzag_ring_flash_local(q, k, v, mesh, *, block_q: int | None = None,
+                            block_k: int | None = None):
     """The zigzag ring with the flash kernels on every stripe pair (n − 1
-    hops); q/k/v in zigzag layout."""
+    hops); q/k/v in zigzag layout. ``block_q``/``block_k`` reach every
+    kernel call (None: the H100 table for the stripe pair's shape)."""
     n = mesh.sp
     blocks = ring_hops(k, v, mesh, n - 1)
-    return _zigzag_flash_math(q, blocks, mesh.coords[AXIS], n)
+    return _zigzag_flash_math(q, blocks, mesh.coords[AXIS], n, block_q, block_k)
 
 
-def ring_flash_local(q, k, v, mesh, *, causal: bool = True):
+def ring_flash_local(q, k, v, mesh, *, causal: bool = True,
+                     block_q: int | None = None, block_k: int | None = None):
     """The contiguous ring with the flash kernels per attended hop (n − 1
-    hops; every rank sends on every hop, attended or not)."""
+    hops; every rank sends on every hop, attended or not);
+    ``block_q``/``block_k`` as in :func:`zigzag_ring_flash_local`."""
     n = mesh.sp
     blocks = ring_hops(k, v, mesh, n - 1)
-    return _ring_flash_math(q, blocks, mesh.coords[AXIS], n, causal)
+    return _ring_flash_math(q, blocks, mesh.coords[AXIS], n, causal, block_q,
+                            block_k)
 
 
 def make_ring_attn(mesh, *, causal: bool = True, zigzag: bool = False,
-                   flash: bool = False):
+                   flash: bool = False, block_q: int | None = None,
+                   block_k: int | None = None):
     """An ``attn_impl`` q, k, v → out over this rank's sequence shard.
 
     The model hands it the rank's heads already: under tp a rank holds
@@ -379,21 +391,24 @@ def make_ring_attn(mesh, *, causal: bool = True, zigzag: bool = False,
     not divide KV never applies here. ``zigzag=True`` (causal only)
     redistributes q, k and v into the zigzag layout before the ring and
     the output back after; the residual stream and its positions stay
-    contiguous. ``flash=True`` runs the flash kernels per block."""
+    contiguous. ``flash=True`` runs the flash kernels per block, at
+    ``block_q``/``block_k`` (None: the H100 table)."""
     if zigzag and not causal:
         raise ValueError(
             "zigzag layout only pays off for causal attention (non-causal "
             "ring attention has no masked compute to eliminate)"
         )
+    tiles = {"block_q": block_q, "block_k": block_k}
     if zigzag:
-        body = zigzag_ring_flash_local if flash else zigzag_ring_attention_local
+        body = (functools.partial(zigzag_ring_flash_local, **tiles) if flash
+                else zigzag_ring_attention_local)
 
         def attn(q, k, v):
             q, k, v = _to_zigzag((q, k, v), mesh)
             return _from_zigzag(body(q, k, v, mesh), mesh)
     elif flash:
         def attn(q, k, v):
-            return ring_flash_local(q, k, v, mesh, causal=causal)
+            return ring_flash_local(q, k, v, mesh, causal=causal, **tiles)
     else:
         def attn(q, k, v):
             return ring_attention_local(q, k, v, mesh, causal=causal)
