@@ -34,6 +34,8 @@ from collections import Counter
 
 import torch
 
+from tpumon.workload_torch import spans
+
 #: The XLA collective names the port counts under.
 OPS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
        "collective-permute")
@@ -66,24 +68,26 @@ class CollectiveCounters:
     @contextlib.contextmanager
     def span(self, op: str, nbytes: int, device: torch.device):
         """Count one ``op`` call of ``nbytes`` payload around the ``with``
-        body, which issues it on ``device``."""
+        body, which issues it on ``device``. While a profiler records, the
+        body runs in the span ``workload.collective.<op>`` (``spans.py``)."""
         if op not in OPS:
             raise ValueError(f"unknown collective op {op!r} (one of {OPS})")
         with self._lock:
             self._counts[op] += 1
             self._bytes[op] += int(nbytes)
             self._events += 1
-        if device.type == "cuda":
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            yield
-            end.record()
-            self._pending.append((op, nbytes, start, end))
-        else:
-            t0 = time.perf_counter()
-            yield
-            self._add_latency(op, nbytes, (time.perf_counter() - t0) * 1e6)
+        with spans.span("collective." + op):
+            if device.type == "cuda":
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                yield
+                end.record()
+                self._pending.append((op, nbytes, start, end))
+            else:
+                t0 = time.perf_counter()
+                yield
+                self._add_latency(op, nbytes, (time.perf_counter() - t0) * 1e6)
 
     def flush(self) -> None:
         """Read the CUDA events of the calls since the last flush. Call it

@@ -49,6 +49,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from tpumon.workload_torch import flops as flops_mod
+from tpumon.workload_torch import spans
 from tpumon.workload_torch.models import moe as moe_mod
 from tpumon.workload_torch.models.llama import (
     Llama,
@@ -57,6 +58,7 @@ from tpumon.workload_torch.models.llama import (
     init_params,
 )
 from tpumon.workload_torch.models.moe import Moe, MoeConfig
+from tpumon.workload_torch.ops.core import cast
 from tpumon.workload_torch.parallel import mesh as mesh_mod
 from tpumon.workload_torch.platform import PLATFORMS, resolve_device
 
@@ -85,8 +87,9 @@ def _split_vocab(mesh) -> bool:
     return mesh is not None and mesh.tp > 1
 
 
+@spans.traced("loss")
 def _chunk_nll_sum(xc, unembed_w, tc, dtype, mesh=None):
-    logits = (xc @ unembed_w.to(dtype)).float()
+    logits = (xc @ cast(unembed_w, dtype)).float()
     if _split_vocab(mesh):
         return _vocab_parallel_nll(logits, tc, mesh).sum()
     logp = torch.log_softmax(logits, dim=-1)
@@ -138,6 +141,7 @@ def loss_fn(model, tokens, attn_impl=None, remat=False, loss_chunk=0,
     return _mean_nll(model(inputs, attn_impl, remat), targets, mesh)
 
 
+@spans.traced("loss")
 def _mean_nll(logits, targets, mesh=None):
     if _split_vocab(mesh):
         return _vocab_parallel_nll(logits, targets, mesh).mean()
@@ -232,7 +236,10 @@ def make_train_step(
     all-reduce), under ep the expert banks' over ``expert`` first (one
     more), under pp the layers' over ``stage`` last (one more); replicated
     leaves count once. ``forward_fn`` is the pipelined forward (under pp,
-    where ``grad_accum`` is 1)."""
+    where ``grad_accum`` is 1). While a profiler records, the call runs in
+    the span ``workload.step``, each chunk's forward and backward in
+    ``workload.fwd`` and ``workload.bwd``, and the update in
+    ``workload.optimizer`` (``spans.py``)."""
     params = list(model.parameters())
     mesh = model.mesh
     specs = _param_specs(model)
@@ -242,8 +249,10 @@ def make_train_step(
     by_stage = [mesh_mod.layer_index(n) is not None for n in names]
 
     def grad_of(tokens):
-        loss = loss_fn(model, tokens, attn_impl, remat, loss_chunk, forward_fn)
-        loss.backward()
+        with spans.span("fwd"):
+            loss = loss_fn(model, tokens, attn_impl, remat, loss_chunk, forward_fn)
+        with spans.span("bwd"):
+            loss.backward()
         return loss.detach()
 
     def chunks_of(tokens):
@@ -274,6 +283,10 @@ def make_train_step(
         return torch.sqrt(own_sq[0] + split_sq[1:].sum() + sq[whole & ~own].sum())
 
     def step(tokens):
+        with spans.span("step"):
+            return update(tokens)
+
+    def update(tokens):
         optimizer.zero_grad(set_to_none=True)
         if mesh is not None and mesh.dp * mesh.sp > 1:
             chunks = [tokens] if grad_accum == 1 else chunks_of(tokens)
@@ -288,7 +301,8 @@ def make_train_step(
             gnorm = grad_norm()
         else:
             gnorm = torch.full((), float("nan"), device=loss.device)
-        optimizer.step()
+        with spans.span("optimizer"):
+            optimizer.step()
         return loss, gnorm
 
     return step

@@ -5,7 +5,9 @@ fields and presets, the same parameter names and shapes (weights in the
 JAX ``[in, out]`` layout, so each product is ``x @ w.to(cfg.dtype)`` with
 no transposes), grouped-query attention, SwiGLU, f32 master weights cast
 to ``cfg.dtype`` at each matmul as the reference does (not autocast, whose
-per-op dtype policy would differ).
+per-op dtype policy would differ). Every part of the step runs in a span
+of its own (``spans.py``): the layer, its projections, the attention
+core, the MLP, the embedding and the loss.
 
 The reference scans one compiled layer body over weights stacked on a
 leading layer axis; here the layers are ``Block`` modules in an
@@ -22,8 +24,9 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from tpumon.workload_torch.ops.core import apply_rope, rms_norm, rope_freqs
+from tpumon.workload_torch.ops.core import apply_rope, cast, rms_norm, rope_freqs
 from tpumon.workload_torch.parallel import mesh as mesh_mod
+from tpumon.workload_torch.spans import traced
 
 
 @dataclass(frozen=True)
@@ -131,23 +134,42 @@ def attention(layer: nn.Module, x, freqs, mask, attn_impl=None):
     heads (the heads are read off their widths), the projections' input
     is a column split's and the output projection a row split."""
     cfg = layer.cfg
-    B, S, _ = x.shape
-    HD = cfg.head_dim
-    H, KV = layer.wq.shape[1] // HD, layer.wk.shape[1] // HD
+    S = x.shape[1]
     x = mesh_mod.copy_to_model(x, layer.mesh)
-    q = (x @ layer.wq.to(cfg.dtype)).reshape(B, S, H, HD)
-    k = (x @ layer.wk.to(cfg.dtype)).reshape(B, S, KV, HD)
-    v = (x @ layer.wv.to(cfg.dtype)).reshape(B, S, KV, HD)
+    q, k, v = _qkv(x, layer.wq, layer.wk, layer.wv, cfg.dtype, cfg.head_dim)
     q = apply_rope(q, freqs[:S])
     k = apply_rope(k, freqs[:S])
+    out = _attn_core(q, k, v, mask, attn_impl)
+    return mesh_mod.reduce_from_model(_attn_out(out, layer.wo, cfg.dtype),
+                                      layer.mesh)
+
+
+@traced("qkv")
+def _qkv(x, wq, wk, wv, dtype, head_dim):
+    """x [B,S,D] → q [B,S,H,HD], k/v [B,S,KV,HD], the heads read off the
+    weights' widths."""
+    B, S, _ = x.shape
+    H, KV = wq.shape[1] // head_dim, wk.shape[1] // head_dim
+    q = (x @ cast(wq, dtype)).reshape(B, S, H, head_dim)
+    k = (x @ cast(wk, dtype)).reshape(B, S, KV, head_dim)
+    v = (x @ cast(wv, dtype)).reshape(B, S, KV, head_dim)
+    return q, k, v
+
+
+@traced("attn_core")
+def _attn_core(q, k, v, mask, attn_impl):
     if attn_impl is not None:
         # Pluggable causal attention q [B,S,H,D], k/v [B,S,KV,D]; the
         # impl resolves the grouped-query sharing itself.
-        out = attn_impl(q, k, v)
-    else:
-        out = plain_attention(q, k, v, mask)
-    out = out.reshape(B, S, H * HD) @ layer.wo.to(cfg.dtype)
-    return mesh_mod.reduce_from_model(out, layer.mesh)
+        return attn_impl(q, k, v)
+    return plain_attention(q, k, v, mask)
+
+
+@traced("attn_out")
+def _attn_out(out, wo, dtype):
+    """The output projection of the heads out [B,S,H,HD] → [B,S,D]."""
+    B, S = out.shape[:2]
+    return out.reshape(B, S, -1) @ cast(wo, dtype)
 
 
 def check_tp(cfg, tp: int) -> None:
@@ -177,14 +199,16 @@ class Block(nn.Module):
                                          _tp(mesh))
             setattr(self, name, _param(shape, device))
 
+    @traced("mlp")
     def mlp(self, x):
         dtype = self.cfg.dtype
         x = mesh_mod.copy_to_model(x, self.mesh)
-        gate = x @ self.w_gate.to(dtype)
-        up = x @ self.w_up.to(dtype)
-        out = (nn.functional.silu(gate) * up) @ self.w_down.to(dtype)
+        gate = x @ cast(self.w_gate, dtype)
+        up = x @ cast(self.w_up, dtype)
+        out = (nn.functional.silu(gate) * up) @ cast(self.w_down, dtype)
         return mesh_mod.reduce_from_model(out, self.mesh)
 
+    @traced("layer")
     def forward(self, h, freqs, mask, attn_impl=None):
         h = h + attention(self, rms_norm(h, self.attn_norm), freqs, mask, attn_impl)
         return h + self.mlp(rms_norm(h, self.mlp_norm))
@@ -194,7 +218,14 @@ def embed_tokens(model: nn.Module, tokens: torch.Tensor) -> torch.Tensor:
     """tokens [B, S] → x [B, S, dim] in ``cfg.dtype``. Under tp the rank
     holds a contiguous block of the vocabulary's rows: it looks up the
     ids in its block, zeroes the others, and the rows sum over model."""
-    w = model.embed.to(model.cfg.dtype)
+    return _embed(model.embed, tokens, model)
+
+
+@traced("embed")
+def _embed(weight, tokens, model):
+    # The weight comes in as an argument, so that the span has a backward
+    # half (``spans.traced``): the tokens carry no gradient.
+    w = cast(weight, model.cfg.dtype)
     if _tp(model.mesh) == 1:
         return w[tokens]
     rows = w.shape[0]
@@ -216,11 +247,13 @@ def rank_freqs(model: nn.Module, seq: int, device) -> torch.Tensor:
     return freqs
 
 
+@traced("loss")
 def unembed_logits(model: nn.Module, x: torch.Tensor) -> torch.Tensor:
     """Final-norm hidden x [B, S, dim] → f32 logits [B, S, vocab] (the
-    rank's vocabulary columns under tp)."""
+    rank's vocabulary columns under tp). It is the loss's first part, and
+    runs in its span."""
     x = mesh_mod.copy_to_model(x, model.mesh)
-    return (x @ model.unembed.to(model.cfg.dtype)).float()
+    return (x @ cast(model.unembed, model.cfg.dtype)).float()
 
 
 def make_blocks(make, n_layers: int, layers=None) -> nn.Module:

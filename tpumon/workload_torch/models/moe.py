@@ -13,7 +13,9 @@ in the JAX ``[in, out]`` layout), f32 master weights cast to
 Attention is the dense model's (``models.llama.attention``), so
 ``attn_impl`` (the flash kernels) plugs in as it does there. The routing
 and expert products are plain large einsums that the reference also
-leaves to the compiler; they carry no hand kernel.
+leaves to the compiler; they carry no hand kernel. The routing, the
+dispatch, the experts and the combine each run in a span of their own
+(``spans.py``).
 """
 
 from __future__ import annotations
@@ -27,8 +29,9 @@ from torch.nn import functional as F
 from torch.utils.checkpoint import checkpoint
 
 from tpumon.workload_torch.models import llama as _llama
-from tpumon.workload_torch.ops.core import rms_norm
+from tpumon.workload_torch.ops.core import cast, rms_norm
 from tpumon.workload_torch.parallel import mesh as mesh_mod
+from tpumon.workload_torch.spans import traced
 
 
 @dataclass(frozen=True)
@@ -169,13 +172,30 @@ def expert_ffn(x, dispatch, combine, w_gate, w_up, w_down, cfg: MoeConfig,
     SwiGLU maps to zeros."""
     dtype = cfg.dtype
     x = mesh_mod.copy_to_model(mesh_mod.copy_to_expert(x, mesh), mesh)
-    xin = torch.einsum("bsec,bsd->ebcd", dispatch.to(dtype), x)
-    gate = torch.einsum("ebcd,edf->ebcf", xin, w_gate.to(dtype))
-    up = torch.einsum("ebcd,edf->ebcf", xin, w_up.to(dtype))
-    y = torch.einsum("ebcf,efd->ebcd", F.silu(gate) * up, w_down.to(dtype))
-    y = mesh_mod.reduce_from_model(y, mesh)
-    out = torch.einsum("bsec,ebcd->bsd", combine.to(dtype), y)
-    return mesh_mod.reduce_from_expert(out, mesh)
+    xin = _dispatch(dispatch, x, dtype)
+    y = mesh_mod.reduce_from_model(_experts(xin, w_gate, w_up, w_down, dtype), mesh)
+    return mesh_mod.reduce_from_expert(_combine(combine, y, dtype), mesh)
+
+
+@traced("dispatch")
+def _dispatch(dispatch, x, dtype):
+    """Tokens x [B,S,D] into the experts' capacity slots [E',B,C,D]."""
+    return torch.einsum("bsec,bsd->ebcd", dispatch.to(dtype), x)
+
+
+@traced("experts")
+def _experts(xin, w_gate, w_up, w_down, dtype):
+    """The SwiGLU of each expert bank on its slots [E',B,C,D]."""
+    gate = torch.einsum("ebcd,edf->ebcf", xin, cast(w_gate, dtype))
+    up = torch.einsum("ebcd,edf->ebcf", xin, cast(w_up, dtype))
+    return torch.einsum("ebcf,efd->ebcd", F.silu(gate) * up, cast(w_down, dtype))
+
+
+@traced("combine")
+def _combine(combine, y, dtype):
+    """The experts' slots y [E',B,C,D] back to the tokens [B,S,D], by
+    their gates."""
+    return torch.einsum("bsec,ebcd->bsd", combine.to(dtype), y)
 
 
 def check_ep(cfg: MoeConfig, ep: int) -> None:
@@ -202,6 +222,7 @@ class MoeBlock(nn.Module):
                 name, shape, mesh_mod.MOE_PARAM_SPECS, _llama._tp(mesh), _ep(mesh))
             setattr(self, name, _llama._param(shape, device))
 
+    @traced("router")
     def route_sums(self, x):
         """x [B,S,D] → (dispatch, combine) of the rank's experts and the
         aux loss's statistics as token sums over the rank's rows: [2E]
@@ -237,6 +258,7 @@ class MoeBlock(nn.Module):
         dispatch, combine, sums = self.route_sums(x)
         return self.experts(x, dispatch, combine), sums
 
+    @traced("layer")
     def forward_sums(self, h, freqs, mask, attn_impl=None):
         """The layer's output and its aux statistics (``moe_mlp_sums``)."""
         h = h + _llama.attention(
@@ -245,6 +267,7 @@ class MoeBlock(nn.Module):
         out, sums = self.moe_mlp_sums(rms_norm(h, self.mlp_norm))
         return h + out, sums
 
+    @traced("layer")
     def forward(self, h, freqs, mask, attn_impl=None):
         h = h + _llama.attention(
             self, rms_norm(h, self.attn_norm), freqs, mask, attn_impl
@@ -253,6 +276,7 @@ class MoeBlock(nn.Module):
         return h + out, aux
 
 
+@traced("router")
 def aux_loss(means: torch.Tensor, cfg: MoeConfig, mesh=None) -> torch.Tensor:
     """The GShard aux loss E · Σ_e fraction-routed(e) / k · mean-prob(e)
     from the rank's means ``[..., 2E]`` (``moe_mlp_sums`` over its token
