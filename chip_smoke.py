@@ -9,9 +9,10 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
 
 1. env        torch/CUDA versions, device name and capability, nvidia-smi's
               name and power limit, nvcc --version.
-2. build      build the three flash kernels from ops/csrc/*.cu and print
-              the build seconds and ptxas' register/shared-memory report
-              for every instantiation (head dim x tile pair); fails on
+2. build      build every kernel of ops/csrc/*.cu (the three flash
+              kernels and RMSNorm's pair) and print the build seconds and
+              ptxas' register/shared-memory report for every
+              instantiation (head dim x tile pair, dtype x row layout); fails on
               any spilled register, ignored setmaxnreg or serialized
               wgmma (ptxas' "(C7512)"/"(C7520)" lines) in any of them.
 3. kernels    each kernel against its plain PyTorch version on the card,
@@ -37,6 +38,14 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
               on the default's line. Then one line per case naming each
               kernel's default and fastest pair, and one for the
               backward as a whole (default tiles) against SDPA's.
+3b. norm      RMSNorm's kernel pair (ops/core.py rms_norm_fwd and
+              rms_norm_bwd) against the plain version on the card at
+              NORM_CASES (bf16): y within one bf16 ulp, dx relative L2
+              <= 2e-3, dw <= 1e-5; one JSON line a case with each
+              kernel's time (CUDA events, median), its byte bound at the
+              card's peak, the plain chain's time (forward, and
+              autograd's backward through it) and torch's rms_norm's
+              (bf16 weight), which the port never calls.
 4. main       tpumon.workload_torch.harness.main on the medium preset
               (--seq 4096 --batch 8 --grad-accum 4 --attn flash --remat
               --loss-chunk 1024 --steps 10 --phase-stats --serve) with the
@@ -364,7 +373,7 @@ def phase_build() -> dict:
     from tpumon.workload_torch.ops import _build
 
     t0 = time.perf_counter()
-    report = _build.build(tuple(KERNELS))
+    report = _build.build()
     seconds = time.perf_counter() - t0
     print(f"build: {seconds:.2f} s ({len(report)} compiled)", flush=True)
     bad, seen = [], []
@@ -609,6 +618,68 @@ def phase_kernels(torch, reps: int, seed: int) -> dict:
     if failed:
         fail("kernels disagree with their plain versions: " + "; ".join(failed))
     return results
+
+
+#: (name, rows, D) of RMSNorm calls: a micro-batch of the dense cells
+#: (65,536 tokens of Mistral's 4096), of Mixtral's cell (16,384 tokens),
+#: and of the main path (the medium preset's 2 x 4096 tokens of 2048).
+NORM_CASES = [("dense", 65536, 4096), ("mixtral", 16384, 4096),
+              ("main", 8192, 2048)]
+
+
+def phase_norm(torch, reps: int, seed: int) -> None:
+    from tpumon.workload_torch import flops
+    from tpumon.workload_torch.ops import core
+
+    dev = torch.device("cuda", 0)
+    peak_bytes = flops.peak_hbm_bytes_per_device(dev)
+    if peak_bytes is None:
+        fail(f"no published peak for {torch.cuda.get_device_name(0)!r}")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    failed = []
+    for case, rows, D in NORM_CASES:
+        x = torch.randn(rows, D, generator=gen, device=dev).to(torch.bfloat16)
+        w = 1.0 + 0.1 * torch.randn(D, generator=gen, device=dev)
+        dy = torch.randn(rows, D, generator=gen, device=dev).to(torch.bfloat16)
+        y, rstd = core.rms_norm_fwd(x, w, 1e-5)
+        dx, dw = core.rms_norm_bwd(x, w, rstd, dy)
+        xp, wp = x.clone().requires_grad_(), w.clone().requires_grad_()
+        yp, _ = core.rms_norm_reference(xp, wp)
+        dxp, dwp = torch.autograd.grad(yp, (xp, wp), dy, retain_graph=True)
+        ulps = ((y.float() - yp.float()).abs()
+                / (2 ** -7 * yp.float().abs()).clamp_min(1e-30)).max().item()
+        errors = {"y_max_ulps": ulps,
+                  "dx_rel_l2": ((dx.float() - dxp.float()).norm() / dxp.float().norm()).item(),
+                  "dw_rel_l2": ((dw - dwp).norm() / dwp.norm()).item()}
+        limits = {"y_max_ulps": 1.0, "dx_rel_l2": 2e-3, "dw_rel_l2": 1e-5}
+        passed = all(errors[k] <= limits[k] for k in limits)
+        if not passed:
+            failed.append(f"{case}: {errors}")
+        # The library call for the same function (the port never calls
+        # it): torch's rms_norm, whose weight has x's dtype.
+        wl = w.to(x.dtype).requires_grad_()
+        yl = torch.nn.functional.rms_norm(xp, (D,), wl, 1e-5)
+        emit({
+            "phase": "norm", "case": case, "rows": rows, "D": D, "dtype": "bf16",
+            "errors": errors, "limits": limits, "passed": passed,
+            "fwd_ms": time_ms(torch, lambda: core.rms_norm_fwd(x, w, 1e-5), reps),
+            "bwd_ms": time_ms(torch, lambda: core.rms_norm_bwd(x, w, rstd, dy), reps),
+            "plain_fwd_ms": time_ms(torch, lambda: core.rms_norm_reference(x, w), reps),
+            "plain_bwd_ms": time_ms(torch, lambda: torch.autograd.grad(
+                yp, (xp, wp), dy, retain_graph=True), reps),
+            "library_fwd_ms": time_ms(torch, lambda: torch.nn.functional.rms_norm(
+                x, (D,), wl, 1e-5), reps),
+            "library_bwd_ms": time_ms(torch, lambda: torch.autograd.grad(
+                yl, (xp, wl), dy, retain_graph=True), reps),
+            # bytes: x read and y written; x and dy read and dx written
+            "fwd_bound_ms": 1e3 * 2 * rows * D * 2 / peak_bytes,
+            "bwd_bound_ms": 1e3 * 3 * rows * D * 2 / peak_bytes,
+            "reps": reps,
+        })
+        del x, w, dy, y, rstd, dx, dw, xp, wp, yp, dxp, dwp, wl, yl
+        torch.cuda.empty_cache()
+    if failed:
+        fail("RMSNorm kernels disagree with the plain version: " + "; ".join(failed))
 
 
 class _LossRecords(logging.Handler):
@@ -1507,7 +1578,7 @@ def phase_drill(torch) -> dict:
     return result
 
 
-PHASES = ("env,build,kernels,main,moe,checkpoint,bench,profile,mesh,ring,expert,"
+PHASES = ("env,build,kernels,norm,main,moe,checkpoint,bench,profile,mesh,ring,expert,"
           "pipe,hosts,dryrun,entry,drill")
 
 
@@ -1541,6 +1612,8 @@ def main(argv: list[str] | None = None) -> int:
         phase_env(torch)
     build = phase_build() if "build" in phases else {}
     kernels = phase_kernels(torch, args.reps, args.seed) if "kernels" in phases else {}
+    if "norm" in phases:
+        phase_norm(torch, args.reps, args.seed)
     main_run = phase_main(torch) if "main" in phases else {}
     moe_run = phase_moe(torch) if "moe" in phases else {}
     if "checkpoint" in phases:

@@ -32,6 +32,26 @@ def test_rms_norm_matches_reference(shape):
     np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=ATOL)
 
 
+@pytest.mark.parametrize("D", [128, 512, 4096])
+def test_rms_norm_closed_form_backward_matches_jax_grad(D):
+    """The closed form the CUDA backward computes (``rms_norm_bwd_reference``
+    from the plain forward's rstd) against ``jax.vjp`` of the reference's
+    ``rms_norm``: f32, ATOL times the largest magnitude of each gradient
+    (the two sides add a row's D products in other orders)."""
+    rng = _rng(D)
+    x = rng.standard_normal((3, 7, D)).astype(np.float32)
+    w = rng.standard_normal(D).astype(np.float32)
+    dy = rng.standard_normal((3, 7, D)).astype(np.float32)
+    _, vjp = jax.vjp(jcore.rms_norm, x, w)
+    want_dx, want_dw = (np.asarray(g) for g in vjp(dy))
+    xt, wt = torch.from_numpy(x), torch.from_numpy(w)
+    _, rstd = tcore.rms_norm_reference(xt, wt)
+    dx, dw = tcore.rms_norm_bwd_reference(xt, wt, rstd, torch.from_numpy(dy))
+    for got, want in ((dx, want_dx), (dw, want_dw)):
+        np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                                   atol=ATOL * np.abs(want).max())
+
+
 def test_rms_norm_casts_back_to_input_dtype():
     x = torch.from_numpy(_rng(1).standard_normal((2, 4, 32)).astype(np.float32))
     out = tcore.rms_norm(x.to(torch.bfloat16), torch.ones(32))

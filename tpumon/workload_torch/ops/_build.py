@@ -35,6 +35,10 @@ SIGNATURES: dict[str, list] = {
     # q, k, v, dO, lse, delta, dk, dv, B, H, KV, S, Sk, D, block_q, block_k,
     # scale, causal, stream
     "flash_dkv": [_P] * 8 + [_I] * 8 + [_F, _I, _P],
+    # x, w, y, rstd, rows, D, is_f32, eps, stream
+    "rms_norm_fwd": [_P] * 4 + [_I] * 3 + [_F, _P],
+    # x, dy, w, rstd, dx, part, dw, rows, D, is_f32, grid, stream
+    "rms_norm_bwd": [_P] * 7 + [_I] * 4 + [_P],
 }
 
 NVCC_FLAGS = [
@@ -55,7 +59,7 @@ def nvcc() -> str:
     if os.path.exists(default):
         return default
     raise RuntimeError(
-        "nvcc not found on PATH or at /usr/local/cuda/bin/nvcc: the flash "
+        "nvcc not found on PATH or at /usr/local/cuda/bin/nvcc: the port's "
         "kernels are built from ops/csrc/*.cu on the machine with the card"
     )
 
@@ -111,7 +115,7 @@ def build(names=tuple(SIGNATURES), timeout_s: float = 600.0) -> dict[str, dict]:
                       if "ptxas" in ln or "spill" in ln],
         }
     if failures:
-        raise RuntimeError("flash kernel build failed:\n" + "\n".join(failures))
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
     return report
 
 
