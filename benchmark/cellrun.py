@@ -18,7 +18,7 @@ import time
 
 import torch
 
-from benchmark import compare, devtrace, flops, roofline, seeded
+from benchmark import compare, devtrace, families, roofline, seeded
 from benchmark.program import Program
 
 #: Steps the reference follows, and the program's set-up runs (and is
@@ -116,19 +116,24 @@ def reference_readings(cell, seed: int, device, fp8: bool = False,
 
 def record_of(cell, device_name: str, setup_s: float, win: dict,
               peak_bytes: int, trace: dict | None) -> dict:
-    """What the metric readers read."""
+    """What the metric readers read: the run's numbers, and the cell's
+    configuration file, sequence length and micro-batch, from which a
+    family's own readers work out their own counts."""
     m = cell.model
+    family = families.of(m)
     return {
         "chips": cell.chips,
+        "config": cell.config,
+        "seq": cell.seq,
+        "micro_batch": cell.micro_batch,
         "tokens_per_step": cell.tokens_per_step,
-        "flops_per_step": flops.train_flops_per_step(m, cell.batch, cell.seq),
+        "flops_per_step": family.train_flops_per_step(m, cell.batch, cell.seq),
         "peak_flops": roofline.peak(roofline.PEAK_BF16_FLOPS, device_name),
         "peak_bytes": roofline.peak(roofline.PEAK_HBM_BYTES, device_name),
         "setup_s": setup_s,
         "window": win,
         "memory_peak_bytes": peak_bytes,
-        "attn_shape": {"B": cell.micro_batch, "H": m.n_heads, "KV": m.n_kv_heads,
-                       "S": cell.seq, "D": m.head_dim},
+        "attn_shape": family.attn_shape(m, cell.micro_batch, cell.seq),
         "trace": trace,
     }
 

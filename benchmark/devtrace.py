@@ -7,8 +7,9 @@ the device, linked to the host event that launched it (its correlation
 id), and through that to the benchmark span open on the launching thread
 at that time. The reduction gives the traced wall time, the union of the
 device's busy intervals, seconds by kernel class and by name, the
-attention calls and their device seconds, and the longest idle gaps by
-the host operation that launched the kernel ending each gap.
+attention calls and their device seconds, the longest idle gaps by
+the host operation that launched the kernel ending each gap, and the
+port's span table (``progspans.py``), which the span metrics read.
 """
 
 from __future__ import annotations
@@ -122,7 +123,12 @@ def _innermost(ops_by_thread, starts_by_thread, thread, t):
 
 
 def reduce(events, wall_s: float, steps: int, top: int = 10) -> dict:
-    """The record of one capture: ``steps`` whole steps in ``wall_s``."""
+    """The record of one capture: ``steps`` whole steps in ``wall_s``, with
+    the port's span table of the same capture under ``program``
+    (``progspans.reduce``), worked out here on the host after it."""
+    # progspans builds on this module's linkage, so it comes in here.
+    from benchmark import progspans
+
     host, device = [], []
     launch_at = {}
     # The profiler mirrors host annotations (the spans, the optimizer's
@@ -194,6 +200,7 @@ def reduce(events, wall_s: float, steps: int, top: int = 10) -> dict:
         "idle_gaps": sorted(([k, v] for k, v in gaps.items()),
                             key=lambda kv: -kv[1])[:top],
         "unclassified": [name for name, (_, _, cls) in ranked if cls == "other"],
+        "program": progspans.reduce(events, steps),
     }
 
 

@@ -2,36 +2,17 @@
 files, fed from the seed, and read for the correctness check.
 
 The step is ``tpumon.workload_torch.harness.make_train_step`` over the
-port's ``Llama`` or ``Moe`` with ``build_optimizer``, flash attention,
-remat and the cell's loss chunk, as ``harness.run`` wires them. The
-weights are the benchmark's (``seeded.fill``), written into the model's
-own parameters.
+port's model that the cell's family builds (``families/<family>.py``:
+``port_model``) with ``build_optimizer``, flash attention, remat and the
+cell's loss chunk, as ``harness.run`` wires them. The weights are the
+benchmark's (``seeded.fill``), written into the model's own parameters.
 """
 
 from __future__ import annotations
 
 import torch
 
-from benchmark import devtrace, seeded
-
-
-def port_config(m, seq: int):
-    """The port's config object for model ``m`` at sequence length ``seq``."""
-    from tpumon.workload_torch.models.llama import LlamaConfig
-    from tpumon.workload_torch.models.moe import MoeConfig
-
-    common = dict(vocab=m.vocab, dim=m.dim, n_layers=m.n_layers,
-                  n_heads=m.n_heads, n_kv_heads=m.n_kv_heads, ffn_dim=m.ffn,
-                  max_seq=seq, dtype=torch.bfloat16)
-    if m.moe:
-        cfg = MoeConfig(**common, n_experts=m.n_experts, top_k=m.top_k,
-                        capacity_factor=m.capacity_factor)
-    else:
-        cfg = LlamaConfig(**common)
-    if cfg.head_dim != m.head_dim:
-        raise ValueError(f"the port derives head_dim {cfg.head_dim}, the "
-                         f"configuration states {m.head_dim}")
-    return cfg
+from benchmark import devtrace, families, seeded
 
 
 class Program:
@@ -46,17 +27,16 @@ class Program:
     def __init__(self, cell, seed: int, device, spans: bool = False,
                  fault: str | None = None) -> None:
         from tpumon.workload_torch import harness
-        from tpumon.workload_torch.models.llama import Llama
-        from tpumon.workload_torch.models.moe import Moe
         from tpumon.workload_torch.parallel import pipeline
 
         # f32 products stay f32, as harness.run sets.
         torch.backends.cuda.matmul.allow_tf32 = False
         m = cell.model
         self.cell, self.seed, self.device = cell, seed, torch.device(device)
-        self.model = (Moe if m.moe else Llama)(port_config(m, cell.seq), self.device)
+        family = families.of(m)
+        self.model = family.port_model(m, cell.seq, self.device)
         self.params = dict(self.model.named_parameters())
-        want = seeded.param_shapes(m)
+        want = family.param_shapes(m)
         have = {n: tuple(p.shape) for n, p in self.params.items()}
         if have != want:
             raise ValueError(f"the port's parameters {have} are not the "

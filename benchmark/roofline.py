@@ -72,14 +72,14 @@ def least_seconds(work: tuple[float, float], peak_flops: float,
 def share(rec: dict, direction: str, work_of) -> float | None:
     """A traced run's roofline share of attention in ``direction``
     ("fwd" or "bwd"), in %: the calls' least time over the device time of
-    what they launched. None when nothing was traced or no peak is known."""
-    trace = rec["trace"]
-    if not trace or not rec["peak_flops"]:
+    what they launched. None when nothing was traced, no peak is known or
+    the family has no such attention shape."""
+    trace, shape = rec["trace"], rec["attn_shape"]
+    if not trace or not rec["peak_flops"] or shape is None:
         return None
     attn = trace["attention"][direction]
     if not attn["calls"] or not attn["seconds"]:
         return None
-    shape = rec["attn_shape"]
     work = work_of(shape["B"], shape["H"], shape["KV"], shape["S"], shape["D"])
     least = attn["calls"] * least_seconds(work, rec["peak_flops"], rec["peak_bytes"])
     return 100.0 * least / attn["seconds"]

@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from benchmark import families
+
 #: Elements a weight chunk holds (1 GiB of float32).
 CHUNK = 1 << 28
 
@@ -24,30 +26,10 @@ def _derived(seed: int, role: int, index: int = 0) -> int:
     return (seed * _MIX + role * 1_000_003 + index) & _MASK
 
 
-def param_shapes(m) -> dict[str, tuple[int, ...]]:
-    """Every weight of model ``m`` (``spec.Model``) by name, in the port's
-    ``named_parameters`` order: [in, out] matrices, expert banks
-    [E, in, out]."""
-    D, F, HD = m.dim, m.ffn, m.head_dim
-    layer = {
-        "attn_norm": (D,),
-        "wq": (D, m.n_heads * HD),
-        "wk": (D, m.n_kv_heads * HD),
-        "wv": (D, m.n_kv_heads * HD),
-        "wo": (m.n_heads * HD, D),
-        "mlp_norm": (D,),
-    }
-    if m.moe:
-        E = m.n_experts
-        layer.update(router=(D, E), w_gate=(E, D, F), w_up=(E, D, F),
-                     w_down=(E, F, D))
-    else:
-        layer.update(w_gate=(D, F), w_up=(D, F), w_down=(F, D))
-    shapes = {"embed": (m.vocab, D)}
-    for i in range(m.n_layers):
-        shapes.update({f"blocks.{i}.{k}": s for k, s in layer.items()})
-    shapes.update(final_norm=(D,), unembed=(D, m.vocab))
-    return shapes
+def _shapes(m) -> dict[str, tuple[int, ...]]:
+    """Every weight of the model of run sizes ``m`` by name, in the flat
+    index space's order, as its family gives them."""
+    return families.of(m).param_shapes(m)
 
 
 def is_norm(name: str) -> bool:
@@ -57,7 +39,7 @@ def is_norm(name: str) -> bool:
 def layout(m) -> list[tuple[str, tuple[int, ...], int]]:
     """(name, shape, offset) of each weight in the flat index space."""
     out, offset = [], 0
-    for name, shape in param_shapes(m).items():
+    for name, shape in _shapes(m).items():
         out.append((name, shape, offset))
         offset += _numel(shape)
     return out
@@ -71,7 +53,7 @@ def _numel(shape) -> int:
 
 
 def total(m) -> int:
-    return sum(_numel(s) for s in param_shapes(m).values())
+    return sum(_numel(s) for s in _shapes(m).values())
 
 
 #: Random directions each weight's gradient is projected on.
@@ -110,7 +92,7 @@ def overlaps(m, start: int, length: int):
 @torch.no_grad()
 def fill(m, seed: int, params: dict[str, torch.Tensor]) -> None:
     """Write the seeded weights into ``params`` (name → float32 tensor of
-    the shape ``param_shapes`` gives), one chunk at a time."""
+    the shape the family's ``param_shapes`` gives), one chunk at a time."""
     device = next(iter(params.values())).device
     for index, start, length in chunks(m):
         values = draw_chunk(seed, index, length, device=device)

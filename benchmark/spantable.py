@@ -11,8 +11,8 @@ and prints one JSON line: the step's wall and busy time, the numbers of
 by span, and the checks that hold the table to the trace record (the
 unspanned share of busy time; spanned and unspanned non-products against
 ``nongemm_ms_per_step``; ``workload.attn_core`` against the attention
-seconds). ``--out`` writes the trace record and the span table there as
-JSON. No reference runs: this measures where the time goes, not whether
+seconds). ``--out`` writes the trace record, the span table in it, there
+as JSON. No reference runs: this measures where the time goes, not whether
 the step is right.
 
 Exits 2 without a line when the cell is unknown or the process sees no
@@ -44,6 +44,15 @@ def _ms(seconds: float, steps: int) -> float:
     return 1e3 * seconds / steps
 
 
+def metrics(program: dict | None) -> dict:
+    """The numbers of ``progspans.METRICS`` (device ms a step) from a span
+    table: what the span metrics' readers give."""
+    from benchmark import progspans
+
+    return {name: progspans.ms_per_step(program, spans)
+            for name, spans in progspans.METRICS.items()}
+
+
 def summary(trace: dict, program: dict) -> dict:
     """The line's numbers from one capture's trace record
     (``devtrace.reduce``) and span table (``progspans.reduce``)."""
@@ -64,8 +73,7 @@ def summary(trace: dict, program: dict) -> dict:
         "step_wall_ms": _ms(trace["window_s"], steps),
         "busy_ms": _ms(trace["busy_s"], steps),
         "device_idle_pct": read_metric("device_idle_pct", rec),
-        "metrics": {name: progspans.ms_per_step(program, spans)
-                    for name, spans in progspans.METRICS.items()},
+        "metrics": metrics(program),
         "checks": {
             "unspanned_pct_of_busy": 100.0 * program["unspanned_s"] / trace["busy_s"],
             "nonproduct_ms_per_step": nonproduct,
@@ -88,17 +96,17 @@ def summary(trace: dict, program: dict) -> dict:
     }
 
 
-def capture(cell, seed: int, device, warm_s: float) -> tuple[dict, dict]:
-    """The trace record and span table of two steps after the warm-up."""
-    from benchmark import cellrun, devtrace, progspans
+def capture(cell, seed: int, device, warm_s: float) -> dict:
+    """The trace record of two steps after the warm-up, with its span table
+    under ``program``."""
+    from benchmark import cellrun, devtrace
 
     prog, _ = cellrun.set_up(cell, seed, device, spans=True, projections=False)
     cellrun.window(prog, warm_s, device)
     events, wall = devtrace.capture(
         lambda: [prog.step() for _ in range(cellrun.TRACE_STEPS)], device)
     cellrun.free(prog, device)
-    return (devtrace.reduce(events, wall, cellrun.TRACE_STEPS),
-            progspans.reduce(events, cellrun.TRACE_STEPS))
+    return devtrace.reduce(events, wall, cellrun.TRACE_STEPS)
 
 
 def main(argv=None) -> int:
@@ -116,13 +124,14 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("spantable: no CUDA card", file=sys.stderr)
         return 2
-    trace, program = capture(cell, args.seed, "cuda:0", args.warm)
+    trace = capture(cell, args.seed, "cuda:0", args.warm)
     line = {"workload": cell.name, "seed": args.seed,
-            "device": torch.cuda.get_device_name(0), **summary(trace, program)}
+            "device": torch.cuda.get_device_name(0),
+            **summary(trace, trace["program"])}
     if args.out is not None:
         args.out.mkdir(parents=True, exist_ok=True)
         with (args.out / f"{cell.name}.{args.seed}.spans.json").open("w") as f:
-            json.dump({"trace": trace, "program": program}, f)
+            json.dump(trace, f)
     guard.check("before the result")
     print(json.dumps(line), flush=True)
     return 0

@@ -2,7 +2,8 @@
 entry names.
 
 - ``configs/<config>.json``: the model's sizes as run (the published
-  ``config.json`` keys), ``family`` and ``reference``;
+  ``config.json`` keys), ``family`` (its module ``families/<family>.py``,
+  which reads the sizes from the file) and ``reference``;
 - ``traffic/<traffic>.json``: the batch a step trains on (sequence
   length, tokens a step, how ids are drawn, the pool of distinct
   batches);
@@ -17,9 +18,10 @@ files and new entries; nothing here names one.
 from __future__ import annotations
 
 import json
-import math
 from dataclasses import dataclass
 from pathlib import Path
+
+from benchmark import families
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
@@ -34,68 +36,11 @@ def _load(path: Path) -> dict:
 
 
 @dataclass(frozen=True)
-class Model:
-    """The sizes the program and the reference share, from a config file."""
-    family: str  # "llama" (dense) or "moe"
-    vocab: int
-    dim: int
-    n_layers: int
-    n_heads: int
-    n_kv_heads: int
-    head_dim: int
-    ffn: int
-    eps: float
-    rope_theta: float
-    n_experts: int = 0
-    top_k: int = 0
-    capacity_factor: float = 0.0
-    aux_coef: float = 0.0
-
-    @property
-    def moe(self) -> bool:
-        return self.family == "moe"
-
-    def capacity(self, seq: int) -> int:
-        """Token slots an expert takes from one sequence (the port's static
-        capacity: ⌈k·S·factor / E⌉)."""
-        return max(1, math.ceil(self.top_k * seq * self.capacity_factor
-                                / self.n_experts))
-
-
-def model_of(config: dict) -> Model:
-    """The run sizes of a config file (its published keys, as run)."""
-    family = config["family"]
-    if family not in ("llama", "moe"):
-        raise ValueError(f"unknown family {family!r}")
-    dim, heads = config["hidden_size"], config["num_attention_heads"]
-    extra = {}
-    if family == "moe":
-        extra = dict(
-            n_experts=config["num_local_experts"],
-            top_k=config["num_experts_per_tok"],
-            capacity_factor=float(config["capacity_factor"]),
-            aux_coef=float(config["router_aux_loss_coef"]),
-        )
-    return Model(
-        family=family,
-        vocab=config["vocab_size"],
-        dim=dim,
-        n_layers=config["num_hidden_layers"],
-        n_heads=heads,
-        n_kv_heads=config["num_key_value_heads"],
-        head_dim=config.get("head_dim") or dim // heads,
-        ffn=config["intermediate_size"],
-        eps=float(config["rms_norm_eps"]),
-        rope_theta=float(config["rope_theta"]),
-        **extra,
-    )
-
-
-@dataclass(frozen=True)
 class Cell:
     name: str
     chips: int
-    model: Model
+    model: object  # what the family's ``sizes`` returned
+    config: dict  # the configuration file, as run
     reference: str
     seq: int
     tokens_per_step: int
@@ -150,8 +95,12 @@ def load_cell(workload: str, bench: dict | None = None) -> Cell:
     if batch * seq != tokens or mb * accum != batch:
         raise ValueError(f"{workload}: {tokens} tokens a step at seq {seq} "
                          f"is not micro_batch {mb} × grad_accum {accum} rows")
+    model = families.load(config["family"]).sizes(config)
+    if getattr(model, "family", None) != config["family"]:
+        raise ValueError(f"families/{config['family']}.py: sizes() must give "
+                         f"an object whose family is {config['family']!r}")
     return Cell(
-        name=workload, chips=entry["chips"], model=model_of(config),
+        name=workload, chips=entry["chips"], model=model, config=config,
         reference=config["reference"], seq=seq, tokens_per_step=tokens,
         pool=traffic["pool"], micro_batch=mb, grad_accum=accum,
         attn=layout["attn"], remat=bool(layout["remat"]),

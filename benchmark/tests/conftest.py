@@ -7,7 +7,7 @@ import gc
 import pytest
 import torch
 
-from benchmark import spec
+from benchmark import families, spec
 
 #: Limits of the tiny cells, set as a cell's are: above the port's
 #: readings and below the float8 control's at this size and seed.
@@ -18,21 +18,31 @@ TINY_LIMITS = {
 }
 
 
+def tiny_config(moe: bool = False, capacity_factor: float = 2.0) -> dict:
+    """A configuration file's keys at a width a CPU run holds: 2 layers,
+    dim 128, head_dim 32."""
+    config = {"family": "moe" if moe else "llama", "reference": "decoder",
+              "vocab_size": 512, "hidden_size": 128, "num_hidden_layers": 2,
+              "num_attention_heads": 4, "num_key_value_heads": 2,
+              "head_dim": 32, "intermediate_size": 256, "rms_norm_eps": 1e-5,
+              "rope_theta": 10000.0}
+    if moe:
+        config.update(num_local_experts=4, num_experts_per_tok=2,
+                      capacity_factor=capacity_factor, router_aux_loss_coef=0.01)
+    return config
+
+
 def tiny_cell(moe: bool = False, capacity_factor: float = 2.0) -> spec.Cell:
-    """A cell at a width a CPU run holds: 2 layers, dim 128, head_dim 32;
-    4 rows of 64 tokens in 2 chunks, or for the MoE 8 rows of 128 (fewer
-    tokens and a routing flip from rounding outweighs the control's
-    float8)."""
+    """A cell of :func:`tiny_config`: 4 rows of 64 tokens in 2 chunks, or
+    for the MoE 8 rows of 128 (fewer tokens and a routing flip from
+    rounding outweighs the control's float8)."""
     rows, seq = (8, 128) if moe else (4, 64)
-    extra = (dict(n_experts=4, top_k=2, capacity_factor=capacity_factor,
-                  aux_coef=0.01) if moe else {})
-    m = spec.Model(family="moe" if moe else "llama", vocab=512, dim=128,
-                   n_layers=2, n_heads=4, n_kv_heads=2, head_dim=32, ffn=256,
-                   eps=1e-5, rope_theta=10000.0, **extra)
+    config = tiny_config(moe, capacity_factor)
+    m = families.load(config["family"]).sizes(config)
     return spec.Cell(
-        name="tiny", chips=1, model=m, reference="decoder", seq=seq,
-        tokens_per_step=rows * seq, pool=4, micro_batch=rows // 2, grad_accum=2,
-        attn="flash", remat=True,
+        name="tiny", chips=1, model=m, config=config, reference="decoder",
+        seq=seq, tokens_per_step=rows * seq, pool=4, micro_batch=rows // 2,
+        grad_accum=2, attn="flash", remat=True,
         loss_chunk=0 if moe else 32, mesh=None, limits=dict(TINY_LIMITS[moe]),
         end_to_end=(), per_layer=())
 

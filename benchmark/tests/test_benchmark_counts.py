@@ -6,11 +6,13 @@ import json
 
 import pytest
 
-from benchmark import flops, kernel_classes, roofline, spec
+from benchmark import families, flops, kernel_classes, roofline, spec
+from benchmark.families import llama, moe
 
 
 def _model(name):
-    return spec.model_of(json.loads((spec.HERE / "configs" / f"{name}.json").read_text()))
+    config = json.loads((spec.HERE / "configs" / f"{name}.json").read_text())
+    return families.load(config["family"]).sizes(config)
 
 
 def test_causal_pairs():
@@ -20,15 +22,15 @@ def test_causal_pairs():
 
 
 def test_dense_count_by_hand():
-    m = spec.Model(family="llama", vocab=10, dim=8, n_layers=1, n_heads=2,
-                   n_kv_heads=1, head_dim=4, ffn=16, eps=1e-5, rope_theta=1e4)
+    m = llama.Model(family="llama", vocab=10, dim=8, n_layers=1, n_heads=2,
+                    n_kv_heads=1, head_dim=4, ffn=16, eps=1e-5, rope_theta=1e4)
     B, S = 1, 3
     qkvo = 2 * 3 * 8 * 8 * 2 + 2 * 3 * 8 * 4 * 2  # q, o and the narrow k, v
     attn = 2 * 2 * 2 * 4 * 6  # two products, 2 heads, D 4, 6 causal pairs
     ffn = 6 * 3 * 8 * 16
     unembed = 2 * 3 * 8 * 10
-    assert flops.forward_flops(m, B, S) == qkvo + attn + ffn + unembed
-    assert flops.train_flops_per_step(m, B, S) == 3 * (qkvo + attn + ffn + unembed)
+    assert llama.forward_flops(m, B, S) == qkvo + attn + ffn + unembed
+    assert llama.train_flops_per_step(m, B, S) == 3 * (qkvo + attn + ffn + unembed)
 
 
 @pytest.mark.parametrize("name,seq,per_token", [
@@ -36,15 +38,15 @@ def test_dense_count_by_hand():
     ("mixtral-8x7b", 4096, 5.72e9)])
 def test_cells_per_token(name, seq, per_token):
     m = _model(name)
-    got = flops.train_flops_per_step(m, 1, seq) / seq
+    got = families.of(m).train_flops_per_step(m, 1, seq) / seq
     assert got == pytest.approx(per_token, rel=2e-3)
 
 
 def test_moe_counts_top_k_and_router_only():
     m = _model("mixtral-8x7b")
-    dense = spec.Model(**{**m.__dict__, "family": "llama", "n_experts": 0,
-                          "top_k": 0})
-    diff = flops.forward_flops(m, 1, 16) - flops.forward_flops(dense, 1, 16)
+    dense = llama.Model(**{**m.__dict__, "family": "llama", "n_experts": 0,
+                           "top_k": 0})
+    diff = moe.forward_flops(m, 1, 16) - llama.forward_flops(dense, 1, 16)
     per_layer = 6 * 16 * 4096 * 14336 * (2 - 1) + 2 * 16 * 4096 * 8
     assert diff == m.n_layers * per_layer
 

@@ -79,6 +79,7 @@ def test_idle_gaps_by_the_span_that_ended_them():
 def test_the_classes_add_up_to_the_trace_records():
     program = progspans.reduce(SPANNED, steps=1)
     record = devtrace.reduce(SPANNED, wall_s=0.025, steps=1)
+    assert record["program"] == program
     total: dict[str, float] = dict(program["unspanned_by_class_s"])
     for entry in program["spans"].values():
         for cls, s in entry["by_class_s"].items():
@@ -109,6 +110,9 @@ READERS = ["tokens_per_s", "peak_mem_gib", "setup_s", "step_mfu_pct",
 def test_existing_readers_read_the_same_with_the_ports_spans(name):
     plain = _record(devtrace.reduce(EVENTS, wall_s=0.010, steps=1))
     spanned = _record(devtrace.reduce(EVENTS + AROUND, wall_s=0.010, steps=1))
+    # Only the span table (the record's ``program``) reads the port's spans.
+    assert spanned["trace"].pop("program")["spans"]
+    assert not plain["trace"].pop("program")["spans"]
     assert spanned["trace"] == plain["trace"]
     assert _reader(name)(spanned) == _reader(name)(plain)
 
@@ -175,3 +179,64 @@ def test_the_table_of_a_tiny_programs_step_on_the_host(moe):
     assert program["spans"]["step"]["calls"] == 1
     assert program["spans"]["fwd"]["calls"] == 2  # grad_accum
     assert program["unspanned_s"] == 0.0  # no device here
+
+
+def _capture_of_every_span():
+    """A made-up capture of two steps: on the step's thread each span of
+    ``progspans.METRICS`` opens in turn around one operation that launches
+    one kernel of (i + 1) ms, and on the engine's thread its backward half
+    (the optimizer has none) around one of (i + 1) / 2 ms. Returns the
+    events and each span's device seconds."""
+    names = sorted({n for spans in progspans.METRICS.values() for n in spans})
+    events = [("workload.step", False, 0, 10 * MS * len(names), 1, 0, 7)]
+    seconds, corr = {}, 10
+    for i, name in enumerate(names):
+        halves = [(name, 7, i + 1.0)]
+        if name != "optimizer":
+            halves.append((f"{name}.bwd", 9, (i + 1.0) / 2))
+        for j, (span, thread, ms) in enumerate(halves):
+            t0 = (10 * i + 5 * j) * MS
+            events += [
+                (f"workload.{span}", False, t0 + 1, t0 + 4 * MS, corr, 0, thread),
+                ("aten::mul", False, t0 + 2, t0 + 3, corr + 1, 0, thread),
+                ("void at::native::vectorized_elementwise_kernel<4>", True,
+                 t0 + 1 * MS, t0 + 1 * MS + int(ms * MS), corr + 2, corr + 1, 0),
+            ]
+            seconds[span] = ms / 1e3
+            corr += 3
+    return events, seconds
+
+
+@pytest.mark.parametrize("metric", sorted(progspans.METRICS))
+def test_each_span_metric_reads_the_span_tables_row(metric):
+    events, seconds = _capture_of_every_span()
+    rec = _record(devtrace.reduce(events, wall_s=0.2, steps=2))
+    value = _reader(metric)(rec)
+    assert value == spantable.metrics(rec["trace"]["program"])[metric]
+    want = sum(seconds.get(n, 0.0) + seconds.get(f"{n}.bwd", 0.0)
+               for n in progspans.METRICS[metric])
+    assert value == pytest.approx(1e3 * want / 2)
+
+
+@pytest.mark.parametrize("metric", sorted(progspans.METRICS))
+def test_a_span_metric_with_nothing_to_read_returns_none(metric):
+    assert _reader(metric)(_record(None)) is None
+    plain = _record(devtrace.reduce(EVENTS, wall_s=0.010, steps=1))
+    assert _reader(metric)(plain) is None
+
+
+@pytest.mark.parametrize("moe", [False, True], ids=["llama", "moe"])
+def test_span_metrics_of_a_tiny_programs_step_on_the_host(moe):
+    """The readers on the record of a traced step on the host (no device
+    activity: 0 ms where the span ran), as the span table's rows."""
+    prog = Program(tiny_cell(moe), 3000000001, "cpu", spans=True)
+    prog.step()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        prog.step()
+    rec = _record(devtrace.reduce(_host_events(prof), wall_s=1.0, steps=1))
+    rows = spantable.metrics(rec["trace"]["program"])
+    for metric in progspans.METRICS:
+        value = _reader(metric)(rec)
+        assert value == rows[metric]
+        ran = moe or metric not in ("route_ms_per_step", "dispatch_ms_per_step")
+        assert value == (0.0 if ran else None), metric

@@ -10,7 +10,7 @@ import time
 import pytest
 import torch
 
-from benchmark import cellrun, compare, seeded, spec
+from benchmark import cellrun, compare, families, seeded, spec
 from benchmark.reference import decoder
 from benchmark.tests.conftest import tiny_cell
 
@@ -102,9 +102,10 @@ def test_a_forced_choice_is_counted_and_routed():
     m = tiny_cell(moe=True).model
     probs = torch.softmax(torch.randn(1, 16, 4), dim=-1)
     flipped = probs.topk(2, dim=-1).indices.clone()
-    flipped[0, 3] = torch.tensor([(flipped[0, 3, 0] + 1) % 4, flipped[0, 3, 0]])
-    if flipped[0, 3, 0] == flipped[0, 3, 1]:
-        flipped[0, 3, 0] = (flipped[0, 3, 0] + 2) % 4
+    # The two experts token 3 did not choose: a set of its own, whatever
+    # the draw.
+    own = flipped[0, 3].tolist()
+    flipped[0, 3] = torch.tensor([e for e in range(4) if e not in own])
     forced = decoder.ForcedRouting({0: [flipped]})
     experts, gates, _ = decoder.route(probs, m, 16, forced.experts(0, probs))
     assert torch.equal(experts, flipped)
@@ -145,7 +146,7 @@ def test_projections_only_where_a_cell_compares_them():
 def test_weights_draw_again_chunk_by_chunk(monkeypatch):
     monkeypatch.setattr(seeded, "CHUNK", 1000)
     m = tiny_cell().model
-    params = {n: torch.empty(s) for n, s in seeded.param_shapes(m).items()}
+    params = {n: torch.empty(s) for n, s in families.of(m).param_shapes(m).items()}
     seeded.fill(m, SEED, params)
     assert len(seeded.chunks(m)) > 10
     assert all(v == 0.0 for v in seeded.change_norms(m, SEED, params).values())
