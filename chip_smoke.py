@@ -24,8 +24,11 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
               the JAX package takes its streamed kernels, at the tile
               edges (S=4000, S=48, MHA), and at the ring path's zigzag
               stripes (B=2, S=Sk=1024, H=8, KV=2, D=128, non-causal and
-              causal), and at the dryrun's head_dim 32 (B=2, H=2, KV=1:
-              S=32 causal, and S=Sk=8 non-causal). Every kernel runs at
+              causal), at the dryrun's head_dim 32 (B=2, H=2, KV=1:
+              S=32 causal, and S=Sk=8 non-causal), and at DeepSeek-V2's
+              latent attention (four rows of the deepseek-v2-lite.s4096
+              micro-batch: B=4, S=4096, H=KV=16, q·k width 192, v width
+              128, causal). --cases picks some of them. Every kernel runs at
               every tile pair it is compiled for (ops/flash_attention.py
               COMPILED: block_q, block_k in TILES = 64, 128), the chooser's
               default among them, each held to the plain version's
@@ -56,6 +59,19 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
 5. moe        the same checks on the MoE path: --model moe --preset small
               --seq 4096 --batch 8 --grad-accum 8 --attn flash --remat
               --steps 10 --phase-stats --serve.
+5b. deepseek  the same checks on DeepSeek-V2's path, twice: at its tiny
+              preset (--seq 1024 --batch 8 --grad-accum 2: flash at a
+              padded width, every expert held), then at the
+              deepseek-v2-lite.s4096 cell's shape (--preset v2-lite-share
+              --seq 4096 --batch 16, without --phase-stats, whose copy
+              of the optimizer state does not fit: 27 layers, experts 0-7
+              of 64 held);
+              every flash call at the kernel width of the q·k width (64
+              for the tiny 48, 192), and the dispatch's counter (models
+              .moe.dropless_counts): one host read a MoE layer's pass,
+              rows for the held experts only, every (token, choice) pair
+              given to an expert where all are held, at most that many
+              where a share is.
 6. checkpoint the MoE argv with --checkpoint-dir (no --serve or
               --phase-stats): an uninterrupted 4-step run saving every 2
               steps; a 2-step run into a second directory, then a 4-step
@@ -202,7 +218,10 @@ KERNELS = {
 #: stripes): the full pairs of every hop and the causal self pairs. "d32"
 #: is one rank's attention in the dryrun's flash cells (the tiny preset's
 #: head_dim 32, which the wrappers pad to the compiled 64: a tp=2 rank at
-#: seq 32) and "d32zz" a zigzag stripe pair there at sp=2.
+#: seq 32) and "d32zz" a zigzag stripe pair there at sp=2. "mla" is one
+#: micro-batch of the deepseek-v2-lite.s4096 cell's latent attention: q·k
+#: width 192, v width 128 (its ninth entry; the others' v is as wide as
+#: q), which the wrappers pad to 192.
 CASES = [
     ("main", 2, 4096, 4096, 16, 4, 128, True),
     ("moe", 1, 4096, 4096, 8, 4, 64, True),
@@ -217,6 +236,7 @@ CASES = [
     ("zzc", 2, 1024, 1024, 8, 2, 128, True),
     ("d32", 2, 32, 32, 2, 1, 32, True),
     ("d32zz", 2, 8, 8, 2, 1, 32, False),
+    ("mla", 4, 4096, 4096, 16, 16, 192, True, 128),
 ]
 
 #: Limits: O and lse max-abs; dQ/dK/dV relative L2 (bf16 wgmma products
@@ -242,6 +262,19 @@ RUN_ARGS = ["--steps", str(STEPS), "--stats-every", str(STATS_EVERY),
             "--phase-stats", "--serve"]
 MAIN_ARGV = DENSE_TRAIN + RUN_ARGS
 MOE_ARGV = MOE_TRAIN + RUN_ARGS
+DEEPSEEK_TRAIN = [
+    "--model", "deepseek_v2", "--preset", "tiny", "--seq", "1024", "--batch", "8",
+    "--grad-accum", "2", "--attn", "flash", "--remat",
+]
+DEEPSEEK_ARGV = DEEPSEEK_TRAIN + RUN_ARGS
+#: The deepseek-v2-lite.s4096 cell's model and micro-batch (16 × 1), with
+#: no phase probe: the probe's copy of the AdamW state (22 GB) does not fit
+#: beside the share's 44 GB of state and its activations.
+DEEPSEEK_SHARE_ARGV = [
+    "--model", "deepseek_v2", "--preset", "v2-lite-share", "--seq", "4096",
+    "--batch", "16", "--attn", "flash", "--remat",
+    *(a for a in RUN_ARGS if a != "--phase-stats"),
+]
 
 #: The mesh path: the dense train step at dp=2 × tp=2 with ZeRO-1, two
 #: windows of one step (each with a phase probe), the grad norm every step
@@ -425,22 +458,36 @@ def time_ms(torch, fn, reps: int) -> float:
     return statistics.median(time_samples(torch, fn, reps))
 
 
-def bound(B, S, Sk, H, KV, D, causal, kernel, peak_flops, peak_bytes):
+def library_time(torch, fn, reps: int) -> float | None:
+    """:func:`time_ms` of a library call, or None where the library
+    refuses the shape (SDPA at a v width below the q·k width, on some
+    backends)."""
+    try:
+        return time_ms(torch, fn, reps)
+    except RuntimeError as exc:
+        print(f"library call refused: {str(exc).splitlines()[0][:200]}", flush=True)
+        return None
+
+
+def bound(B, S, Sk, H, KV, D, causal, kernel, peak_flops, peak_bytes, Dv=None):
     """(bound_ms, bound_by): the larger of the products' operations at
     the bf16 tensor peak and the bytes the function must move (each input
-    read once, each output written once) at the HBM rate. Under causal
-    only the live (q, k) pairs of this input count."""
+    read once, each output written once) at the HBM rate, at the true
+    widths (q, k, dQ, dK at D; v, O, dO, dV at Dv). Under causal only the
+    live (q, k) pairs of this input count."""
+    Dv = D if Dv is None else Dv
     pairs = S * (S + 1) // 2 if causal else S * Sk
-    q_bytes, kv_bytes, row_bytes = B * S * H * D * 2, B * Sk * KV * D * 2, B * H * S * 4
-    if kernel == "flash_fwd":
-        ops = 2 * 2 * B * H * pairs * D
-        moved = 2 * q_bytes + 2 * kv_bytes + row_bytes
-    elif kernel == "flash_dq":
-        ops = 3 * 2 * B * H * pairs * D
-        moved = 3 * q_bytes + 2 * kv_bytes + 2 * row_bytes
-    else:
-        ops = 4 * 2 * B * H * pairs * D
-        moved = 2 * q_bytes + 4 * kv_bytes + 2 * row_bytes
+    q_bytes, k_bytes, row_bytes = B * S * H * D * 2, B * Sk * KV * D * 2, B * H * S * 4
+    o_bytes, v_bytes = B * S * H * Dv * 2, B * Sk * KV * Dv * 2
+    if kernel == "flash_fwd":  # S = qKᵀ, O = PV
+        ops = 2 * B * H * pairs * (D + Dv)
+        moved = q_bytes + k_bytes + v_bytes + o_bytes + row_bytes
+    elif kernel == "flash_dq":  # S, dP = dO Vᵀ, dQ = dS K
+        ops = 2 * B * H * pairs * (2 * D + Dv)
+        moved = 2 * q_bytes + k_bytes + v_bytes + o_bytes + 2 * row_bytes
+    else:  # S, dP, dV = Pᵀ dO, dK = dSᵀ Q
+        ops = 2 * B * H * pairs * (2 * D + 2 * Dv)
+        moved = q_bytes + o_bytes + 2 * k_bytes + 2 * v_bytes + 2 * row_bytes
     t_ops, t_bytes = ops / peak_flops * 1e3, moved / peak_bytes * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -459,7 +506,7 @@ def tile_requests(fa, name: str, shape: tuple) -> dict:
     return out
 
 
-def phase_kernels(torch, reps: int, seed: int) -> dict:
+def phase_kernels(torch, reps: int, seed: int, cases=None) -> dict:
     import torch.nn.functional as F
 
     from tpumon.workload_torch import flops
@@ -474,15 +521,19 @@ def phase_kernels(torch, reps: int, seed: int) -> dict:
     gen = torch.Generator(device=dev).manual_seed(seed)
     results: dict = {}
     failed = []
-    for case, B, S, Sk, H, KV, D, causal in CASES:
+    for case, B, S, Sk, H, KV, D, causal, *v_width in CASES:
+        if cases is not None and case not in cases:
+            continue
+        Dv = v_width[0] if v_width else D
+
         def randn(*shape):
             return torch.randn(
                 shape, generator=gen, device=dev, dtype=torch.float32
             ).to(torch.bfloat16)
 
-        q, k, v, do = randn(B, S, H, D), randn(B, Sk, KV, D), randn(B, Sk, KV, D), randn(B, S, H, D)
+        q, k, v, do = randn(B, S, H, D), randn(B, Sk, KV, D), randn(B, Sk, KV, Dv), randn(B, S, H, Dv)
         shape = {"B": B, "S": S, "Sk": Sk, "H": H, "KV": KV, "D": D,
-                 "causal": causal}
+                 "Dv": Dv, "causal": causal}
         default = fa.effective_blocks(B, H, KV, S, Sk, D, causal)
 
         # The plain outputs, once a case. Each backward kernel gets the
@@ -540,9 +591,9 @@ def phase_kernels(torch, reps: int, seed: int) -> dict:
             kernel_fn, plain_fn = calls[name]
             plain_ms = time_ms(torch, plain_fn, reps)
             lib = library.get(name)
-            library_ms = time_ms(torch, lib, reps) if lib else None
+            library_ms = library_time(torch, lib, reps) if lib else None
             bound_ms, bound_by = bound(B, S, Sk, H, KV, D, causal, name,
-                                       peak_flops, peak_bytes)
+                                       peak_flops, peak_bytes, Dv)
             by_tiles = {}
             for eff, (bq, bk) in tile_requests(fa, name, (B, S, Sk, H, KV, D, causal)).items():
                 tiles = {"block_q": bq, "block_k": bk}
@@ -603,10 +654,12 @@ def phase_kernels(torch, reps: int, seed: int) -> dict:
             torch.autograd.grad(out, (qg, kg, vg), dot)
 
         bwd_ms = time_ms(torch, backward, reps)
-        fwd_bwd_ms = time_ms(torch, sdpa_fwd_bwd, reps)
+        fwd_bwd_ms = library_time(torch, sdpa_fwd_bwd, reps)
         sdpa_fwd_ms = results["flash_fwd"][case]["library_ms"]
         emit({"case": case, "backward": {
-            "ms": bwd_ms, "library_ms": fwd_bwd_ms - sdpa_fwd_ms,
+            "ms": bwd_ms,
+            "library_ms": (None if fwd_bwd_ms is None or sdpa_fwd_ms is None
+                           else fwd_bwd_ms - sdpa_fwd_ms),
             "sdpa_fwd_bwd_ms": fwd_bwd_ms, "sdpa_fwd_ms": sdpa_fwd_ms,
             "kernels": ["delta (torch)", "flash_dq", "flash_dkv"],
             "tiles": {name: list(default[name]) for name in KERNELS}},
@@ -763,7 +816,8 @@ def _release(torch) -> None:
 
 
 def expected_launches(n_layers: int, grad_accum: int, steps: int = STEPS,
-                      stats_every: int = STATS_EVERY, calls: int = 1) -> dict:
+                      stats_every: int = STATS_EVERY, calls: int = 1,
+                      probes: bool = True) -> dict:
     """The launches a path's run implies (on each rank of a mesh, where
     ``grad_accum`` microbatches split the rank's rows): each layer's
     attention makes ``calls`` flash calls (one off the ring; on the ring,
@@ -772,8 +826,8 @@ def expected_launches(n_layers: int, grad_accum: int, steps: int = STEPS,
     backward kernel once, per microbatch; ``steps`` + 1 steps (the
     warm-up and the timed ones) of ``grad_accum`` microbatches, plus one
     phase probe a window on one microbatch (a forward, then a forward and
-    backward)."""
-    probes, L = steps // stats_every, n_layers * calls
+    backward) where ``probes``."""
+    probes, L = steps // stats_every if probes else 0, n_layers * calls
     steps += 1
     bwd = steps * grad_accum * L + probes * L
     return {"flash_fwd": steps * grad_accum * 2 * L + probes * 3 * L,
@@ -787,6 +841,7 @@ def drive_path(torch, name: str, argv: list[str]) -> dict:
     the ones the run implies. The model, batch, seq and grad_accum are the
     ones ``argv`` names, read through the harness's own parser."""
     from tpumon.workload_torch import flops, harness
+    from tpumon.workload_torch.models import moe
     from tpumon.workload_torch.ops import flash_attention as fa
 
     args = harness.build_parser().parse_args(argv)
@@ -795,18 +850,31 @@ def drive_path(torch, name: str, argv: list[str]) -> dict:
     records = _LossRecords()
     log = logging.getLogger("tpumon.workload_torch.harness")
     log.addHandler(records)
+    # The width each kernel call runs at: its inputs' check sees them padded.
+    widths: dict[int, int] = {}
+    check_inputs = fa._check_kernel_inputs
+
+    def counting_check(named):
+        check_inputs(named)
+        D = named["q"].shape[3]
+        widths[D] = widths.get(D, 0) + 1
+
     _release(torch)
     with _Scraper("tpu_step_duration_seconds") as scraper:
         argv = [*argv, "--metrics-port", str(scraper.port)]
         torch.cuda.reset_peak_memory_stats()
         fa.reset_launches()
+        moe.reset_dropless_counts()
+        fa._check_kernel_inputs = counting_check
         t0 = time.perf_counter()
         try:
             rc = harness.main(argv)
         finally:
             wall = time.perf_counter() - t0
+            fa._check_kernel_inputs = check_inputs
             counts = dict(fa.launches)
             tile_counts = dict(fa.tile_launches)
+            dropless = dict(moe.dropless_counts)
             log.removeHandler(records)
     peak_mem = torch.cuda.max_memory_allocated()
     if rc != 0:
@@ -823,10 +891,11 @@ def drive_path(torch, name: str, argv: list[str]) -> dict:
     snap = snaps[-1]
     # tpu_step_* (counter, duration, terminating, phases) and tpu_serve_*
     # (rate, queue, batch, TTFT, SLO) as the lifecycle plane reads them.
+    probes = "--phase-stats" in argv
     missing = [key for key in (
-        "step", "step_seconds", "terminating", "phases", "loss",
-        "serve_requests_per_second", "serve_queue_depth", "serve_batch_size",
-        "serve_ttft_seconds", "serve_slo_attainment_ratio",
+        "step", "step_seconds", "terminating", *(("phases",) if probes else ()),
+        "loss", "serve_requests_per_second", "serve_queue_depth",
+        "serve_batch_size", "serve_ttft_seconds", "serve_slo_attainment_ratio",
     ) if key not in snap]
     if missing:
         fail(f"{name}: snapshot keys missing from the scraped page: {missing}")
@@ -836,7 +905,7 @@ def drive_path(torch, name: str, argv: list[str]) -> dict:
     idle = [kernel for kernel, n in counts.items() if n <= 0]
     if idle:
         fail(f"{name}: kernels never launched on the path: {idle}")
-    expected = expected_launches(cfg.n_layers, grad_accum)
+    expected = expected_launches(cfg.n_layers, grad_accum, probes=probes)
     if counts != expected:
         fail(f"{name}: launch counts {counts} differ from the expected {expected}")
     by_kernel = {kernel: sum(n for key, n in tile_counts.items()
@@ -844,6 +913,24 @@ def drive_path(torch, name: str, argv: list[str]) -> dict:
                  for kernel in counts}
     if by_kernel != counts:
         fail(f"{name}: launches by tiles {tile_counts} do not add up to {counts}")
+    if hasattr(cfg, "n_moe_layers"):
+        width = fa.kernel_width(cfg.qk_head_dim)
+        if widths != {width: sum(counts.values())}:
+            fail(f"{name}: flash calls by width {widths}, not all "
+                 f"{sum(counts.values())} at {width}")
+        # A MoE layer's pass reads the counts once, as a layer's pass
+        # launches flash_fwd once; each read covers a micro-batch's pairs,
+        # all of them when every expert is held.
+        reads = expected["flash_fwd"] // cfg.n_layers * cfg.n_moe_layers
+        pairs = reads * batch // grad_accum * seq * cfg.top_k
+        held = list(range(cfg.expert_start, cfg.expert_start + cfg.held))
+        given = sum(dropless["rows"].values())
+        if (dropless["host_reads"] != reads or sorted(dropless["rows"]) != held
+                or not 0 < given <= pairs
+                or (cfg.held == cfg.n_routed_experts and given != pairs)):
+            fail(f"{name}: dropless counts {dropless} differ from {reads} host "
+                 f"reads and rows for experts {held[0]}-{held[-1]} "
+                 f"({pairs} pairs)")
     L = cfg.n_layers
     result = {
         "phase": name, "argv": argv, "loss_first": first, "loss_last": last,
@@ -856,7 +943,8 @@ def drive_path(torch, name: str, argv: list[str]) -> dict:
         "launches_per_step": {"flash_fwd": grad_accum * 2 * L,
                               "flash_dq": grad_accum * L,
                               "flash_dkv": grad_accum * L},
-        "wall_s": wall, "snapshot": snap,
+        "wall_s": wall, "snapshot": snap, "dropless_counts": dropless,
+        "flash_calls_by_width": widths,
     }
     emit(result)
     return result
@@ -868,6 +956,11 @@ def phase_main(torch) -> dict:
 
 def phase_moe(torch) -> dict:
     return drive_path(torch, "moe", MOE_ARGV)
+
+
+def phase_deepseek(torch) -> list[dict]:
+    return [drive_path(torch, "deepseek", DEEPSEEK_ARGV),
+            drive_path(torch, "deepseek-share", DEEPSEEK_SHARE_ARGV)]
 
 
 def phase_checkpoint(torch) -> dict:
@@ -1578,8 +1671,8 @@ def phase_drill(torch) -> dict:
     return result
 
 
-PHASES = ("env,build,kernels,norm,main,moe,checkpoint,bench,profile,mesh,ring,expert,"
-          "pipe,hosts,dryrun,entry,drill")
+PHASES = ("env,build,kernels,norm,main,moe,deepseek,checkpoint,bench,profile,mesh,"
+          "ring,expert,pipe,hosts,dryrun,entry,drill")
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -1589,6 +1682,9 @@ def main(argv: list[str] | None = None) -> int:
     parser.add_argument("--reps", type=int, default=10,
                         help="timed runs per kernel (median reported)")
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--cases", default=None,
+                        help="comma-separated subset of the kernels phase's "
+                        "CASES (default: all)")
     args = parser.parse_args(argv)
     phases = set(args.phases.split(","))
     unknown = phases - set(PHASES.split(","))
@@ -1611,11 +1707,15 @@ def main(argv: list[str] | None = None) -> int:
     if "env" in phases:
         phase_env(torch)
     build = phase_build() if "build" in phases else {}
-    kernels = phase_kernels(torch, args.reps, args.seed) if "kernels" in phases else {}
+    cases = None if args.cases is None else set(args.cases.split(","))
+    kernels = (phase_kernels(torch, args.reps, args.seed, cases)
+               if "kernels" in phases else {})
     if "norm" in phases:
         phase_norm(torch, args.reps, args.seed)
     main_run = phase_main(torch) if "main" in phases else {}
     moe_run = phase_moe(torch) if "moe" in phases else {}
+    if "deepseek" in phases:
+        phase_deepseek(torch)
     if "checkpoint" in phases:
         phase_checkpoint(torch)
     if "bench" in phases:
@@ -1657,7 +1757,7 @@ def main(argv: list[str] | None = None) -> int:
             "plain_ms": row.get("plain_ms"), "bound_ms": row.get("bound_ms"),
             "bound_by": row.get("bound_by"), "library_ms": row.get("library_ms"),
             **{f"{case}_case": {key: kernels.get(name, {}).get(case, {}).get(key)
-                                for key in keys} for case in ("moe", "tp2", "zz", "zzc", "d32", "d32zz")},
+                                for key in keys} for case in ("moe", "tp2", "zz", "zzc", "d32", "d32zz", "mla")},
             "tiles": row.get("tiles"),
             "compiled_tiles": {str(D): [list(p) for p in pairs]
                                for D, pairs in fa.COMPILED[name].items()},

@@ -247,15 +247,16 @@ def test_kernel_input_checks(dtype, D, contiguous, error):
 
 
 @pytest.mark.parametrize("D,width", [(32, 64), (8, 64), (40, 64), (96, 128),
-                                     (64, 64), (128, 128)])
+                                     (64, 64), (128, 128), (136, 192),
+                                     (192, 192)])
 def test_kernel_width_pads_up_to_the_next_compiled_head_dim(D, width):
     assert fa.kernel_width(D) == width
 
 
-@pytest.mark.parametrize("D", [136, 256, 36, 0])
+@pytest.mark.parametrize("D", [200, 256, 36, 0])
 def test_kernel_width_refuses_what_no_padding_serves(D):
-    """Above 128, or not a multiple of 8: raised, naming the widths."""
-    with pytest.raises(ValueError, match=r"takes \(64, 128\)"):
+    """Above 192, or not a multiple of 8: raised, naming the widths."""
+    with pytest.raises(ValueError, match=r"takes \(64, 128, 192\)"):
         fa.kernel_width(D)
 
 
@@ -318,6 +319,10 @@ def _card_inputs(B, S, Sk, H, KV, D):
         (1, 129, 129, 8, 2, 128, True),
         (2, 32, 32, 2, 1, 32, True),       # head_dim 32, padded to 64
         (2, 8, 8, 2, 1, 32, False),
+        (1, 300, 300, 4, 4, 192, True),    # DeepSeek-V2's q·k width, ragged
+        (2, 256, 256, 4, 4, 192, True),
+        (1, 200, 300, 4, 2, 192, False),
+        (2, 48, 48, 2, 2, 192, True),
     ],
 )
 def test_kernels_match_plain_versions_on_card(B, S, Sk, H, KV, D, causal, tiles):
@@ -346,8 +351,34 @@ def test_kernels_match_plain_versions_on_card(B, S, Sk, H, KV, D, causal, tiles)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_narrow_v_and_a_scale_on_card(causal):
+    """DeepSeek-V2's attention through the public API on the card: q, k
+    of width 192, v of 128 (padded to 192 for the kernels, sliced back),
+    the YaRN scale; O, lse and the three gradients against the plain
+    versions on the unpadded inputs (the limits above)."""
+    q, k, _, _ = _card_inputs(2, 384, 384, 4, 4, 192)
+    v, do = (t[..., :128].contiguous() for t in _card_inputs(2, 384, 384, 4, 4, 192)[2:])
+    scale = 0.1147
+    ref_o, ref_lse = fa.flash_fwd_reference(q, k, v, causal, scale)
+    delta = fa.flash_delta(ref_o, do)
+    want = [fa.flash_dq_reference(q, k, v, do, ref_lse, delta, causal, scale),
+            *fa.flash_dkv_reference(q, k, v, do, ref_lse, delta, causal, scale)]
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    o, lse = fa.flash_attention_with_lse(*leaves, causal=causal, scale=scale)
+    assert o.shape == (2, 384, 4, 128)
+    assert (o.float() - ref_o.float()).abs().max().item() <= 2e-2
+    assert (lse - ref_lse).abs().max().item() <= 1e-4
+    o.backward(do)
+    for t, b in zip(leaves, want):
+        assert t.grad.shape == b.shape
+        rel = ((t.grad.float() - b.float()).norm() / b.float().norm()).item()
+        assert rel <= 1e-2
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("kernel", ["flash_dq", "flash_dkv"])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 192])
 def test_backward_kernels_are_deterministic_on_card(kernel, D):
     """dQ, dK and dV are sums kept on chip and written once (no atomics),
     so two calls on the same inputs agree bit for bit."""

@@ -1,5 +1,7 @@
 """Training harness of the port: the dense Llama and MoE train steps, on
-one card or on a dp×pp×ep×sp×tp mesh of processes.
+one card or on a dp×pp×ep×sp×tp mesh of processes, and DeepSeek-V2's
+(latent attention, DeepSeekMoE over a held share of the experts) on one
+card.
 
 The counterpart of ``tpumon/workload/harness.py`` for the single-device
 and dp×pp×ep×sp×tp paths: next-token cross-entropy (plus the weighted GShard aux
@@ -29,6 +31,8 @@ CLI:  python -m tpumon.workload_torch.harness --steps 20
       python -m tpumon.workload_torch.harness --dp 2 --tp 2 --zero1
       python -m tpumon.workload_torch.harness --tp 2 --sp 2 --sp-layout zigzag
       python -m tpumon.workload_torch.harness --model moe --dp 2 --ep 2
+      python -m tpumon.workload_torch.harness --model deepseek_v2 --preset v2-lite-share \
+          --seq 4096 --batch 16 --attn flash --remat
       python -m tpumon.workload_torch.harness --pp 2 --tp 2 --interleave 2 --microbatches 4
       python -m tpumon.workload_torch.harness --dp 2 --tp 2 \
           --coordinator 10.0.0.1:29500 --num-processes 2 --process-id 0
@@ -39,6 +43,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import logging
 import os
@@ -50,7 +55,9 @@ from torch.utils.checkpoint import checkpoint
 
 from tpumon.workload_torch import flops as flops_mod
 from tpumon.workload_torch import spans
+from tpumon.workload_torch.models import deepseek_v2 as deepseek_mod
 from tpumon.workload_torch.models import moe as moe_mod
+from tpumon.workload_torch.models.deepseek_v2 import DeepseekV2, DeepseekV2Config
 from tpumon.workload_torch.models.llama import (
     Llama,
     LlamaConfig,
@@ -64,7 +71,6 @@ from tpumon.workload_torch.platform import PLATFORMS, resolve_device
 
 log = logging.getLogger(__name__)
 
-AUX_LOSS_WEIGHT = 0.01  # GShard load-balancing loss weight (MoE only)
 
 
 def _vocab_parallel_nll(logits, targets, mesh):
@@ -117,7 +123,9 @@ def _chunked_nll(x, unembed_w, targets, chunk, dtype, mesh=None):
 def loss_fn(model, tokens, attn_impl=None, remat=False, loss_chunk=0,
             forward_fn=None):
     """Next-token cross-entropy; inputs [B, S], targets are the shift-by-1.
-    A :class:`Moe` adds ``AUX_LOSS_WEIGHT`` × its aux loss. ``loss_chunk``
+    A :class:`Moe` or :class:`DeepseekV2` adds its config's ``aux_weight``
+    × its aux loss (Mixtral's GShard loss at 0.01, DeepSeek-V2's
+    sequence-level balance loss at ``aux_loss_alpha``). ``loss_chunk``
     (dense model only) fuses the unembed projection into the loss in
     sequence chunks of that many tokens (:func:`_chunked_nll`). Under the
     model's mesh the loss is the rank's data shard's, from vocab-sharded
@@ -130,10 +138,10 @@ def loss_fn(model, tokens, attn_impl=None, remat=False, loss_chunk=0,
         out = forward_fn(inputs)
         logits, aux = out if isinstance(out, tuple) else (out, None)
         loss = _mean_nll(logits, targets, mesh)
-        return loss if aux is None else loss + AUX_LOSS_WEIGHT * aux
-    if isinstance(model, Moe):
+        return loss if aux is None else loss + model.cfg.aux_weight * aux
+    if isinstance(model, (Moe, DeepseekV2)):
         logits, aux = model(inputs, attn_impl, remat)
-        return _mean_nll(logits, targets, mesh) + AUX_LOSS_WEIGHT * aux
+        return _mean_nll(logits, targets, mesh) + model.cfg.aux_weight * aux
     if loss_chunk:
         x = model(inputs, attn_impl, remat, unembed=False)
         return _chunked_nll(x, model.unembed, targets, loss_chunk,
@@ -149,11 +157,17 @@ def _mean_nll(logits, targets, mesh=None):
     return -logp.gather(-1, targets[..., None]).mean()
 
 
-def make_optimizer(params) -> torch.optim.Optimizer:
-    """AdamW with optax.adamw(1e-3)'s defaults. weight_decay is optax's
-    1e-4; torch's own default of 1e-2 would train a different model."""
+#: AdamW's learning rate, optax.adamw(1e-3)'s, unless the model's config
+#: sets its own (``DeepseekV2Config.learning_rate``).
+LEARNING_RATE = 1e-3
+
+
+def make_optimizer(params, lr: float = LEARNING_RATE) -> torch.optim.Optimizer:
+    """AdamW with optax.adamw(1e-3)'s defaults at learning rate ``lr``.
+    weight_decay is optax's 1e-4; torch's own default of 1e-2 would train
+    a different model."""
     return torch.optim.AdamW(
-        params, lr=1e-3, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4,
+        params, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4,
     )
 
 
@@ -163,13 +177,16 @@ def _param_specs(model) -> dict[str, int]:
 
 def build_optimizer(named_params, model, zero1: bool = False):
     """:func:`make_optimizer` over ``named_params`` (``model``'s, or
-    copies in the same order), or under ``zero1`` its ZeRO-1 form over
-    ``model``'s mesh (:class:`parallel.mesh.Zero1`)."""
+    copies in the same order), at the learning rate of ``model``'s config
+    where it has one, or under ``zero1`` its ZeRO-1 form over ``model``'s
+    mesh (:class:`parallel.mesh.Zero1`)."""
     named_params = list(named_params)
+    lr = getattr(model.cfg, "learning_rate", LEARNING_RATE)
     if zero1:
-        return mesh_mod.Zero1(named_params, model.mesh, make_optimizer,
+        return mesh_mod.Zero1(named_params, model.mesh,
+                              functools.partial(make_optimizer, lr=lr),
                               _param_specs(model))
-    return make_optimizer([p for _, p in named_params])
+    return make_optimizer([p for _, p in named_params], lr)
 
 
 def _moment_bytes(model, optimizer) -> dict[str, int]:
@@ -429,7 +446,15 @@ def _build_model(cfg, params, generator, device, mesh=None, interleave: int = 1)
     ``mesh`` every rank builds the full model from the same seed (or
     tree) and keeps its slice (``parallel.mesh.shard_params``): under pp,
     the layers of its stage's ``interleave`` chunks
-    (``parallel.pipeline.stage_layers``)."""
+    (``parallel.pipeline.stage_layers``). DeepSeek-V2 has no JAX
+    counterpart and runs on one device."""
+    if isinstance(cfg, DeepseekV2Config):
+        if params is None:
+            return deepseek_mod.init_params(cfg, generator)
+        if isinstance(params, torch.nn.Module):
+            return params.to(device)
+        raise ValueError("DeepSeek-V2 has no JAX counterpart: params must be "
+                         "a DeepseekV2 module or None")
     is_moe = isinstance(cfg, MoeConfig)
     if params is None:
         full = (moe_mod.init_params if is_moe else init_params)(cfg, generator)
@@ -573,6 +598,7 @@ def run(
     if zero1 and dp < 2:
         raise ValueError("zero1 shards optimizer state over dp; it needs a "
                          "mesh with dp > 1")
+    check_deepseek(cfg, dp=dp, tp=tp, sp=sp, pp=pp, ep=ep, loss_chunk=loss_chunk)
     if loss_chunk:
         if loss_chunk < 1:
             raise ValueError(f"loss_chunk must be >= 1, got {loss_chunk}")
@@ -666,6 +692,23 @@ def run(
     result.mfu = flops_mod.mfu(cfg, batch, seq, result.steps_per_sec, run_devices)
     result.moment_bytes = _moment_bytes(model, optimizer)
     return result
+
+
+def check_deepseek(cfg, *, dp: int = 1, tp: int = 1, sp: int = 1, pp: int = 1,
+                   ep: int = 1, loss_chunk: int = 0) -> None:
+    """DeepSeek-V2 runs on one device, as one card's share of its experts:
+    raise for a mesh (its exchange and splits are not written) and for
+    ``loss_chunk`` (the dense model's fused unembed)."""
+    if not isinstance(cfg, DeepseekV2Config):
+        return
+    axes = {"dp": dp, "tp": tp, "sp": sp, "pp": pp, "ep": ep}
+    meshed = [f"{axis}={n}" for axis, n in axes.items() if n > 1]
+    if meshed:
+        raise ValueError(f"DeepSeek-V2 runs on one device; it takes no mesh "
+                         f"({', '.join(meshed)})")
+    if loss_chunk:
+        raise ValueError("loss_chunk fuses the dense model's unembed into the "
+                         "loss; it does not compose with DeepSeek-V2")
 
 
 def check_ep(cfg, ep: int) -> None:
@@ -942,16 +985,20 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--seq", type=int, default=None)
     parser.add_argument(
         "--preset",
-        choices=("tiny", "small", "medium", "llama3-8b"),
+        choices=("tiny", "small", "medium", "llama3-8b", "v2-lite-share"),
         default="tiny",
         help="model size: tiny/small for quick runs; medium (~0.67B) is the "
         "main path's model at seq 4096 (pair with --attn flash, --remat "
-        "and --grad-accum); llama3-8b is Llama-3-8B's shape",
+        "and --grad-accum); llama3-8b is Llama-3-8B's shape; v2-lite-share "
+        "(--model deepseek_v2) is one EP8 card's share of DeepSeek-V2-Lite",
     )
     parser.add_argument(
-        "--model", choices=("llama", "moe"), default="llama",
+        "--model", choices=("llama", "moe", "deepseek_v2"), default="llama",
         help="moe takes the presets tiny and small (moe-small: 0.153B, 8 "
-        "experts top-2; pair with --seq 4096 --attn flash --remat)",
+        "experts top-2; pair with --seq 4096 --attn flash --remat); "
+        "deepseek_v2 the presets tiny and v2-lite-share (2.744 B: all 27 "
+        "layers, routed experts 0-7 of 64, an eighth of the vocabulary; "
+        "one card, pair with --seq 4096 --attn flash --remat)",
     )
     for axis in ("dp", "tp", "sp", "pp", "ep"):
         parser.add_argument(f"--{axis}", type=int, default=1)
@@ -1080,9 +1127,16 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def model_config(args: argparse.Namespace) -> LlamaConfig | MoeConfig:
+def model_config(args: argparse.Namespace) -> LlamaConfig | MoeConfig | DeepseekV2Config:
     """The config that ``--model``, ``--preset`` and ``--capacity-factor``
     of parsed :func:`build_parser` arguments name."""
+    if args.model == "deepseek_v2":
+        presets = {"tiny": DeepseekV2Config.tiny,
+                   "v2-lite-share": DeepseekV2Config.v2_lite_share}
+        if args.preset not in presets:
+            log.warning("--model deepseek_v2 has tiny/v2-lite-share presets; "
+                        "ignoring --preset %s", args.preset)
+        return presets.get(args.preset, DeepseekV2Config.tiny)()
     if args.model == "moe":
         moe_presets = {"tiny": MoeConfig.tiny, "small": MoeConfig.small}
         if args.preset not in moe_presets:
@@ -1188,6 +1242,8 @@ def _main(argv: list[str], results=None) -> int:
                      "--checkpoint-dir")
     if args.capacity_factor is not None and args.model != "moe":
         parser.error("--capacity-factor requires --model moe")
+    if args.preset == "v2-lite-share" and args.model != "deepseek_v2":
+        parser.error("--preset v2-lite-share requires --model deepseek_v2")
     if min(args.dp, args.tp, args.sp, args.pp, args.ep) < 1:
         parser.error("--dp, --tp, --sp, --pp and --ep must be >= 1")
     if args.zero1 and args.dp < 2:
@@ -1206,6 +1262,8 @@ def _main(argv: list[str], results=None) -> int:
                  model_config(args).n_layers, cfg.n_layers, args.pp,
                  args.interleave)
     try:  # before any rank starts
+        check_deepseek(cfg, dp=args.dp, tp=args.tp, sp=args.sp, pp=args.pp,
+                       ep=args.ep, loss_chunk=args.loss_chunk)
         check_sp(cfg, seq=args.seq or cfg.max_seq, sp=args.sp,
                  sp_layout=args.sp_layout, loss_chunk=args.loss_chunk)
         check_ep(cfg, args.ep)

@@ -16,12 +16,20 @@ and expert products are plain large einsums that the reference also
 leaves to the compiler; they carry no hand kernel. The routing, the
 dispatch, the experts and the combine each run in a span of their own
 (``spans.py``).
+
+Beside the capacity path, and unused by :class:`Moe`, is a dropless
+dispatch over a held share of the experts (:func:`dropless_experts`:
+sort the (token, choice) pairs by expert, gather their rows, grouped
+products, scatter-add the gated rows back), which DeepSeek-V2's layers
+run (``models/deepseek_v2.py``), in the spans ``permute``, ``experts``
+and ``unpermute``, counted in :data:`dropless_counts`.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from typing import ClassVar
 
 import torch
 from torch import nn
@@ -47,6 +55,10 @@ class MoeConfig:
     top_k: int = 2
     capacity_factor: float = 2.0
     dtype: torch.dtype = torch.bfloat16
+
+    #: The weight of the aux loss in the train step's loss (the reference's
+    #: constant; a class value, so that the fields stay the reference's).
+    aux_weight: ClassVar[float] = 0.01
 
     @property
     def head_dim(self) -> int:
@@ -196,6 +208,90 @@ def _combine(combine, y, dtype):
     """The experts' slots y [E',B,C,D] back to the tokens [B,S,D], by
     their gates."""
     return torch.einsum("bsec,ebcd->bsd", combine.to(dtype), y)
+
+
+# ---------------------------------------------------------------------------
+# Dropless dispatch over a held share of the experts (DeepSeek-V2's layer;
+# the capacity path above is Mixtral's)
+# ---------------------------------------------------------------------------
+
+#: Since the last :func:`reset_dropless_counts`: the rows the dropless
+#: dispatch gave each held expert (by its global index), and its host
+#: reads of the per-expert counts (one a call: a layer's forward, and
+#: again in remat's recompute).
+dropless_counts: dict = {"rows": {}, "host_reads": 0}
+
+
+def reset_dropless_counts() -> None:
+    dropless_counts["rows"] = {}
+    dropless_counts["host_reads"] = 0
+
+
+def sort_by_expert(experts: torch.Tensor, start: int, held: int):
+    """experts [T, k] (global expert ids) → (order [T·k], counts [held]):
+    the flat (token, choice) pairs sorted by expert, stably (token order
+    within an expert), those of experts outside the held range
+    [start, start + held) after all the others; and each held expert's
+    count of pairs."""
+    local = experts.reshape(-1) - start
+    local = torch.where((local >= 0) & (local < held), local, held)
+    order = torch.argsort(local, stable=True)
+    counts = torch.bincount(local, minlength=held + 1)[:held]
+    return order, counts
+
+
+@traced("permute")
+def _permute(x, experts, start: int, held: int):
+    """x [T, D], experts [T, k] → (rows [n, D]: the token of each held
+    pair, grouped by expert; tokens [n]; pairs [n], the flat (token,
+    choice) index of each row; sizes: each held expert's n, read on the
+    host once)."""
+    k = experts.shape[1]
+    order, counts = sort_by_expert(experts, start, held)
+    sizes = counts.tolist()
+    dropless_counts["host_reads"] += 1
+    rows = dropless_counts["rows"]
+    for e, n in enumerate(sizes):
+        rows[start + e] = rows.get(start + e, 0) + n
+    pairs = order[:sum(sizes)]
+    tokens = pairs // k
+    return x[tokens], tokens, pairs, sizes
+
+
+@traced("experts")
+def _grouped_swiglu(rows, sizes, w_gate, w_up, w_down, dtype):
+    """Each held expert's SwiGLU on its rows as grouped products
+    (``torch._grouped_mm``, with autograd, on the card and on the host):
+    rows [n, D] grouped by expert with ``sizes`` rows each, banks
+    [E', D, F] / [E', F, D] → [n, D]."""
+    wg, wu, wd = (cast(w, dtype) for w in (w_gate, w_up, w_down))
+    offs = torch.tensor(sizes, device=rows.device).cumsum(0).to(torch.int32)
+    gate = torch._grouped_mm(rows, wg, offs=offs)
+    up = torch._grouped_mm(rows, wu, offs=offs)
+    return torch._grouped_mm(F.silu(gate) * up, wd, offs=offs)
+
+
+@traced("unpermute")
+def _unpermute(y, tokens, pairs, gates, n_tokens: int, dtype):
+    """Each row y [n, D] times its pair's gate, summed into its token
+    (f32 accumulation): → [n_tokens, D] in ``dtype``."""
+    w = gates.reshape(-1)[pairs]
+    out = y.new_zeros((n_tokens, y.shape[1]), dtype=torch.float32)
+    return out.index_add(0, tokens, y.float() * w[:, None]).to(dtype)
+
+
+def dropless_experts(x, experts, gates, w_gate, w_up, w_down, start: int,
+                     dtype):
+    """The held experts' part of a routed layer, with no capacity and no
+    dropped token: x [T, D], experts [T, k] (global ids over every routed
+    expert) and gates [T, k] f32, banks of the E' experts held, from
+    ``start`` on → [T, D] in ``dtype``. Pairs of experts not held add
+    nothing; the rows' order is a stable sort by expert
+    (:func:`sort_by_expert`), the products grouped, the gated rows
+    scatter-added back."""
+    rows, tokens, pairs, sizes = _permute(x, experts, start, w_gate.shape[0])
+    y = _grouped_swiglu(rows, sizes, w_gate, w_up, w_down, dtype)
+    return _unpermute(y, tokens, pairs, gates, x.shape[0], dtype)
 
 
 def check_ep(cfg: MoeConfig, ep: int) -> None:

@@ -1,5 +1,5 @@
-"""Core ops of the workload model: RMSNorm, rotary embeddings and the
-cast of an f32 master weight to the compute dtype.
+"""Core ops of the workload model: RMSNorm, rotary embeddings (YaRN's
+too) and the cast of an f32 master weight to the compute dtype.
 
 Counterparts of ``tpumon/workload/ops/core.py``, computed in the same
 dtypes (f32 inside, cast back to the input dtype). Each runs in its own
@@ -17,6 +17,8 @@ CUDA tensors it launches the kernels or raises (:func:`check_kernel_inputs`).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -199,6 +201,44 @@ def rope_freqs(
     """Rotary-embedding angles [max_seq, head_dim // 2], float32."""
     exponent = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device)
     inv = 1.0 / (theta ** (exponent / head_dim))
+    t = torch.arange(max_seq, dtype=torch.float32, device=device)
+    return torch.outer(t, inv)
+
+
+def yarn_mscale(factor: float, mscale: float = 1.0) -> float:
+    """YaRN's attention temperature for a context ``factor`` times the
+    original (``yarn_get_mscale`` of DeepSeek-V2's modeling code):
+    0.1·mscale·ln(factor) + 1, or 1 where factor ≤ 1."""
+    if factor <= 1.0:
+        return 1.0
+    return 0.1 * mscale * math.log(factor) + 1.0
+
+
+def yarn_freqs(dim: int, max_seq: int, theta: float = 10000.0,
+               factor: float = 1.0, original_max: int = 4096,
+               beta_fast: float = 32.0, beta_slow: float = 1.0,
+               device=None) -> torch.Tensor:
+    """YaRN's rotary angles [max_seq, dim // 2] f32, after DeepSeek-V2's
+    ``DeepseekV2YarnRotaryEmbedding``: each pair's frequency blends the
+    original θ^(−2i/dim) (pairs that turn more than ``beta_fast`` times
+    over ``original_max`` positions) with it divided by ``factor`` (pairs
+    that turn fewer than ``beta_slow`` times), linearly in between. With
+    ``factor`` 1 they are :func:`rope_freqs`'s."""
+
+    def pair_of(turns: float) -> float:
+        # The pair index whose wavelength fits ``turns`` times in original_max.
+        return (dim * math.log(original_max / (turns * 2 * math.pi))
+                / (2 * math.log(theta)))
+
+    low = max(math.floor(pair_of(beta_fast)), 0)
+    high = min(math.ceil(pair_of(beta_slow)), dim - 1)
+    if low == high:
+        high += 0.001
+    exponent = torch.arange(0, dim, 2, dtype=torch.float32, device=device)
+    extra = 1.0 / (theta ** (exponent / dim))
+    ramp = (torch.arange(dim // 2, dtype=torch.float32, device=device) - low) / (high - low)
+    ramp = ramp.clamp(0.0, 1.0)
+    inv = extra / factor * ramp + extra * (1.0 - ramp)
     t = torch.arange(max_seq, dtype=torch.float32, device=device)
     return torch.outer(t, inv)
 

@@ -285,7 +285,10 @@ int run(const void* q, const void* k, const void* v, const void* dout,
 }
 
 // The compiled tile pairs at head dim D (ops/flash_attention.py COMPILED
-// lists the same): every (BQ, BK) in {64, 128}^2 but 128 x 128.
+// lists the same): every (BQ, BK) in {64, 128}^2 but 128 x 128 at D = 64
+// and 128; at D = 192 only 64 x 64. There a consumer thread holds dQ (96),
+// S and dP (32 each) and dS (16): past the 168 registers of a 128-row
+// CTA; and a 128-row k stage (2 x 48 KB, twice) is over the shared memory.
 template <int D>
 int dispatch(int block_q, int block_k, const void* q, const void* k,
              const void* v, const void* dout, const void* lse,
@@ -297,8 +300,10 @@ int dispatch(int block_q, int block_k, const void* q, const void* k,
                           Sk, scale, causal, stream);                      \
   }
   DQ_TILE(64, 64)
-  DQ_TILE(64, 128)
-  DQ_TILE(128, 64)
+  if constexpr (D <= 128) {
+    DQ_TILE(64, 128)
+    DQ_TILE(128, 64)
+  }
 #undef DQ_TILE
   return TILE_ERROR;
 }
@@ -320,6 +325,10 @@ extern "C" int flash_dq(const void* q, const void* k, const void* v,
   if (D == 64) {
     return dq::dispatch<64>(block_q, block_k, q, k, v, dout, lse, delta, dq,
                             B, H, KV, S, Sk, scale, causal, stream);
+  }
+  if (D == 192) {
+    return dq::dispatch<192>(block_q, block_k, q, k, v, dout, lse, delta, dq,
+                             B, H, KV, S, Sk, scale, causal, stream);
   }
   return int(cudaErrorInvalidValue);
 }

@@ -13,6 +13,9 @@
 // 0.139 ms at 989 TFLOP/s bf16, against 0.017 ms for its 56.6 MB of bytes:
 // bound by operations.
 //
+// Head dims 64, 128 and 192 (DeepSeek-V2's q.k width, 128 + 64 rotary;
+// the wrapper pads its v of 128 columns to 192 with zeros).
+//
 // Design (one CTA per batch, q-head and BQ-row q-block; the tile pair
 // BQ x BK, 64 or 128 rows each, is a template parameter that the wrapper
 // picks per call, as the reference's block_q / block_k):
@@ -285,7 +288,9 @@ int run(const void* q, const void* k, const void* v, void* o, void* lse,
 }
 
 // The compiled tile pairs at head dim D (ops/flash_attention.py COMPILED
-// lists the same): every (BQ, BK) in {64, 128}^2.
+// lists the same): every (BQ, BK) in {64, 128}^2 at D = 64 and 128; at
+// D = 192 all but 128 x 128, whose q tile and two stages of K and V
+// (48 + 4 x 48 KB) are over the 227 KB of shared memory.
 template <int D>
 int dispatch(int block_q, int block_k, const void* q, const void* k,
              const void* v, void* o, void* lse, int B, int H, int KV, int S,
@@ -298,7 +303,9 @@ int dispatch(int block_q, int block_k, const void* q, const void* k,
   FWD_TILE(64, 64)
   FWD_TILE(64, 128)
   FWD_TILE(128, 64)
-  FWD_TILE(128, 128)
+  if constexpr (D <= 128) {
+    FWD_TILE(128, 128)
+  }
 #undef FWD_TILE
   return TILE_ERROR;
 }
@@ -319,6 +326,10 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
   if (D == 64) {
     return fwd::dispatch<64>(block_q, block_k, q, k, v, o, lse, B, H, KV, S,
                              Sk, scale, causal, stream);
+  }
+  if (D == 192) {
+    return fwd::dispatch<192>(block_q, block_k, q, k, v, o, lse, B, H, KV, S,
+                              Sk, scale, causal, stream);
   }
   return int(cudaErrorInvalidValue);
 }

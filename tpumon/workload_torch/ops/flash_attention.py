@@ -20,10 +20,17 @@ launches its kernel or raises; it counts the launch in :data:`launches`.
 For tensors on the CPU it computes the same function with its plain
 PyTorch version (``*_reference``, dense f32 math), which is also what the
 kernels are held against on the card. The kernels are compiled for
-head dims 64 and 128; a narrower head dim that is a multiple of 8 (the
-tiny preset's 32) runs on the next of them with zero columns, still one
-launch a call (:func:`kernel_width`, :func:`_on_width`). The Δ pre-pass (rowsum(dO·O) minus
-the lse cotangent) is plain torch, as XLA fused it outside Pallas.
+head dims 64, 128 and 192; a narrower head dim that is a multiple of 8
+(the tiny preset's 32) runs on the next of them with zero columns, still
+one launch a call (:func:`kernel_width`, :func:`_on_width`). V may be
+narrower than q and k (DeepSeek-V2's latent attention: q·k width 192, v
+width 128): the kernels then run with v and dO padded to the q·k width
+and O and dV sliced back, which is exact. The softmax scale defaults to
+1/√D of the q·k width; ``scale`` sets another (YaRN's mscale² / √D) on
+the functions, and :func:`softmax_scale` is the one way a model sets it
+for an ``attn_impl``, whose call takes q, k and v only. The Δ pre-pass
+(rowsum(dO·O) minus the lse cotangent) is plain torch, as XLA fused it
+outside Pallas.
 
 Tiles: ``block_q``/``block_k`` keep the reference's meaning (q rows and
 k rows of a tile) on every entry point. Each kernel is compiled for tiles
@@ -43,6 +50,8 @@ interpret mode.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import functools
 import math
 
@@ -54,10 +63,10 @@ import torch.nn.functional as F
 NEG_BIG = -1e30
 
 #: Head dims the CUDA kernels are compiled for (small/medium: 64/128,
-#: llama3_8b: 128). A smaller head dim that is a multiple of 8 (tiny's
-#: 32) runs on the next of them with zero columns (:func:`kernel_width`).
-#: The plain versions take any.
-HEAD_DIMS = (64, 128)
+#: llama3_8b: 128, DeepSeek-V2's q·k width: 192). A smaller head dim that
+#: is a multiple of 8 (tiny's 32) runs on the next of them with zero
+#: columns (:func:`kernel_width`). The plain versions take any.
+HEAD_DIMS = (64, 128, 192)
 
 #: Tile rows the kernels are compiled for: the values a ``block_q`` or
 #: ``block_k`` request is clamped to (:func:`pick_block`).
@@ -65,21 +74,24 @@ TILES = (64, 128)
 
 #: kernel -> kernel head dim -> the (block_q, block_k) pairs its C entry
 #: takes (``ops/csrc/*.cu`` dispatch the same). flash_dq leaves out
-#: 128 x 128 (ptxas spilled it at both head dims; ``csrc/flash_dq.cu``).
+#: 128 x 128 (ptxas spilled it at both head dims; ``csrc/flash_dq.cu``),
+#: and at D = 192 takes 64 x 64 only (its registers and shared memory).
+#: flash_fwd at D = 192 leaves out 128 x 128 (over the shared memory).
 #: flash_dkv takes both block_q and streams each at its register cap
-#: (:data:`DKV_Q_ROWS`).
+#: (:data:`DKV_Q_ROWS`); at D = 192 its k tile is 64 rows (128 spilled).
 _ALL_PAIRS = tuple((bq, bk) for bq in TILES for bk in TILES)
+_NOT_128x128 = tuple(p for p in _ALL_PAIRS if p != (128, 128))
 COMPILED: dict[str, dict[int, tuple[tuple[int, int], ...]]] = {
-    "flash_fwd": {D: _ALL_PAIRS for D in HEAD_DIMS},
-    "flash_dq": {D: tuple(p for p in _ALL_PAIRS if p != (128, 128))
-                 for D in HEAD_DIMS},
-    "flash_dkv": {D: _ALL_PAIRS for D in HEAD_DIMS},
+    "flash_fwd": {64: _ALL_PAIRS, 128: _ALL_PAIRS, 192: _NOT_128x128},
+    "flash_dq": {64: _NOT_128x128, 128: _NOT_128x128, 192: ((64, 64),)},
+    "flash_dkv": {64: _ALL_PAIRS, 128: _ALL_PAIRS,
+                  192: tuple(p for p in _ALL_PAIRS if p[1] == 64)},
 }
 
 #: flash_dkv's q rows a stage at each kernel head dim, whatever block_q
 #: asks (the registers' cap; at D = 128 the dK launch's, where the dV
-#: launch streams 64).
-DKV_Q_ROWS = {64: 64, 128: 32}
+#: launch streams 64; at D = 192 both launches').
+DKV_Q_ROWS = {64: 64, 128: 32, 192: 32}
 
 #: SMs of an H100: a grid below one wave of them leaves SMs idle.
 H100_SMS = 132
@@ -243,15 +255,15 @@ def flash_dq_reference(q, k, v, do, lse, delta, causal: bool = True,
 
 def flash_dkv_reference(q, k, v, do, lse, delta, causal: bool = True,
                         scale: float | None = None):
-    """Plain version of ``flash_dkv``: (dK, dV) [B,Sk,KV,D] in k's and
-    v's dtypes, summed over each kv-head's group of q-heads."""
+    """Plain version of ``flash_dkv``: (dK [B,Sk,KV,D], dV [B,Sk,KV,Dv])
+    in k's and v's dtypes, summed over each kv-head's group of q-heads."""
     B, Sk, KV, D = k.shape
     group = q.shape[2] // KV
     p, ds = _p_ds(q, k, v, do, lse, delta, causal, scale)
     dv = torch.einsum("bhqk,bqhd->bkhd", p, do.float())
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
     dk = dk.reshape(B, Sk, KV, group, D).sum(dim=3)
-    dv = dv.reshape(B, Sk, KV, group, D).sum(dim=3)
+    dv = dv.reshape(B, Sk, KV, group, v.shape[3]).sum(dim=3)
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -264,10 +276,11 @@ def _check_shapes(q, k, v, causal: bool) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash attention takes [B, S, H, D] tensors")
     B, S, H, D = q.shape
-    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
+    if (k.shape[:3] != v.shape[:3] or k.shape[0] != B or k.shape[3] != D
+            or not 0 < v.shape[3] <= D):
         raise ValueError(
-            f"k/v must be [B, Sk, KV, D] matching q {tuple(q.shape)}; got "
-            f"k {tuple(k.shape)}, v {tuple(v.shape)}"
+            f"k must be [B, Sk, KV, D] and v [B, Sk, KV, Dv ≤ D] matching q "
+            f"{tuple(q.shape)}; got k {tuple(k.shape)}, v {tuple(v.shape)}"
         )
     KV, Sk = k.shape[2], k.shape[1]
     if H % KV:
@@ -308,6 +321,9 @@ def _check_kernel_inputs(named: dict[str, torch.Tensor]) -> None:
         raise ValueError(
             f"flash kernel: head_dim {D} not compiled (takes {HEAD_DIMS})"
         )
+    if named["v"].shape[3] != D:
+        raise ValueError("flash kernel: v must be as wide as q and k (the "
+                         "wrappers pad a narrower v)")
 
 
 #: The C entries' code for a tile pair they are not compiled for
@@ -355,28 +371,36 @@ def _pad(t: torch.Tensor, width: int) -> torch.Tensor:
     return t if t.shape[3] == width else F.pad(t, (0, width - t.shape[3]))
 
 
-def _on_width(run, q, k, v, *rest, causal: bool):
+def _on_width(run, q, k, v, *rest, causal: bool, scale: float | None = None):
     """``run(q, k, v, *rest, causal, scale)`` at the kernels' width
-    (:func:`kernel_width`): q, k, v and dO (the first of ``rest``, in the
-    backward) padded with zero columns, ``scale`` 1/√D of the true D, and
-    every [B, S, heads, width] output sliced back to D. The padding is
-    exact: zero columns add nothing to QKᵀ or dO·Vᵀ, so P, lse and Δ are
-    unchanged, and the padded columns of O = P·V, dQ = dS·K, dK = dSᵀ·Q
-    and dV = Pᵀ·dO are zeros that the slice drops."""
-    D = q.shape[3]
+    (:func:`kernel_width` of the q·k width D): q, k, v and dO (the first
+    of ``rest``, in the backward) padded with zero columns, ``scale``
+    1/√D of the true D unless given, and each [B, S, heads, width] output
+    sliced back to its own width: O and dV to v's width Dv, dQ and dK to
+    D. The padding is exact: zero columns add nothing to QKᵀ or dO·Vᵀ, so
+    P, lse and Δ are unchanged, and the padded columns of O = P·V,
+    dQ = dS·K, dK = dSᵀ·Q and dV = Pᵀ·dO are zeros that the slice
+    drops."""
+    D, Dv = q.shape[3], v.shape[3]
     width = kernel_width(D)
-    scale = 1.0 / math.sqrt(D)
-    if width != D:
+    scale = 1.0 / math.sqrt(D) if scale is None else scale
+    if width != D or Dv != width:
         q, k, v = (_pad(t, width) for t in (q, k, v))
         rest = (_pad(rest[0], width), *rest[1:]) if rest else rest
     out = run(q, k, v, *rest, causal, scale)
-    if width == D:
-        return out
+    if not rest:
+        widths = (Dv, None)  # O, lse
+    elif isinstance(out, tuple):
+        widths = (D, Dv)  # dK, dV
+    else:
+        widths = (D,)  # dQ
 
-    def cut(t):
-        return t[..., :D].contiguous() if t.dim() == 4 else t
+    def cut(t, w):
+        return t if w is None or t.shape[3] == w else t[..., :w].contiguous()
 
-    return tuple(map(cut, out)) if isinstance(out, tuple) else cut(out)
+    if isinstance(out, tuple):
+        return tuple(map(cut, out, widths))
+    return cut(out, widths[0])
 
 
 def _dims(q, k):
@@ -445,43 +469,45 @@ def _dkv_kernel(q, k, v, do, lse, delta, causal, scale, *, block_q=None,
     return dk, dv
 
 
-def flash_fwd(q, k, v, causal: bool = True, *, block_q: int | None = None,
-              block_k: int | None = None):
-    """(O [B,S,H,D], lse [B,H,S] f32) — kernel ``flash_fwd`` on the card
+def flash_fwd(q, k, v, causal: bool = True, *, scale: float | None = None,
+              block_q: int | None = None, block_k: int | None = None):
+    """(O [B,S,H,Dv], lse [B,H,S] f32) — kernel ``flash_fwd`` on the card
     at the tiles of :func:`effective_blocks`, :func:`flash_fwd_reference`
-    for CPU tensors."""
+    for CPU tensors. ``scale`` defaults to 1/√D."""
     _check_shapes(q, k, v, causal)
     _check_request(block_q, block_k)
     if _on_cpu(q, k, v):
-        return flash_fwd_reference(q, k, v, causal)
+        return flash_fwd_reference(q, k, v, causal, scale)
     run = functools.partial(_fwd_kernel, block_q=block_q, block_k=block_k)
-    return _on_width(run, q, k, v, causal=causal)
+    return _on_width(run, q, k, v, causal=causal, scale=scale)
 
 
 def flash_dq(q, k, v, do, lse, delta, causal: bool = True, *,
-             block_q: int | None = None, block_k: int | None = None):
+             scale: float | None = None, block_q: int | None = None,
+             block_k: int | None = None):
     """dQ [B,S,H,D] — kernel ``flash_dq`` on the card at the tiles of
     :func:`effective_blocks`, :func:`flash_dq_reference` for CPU
     tensors."""
     _check_shapes(q, k, v, causal)
     _check_request(block_q, block_k)
     if _on_cpu(q, k, v, do, lse, delta):
-        return flash_dq_reference(q, k, v, do, lse, delta, causal)
+        return flash_dq_reference(q, k, v, do, lse, delta, causal, scale)
     run = functools.partial(_dq_kernel, block_q=block_q, block_k=block_k)
-    return _on_width(run, q, k, v, do, lse, delta, causal=causal)
+    return _on_width(run, q, k, v, do, lse, delta, causal=causal, scale=scale)
 
 
 def flash_dkv(q, k, v, do, lse, delta, causal: bool = True, *,
-              block_q: int | None = None, block_k: int | None = None):
-    """(dK, dV) [B,Sk,KV,D] — kernel ``flash_dkv`` on the card at the
-    tiles of :func:`effective_blocks`, :func:`flash_dkv_reference` for CPU
-    tensors."""
+              scale: float | None = None, block_q: int | None = None,
+              block_k: int | None = None):
+    """(dK [B,Sk,KV,D], dV [B,Sk,KV,Dv]) — kernel ``flash_dkv`` on the
+    card at the tiles of :func:`effective_blocks`,
+    :func:`flash_dkv_reference` for CPU tensors."""
     _check_shapes(q, k, v, causal)
     _check_request(block_q, block_k)
     if _on_cpu(q, k, v, do, lse, delta):
-        return flash_dkv_reference(q, k, v, do, lse, delta, causal)
+        return flash_dkv_reference(q, k, v, do, lse, delta, causal, scale)
     run = functools.partial(_dkv_kernel, block_q=block_q, block_k=block_k)
-    return _on_width(run, q, k, v, do, lse, delta, causal=causal)
+    return _on_width(run, q, k, v, do, lse, delta, causal=causal, scale=scale)
 
 
 def flash_delta(out, g_out, g_lse=None):
@@ -504,12 +530,12 @@ class _FlashLse(torch.autograd.Function):
     from their kernels, recomputing P from the saved lse."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, block_q, block_k):
+    def forward(ctx, q, k, v, causal, block_q, block_k, scale):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        tiles = {"block_q": block_q, "block_k": block_k}
-        out, lse = flash_fwd(q, k, v, causal, **tiles)
+        kw = {"scale": scale, "block_q": block_q, "block_k": block_k}
+        out, lse = flash_fwd(q, k, v, causal, **kw)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.tiles = causal, tiles
+        ctx.causal, ctx.kw = causal, kw
         return out, lse
 
     @staticmethod
@@ -517,15 +543,18 @@ class _FlashLse(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         g_out = g_out.contiguous()
         delta = flash_delta(out, g_out, g_lse)
-        dq = flash_dq(q, k, v, g_out, lse, delta, ctx.causal, **ctx.tiles)
-        dk, dv = flash_dkv(q, k, v, g_out, lse, delta, ctx.causal, **ctx.tiles)
-        return dq, dk, dv, None, None, None
+        dq = flash_dq(q, k, v, g_out, lse, delta, ctx.causal, **ctx.kw)
+        dk, dv = flash_dkv(q, k, v, g_out, lse, delta, ctx.causal, **ctx.kw)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention_with_lse(q, k, v, *, causal: bool = True,
+                             scale: float | None = None,
                              block_q: int | None = None,
                              block_k: int | None = None):
-    """Flash attention returning ``(out [B,S,H,D], lse [B,H,S] f32)``.
+    """Flash attention returning ``(out [B,S,H,Dv], lse [B,H,S] f32)``,
+    q and k of width D, v of width Dv ≤ D, scores scaled by ``scale``
+    (default 1/√D).
 
     Both outputs are differentiable: the lse cotangent folds into the
     backward's Δ (:func:`flash_delta`), so two partials over the same
@@ -536,27 +565,48 @@ def flash_attention_with_lse(q, k, v, *, causal: bool = True,
     :func:`default_blocks`).
     """
     _check_shapes(q, k, v, causal)
-    return _FlashLse.apply(q, k, v, causal, block_q, block_k)
+    return _FlashLse.apply(q, k, v, causal, block_q, block_k, scale)
 
 
-def flash_attention(q, k, v, *, causal: bool = True,
+def flash_attention(q, k, v, *, causal: bool = True, scale: float | None = None,
                     block_q: int | None = None, block_k: int | None = None):
     """Flash attention over [B, S, H, D] tensors (model layout); K/V may
-    carry fewer heads than Q (grouped-query, never materialized).
-    ``block_q``/``block_k`` as in :func:`flash_attention_with_lse`."""
-    out, _ = flash_attention_with_lse(q, k, v, causal=causal, block_q=block_q,
-                                      block_k=block_k)
+    carry fewer heads than Q (grouped-query, never materialized), and V
+    fewer columns. ``scale``, ``block_q``/``block_k`` as in
+    :func:`flash_attention_with_lse`."""
+    out, _ = flash_attention_with_lse(q, k, v, causal=causal, scale=scale,
+                                      block_q=block_q, block_k=block_k)
     return out
+
+
+#: The scale :func:`softmax_scale` sets for the impls' calls.
+_SCALE: contextvars.ContextVar = contextvars.ContextVar("flash_softmax_scale",
+                                                        default=None)
+
+
+@contextlib.contextmanager
+def softmax_scale(scale: float):
+    """Inside the block, an ``attn_impl`` of :func:`make_flash_attn`
+    scales the scores by ``scale``; outside any, by 1/√D. This is the only
+    way an impl learns a model's scale: its call takes q, k and v only
+    (the benchmark's spans wrap it as such), so a model whose scale is not
+    1/√D (DeepSeek-V2: YaRN's mscale² / √192) sets it around the call."""
+    token = _SCALE.set(float(scale))
+    try:
+        yield
+    finally:
+        _SCALE.reset(token)
 
 
 def make_flash_attn(*, causal: bool = True, block_q: int | None = None,
                     block_k: int | None = None):
     """``attn_impl`` factory for :meth:`models.llama.Llama.forward`; the
-    tiles default to the H100 table (:func:`default_blocks`)."""
+    tiles default to the H100 table (:func:`default_blocks`), the scale to
+    :func:`softmax_scale`'s, else 1/√D."""
 
     def attn(q, k, v):
-        return flash_attention(q, k, v, causal=causal, block_q=block_q,
-                               block_k=block_k)
+        return flash_attention(q, k, v, causal=causal, scale=_SCALE.get(),
+                               block_q=block_q, block_k=block_k)
 
     return attn
 
@@ -583,5 +633,6 @@ __all__ = [
     "make_flash_attn",
     "pick_block",
     "reset_launches",
+    "softmax_scale",
     "tile_launches",
 ]
