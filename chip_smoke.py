@@ -28,7 +28,10 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
               S=32 causal, and S=Sk=8 non-causal), and at DeepSeek-V2's
               latent attention (four rows of the deepseek-v2-lite.s4096
               micro-batch: B=4, S=4096, H=KV=16, q·k width 192, v width
-              128, causal). --cases picks some of them. Every kernel runs at
+              128, causal; flash_dkv there is the one launch of
+              flash_dkv_mla.cu on v and dO at 128, and its rows name the
+              launch's tile_launches key and its share of the bound).
+              --cases picks some of them. Every kernel runs at
               every tile pair it is compiled for (ops/flash_attention.py
               COMPILED: block_q, block_k in TILES = 64, 128), the chooser's
               default among them, each held to the plain version's
@@ -221,7 +224,8 @@ KERNELS = {
 #: seq 32) and "d32zz" a zigzag stripe pair there at sp=2. "mla" is one
 #: micro-batch of the deepseek-v2-lite.s4096 cell's latent attention: q·k
 #: width 192, v width 128 (its ninth entry; the others' v is as wide as
-#: q), which the wrappers pad to 192.
+#: q), which flash_fwd and flash_dq pad to 192 and flash_dkv takes as it
+#: is (``DKV_SPLIT``).
 CASES = [
     ("main", 2, 4096, 4096, 16, 4, 128, True),
     ("moe", 1, 4096, 4096, 8, 4, 64, True),
@@ -390,8 +394,8 @@ def instantiation(mangled: str) -> str:
     """``kernel<args>`` from a mangled entry name in ptxas' report, e.g.
     ``_ZN3fwd10fwd_kernelILi128ELi64ELi128EEEv...`` → ``fwd_kernel<128,
     64, 128>`` (D, then the tile pair; flash_dkv: D, part, k rows, q
-    rows)."""
-    match = re.search(r"([A-Za-z_]+_kernel)I((?:Li\d+E)+)E", mangled)
+    rows; flash_dkv_mla: q·k width, v width, k rows, q rows)."""
+    match = re.search(r"([A-Za-z_]+_kernel(?:_[a-z]+)?)I((?:Li\d+E)+)E", mangled)
     if not match:
         return mangled
     args = re.findall(r"Li(\d+)E", match.group(2))
@@ -494,14 +498,14 @@ def bound(B, S, Sk, H, KV, D, causal, kernel, peak_flops, peak_bytes, Dv=None):
 
 def tile_requests(fa, name: str, shape: tuple) -> dict:
     """Kernel ``name``'s distinct effective tiles at ``shape`` (B, S, Sk,
-    H, KV, D, causal) → the first (block_q, block_k) request over
+    H, KV, D, causal, Dv) → the first (block_q, block_k) request over
     ``fa.TILES``² that runs them: every tile pair the kernel is compiled
-    for at this head dim, the chooser's default among them."""
-    B, S, Sk, H, KV, D, causal = shape
+    for at these widths, the chooser's default among them."""
+    B, S, Sk, H, KV, D, causal, Dv = shape
     out: dict = {}
     for bq in fa.TILES:
         for bk in fa.TILES:
-            eff = fa.effective_blocks(B, H, KV, S, Sk, D, causal, bq, bk)[name]
+            eff = fa.effective_blocks(B, H, KV, S, Sk, D, causal, bq, bk, Dv)[name]
             out.setdefault(eff, (bq, bk))
     return out
 
@@ -534,7 +538,7 @@ def phase_kernels(torch, reps: int, seed: int, cases=None) -> dict:
         q, k, v, do = randn(B, S, H, D), randn(B, Sk, KV, D), randn(B, Sk, KV, Dv), randn(B, S, H, Dv)
         shape = {"B": B, "S": S, "Sk": Sk, "H": H, "KV": KV, "D": D,
                  "Dv": Dv, "causal": causal}
-        default = fa.effective_blocks(B, H, KV, S, Sk, D, causal)
+        default = fa.effective_blocks(B, H, KV, S, Sk, D, causal, Dv=Dv)
 
         # The plain outputs, once a case. Each backward kernel gets the
         # same inputs as its plain version: the plain forward's lse and Δ,
@@ -595,9 +599,11 @@ def phase_kernels(torch, reps: int, seed: int, cases=None) -> dict:
             bound_ms, bound_by = bound(B, S, Sk, H, KV, D, causal, name,
                                        peak_flops, peak_bytes, Dv)
             by_tiles = {}
-            for eff, (bq, bk) in tile_requests(fa, name, (B, S, Sk, H, KV, D, causal)).items():
+            for eff, (bq, bk) in tile_requests(fa, name, (B, S, Sk, H, KV, D, causal, Dv)).items():
                 tiles = {"block_q": bq, "block_k": bk}
+                fa.reset_launches()
                 got, limit, worst_abs = errors(name, tiles)
+                launch_key = next(iter(fa.tile_launches), None)
                 samples = time_samples(torch, lambda: kernel_fn(tiles), reps)
                 ms = statistics.median(samples)
                 ok = all(got[key] <= limit[key] for key in got)
@@ -610,7 +616,9 @@ def phase_kernels(torch, reps: int, seed: int, cases=None) -> dict:
                     "default": is_default, "err": got, "limit": limit,
                     "max_abs_err": worst_abs, "passed": ok, "ms": ms,
                     "ms_min": min(samples), "ms_max": max(samples),
-                    "bound_ms": bound_ms, "bound_by": bound_by, "reps": reps,
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "bound_share": bound_ms / ms, "launch_key": launch_key,
+                    "reps": reps,
                 }
                 if is_default:
                     row.update(plain_ms=plain_ms, library_ms=library_ms)
@@ -854,8 +862,8 @@ def drive_path(torch, name: str, argv: list[str]) -> dict:
     widths: dict[int, int] = {}
     check_inputs = fa._check_kernel_inputs
 
-    def counting_check(named):
-        check_inputs(named)
+    def counting_check(named, *args):
+        check_inputs(named, *args)
         D = named["q"].shape[3]
         widths[D] = widths.get(D, 0) + 1
 

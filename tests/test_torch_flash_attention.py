@@ -288,6 +288,101 @@ def test_padding_to_the_kernel_width_is_exact(B, S, Sk, H, KV, D, causal):
                                    atol=0, err_msg=name)
 
 
+@pytest.mark.parametrize("D,Dv,split", [
+    (192, 128, True),    # DeepSeek-V2's latent attention: the one-launch route
+    (192, 192, False),   # v as wide as q: the two-launch route
+    (192, 64, False),    # a narrower v of no listed pair: padded
+    (128, 128, False), (64, 64, False), (32, 32, False),
+])
+def test_dkv_split_is_read_from_the_widths(D, Dv, split):
+    assert fa.dkv_split(D, Dv) is split
+    assert ((D, Dv) in fa.DKV_SPLIT) is split
+
+
+@pytest.mark.parametrize("tiles", [(None, None), (64, 64), (128, 64), (128, 128),
+                                   (64, 128), (256, 32)])
+def test_effective_blocks_at_split_widths(tiles):
+    """At q·k 192 and v 128 flash_dkv streams 64 q rows a stage at k tiles
+    of 64, whatever the request; the same request at v 192 keeps the
+    two-launch route's 32-row cap; the other kernels do not see Dv."""
+    dims = (16, 16, 16, 4096, 4096, 192, True, *tiles)
+    split = fa.effective_blocks(*dims, Dv=128)
+    padded = fa.effective_blocks(*dims)
+    assert split["flash_dkv"] == (64, 64)
+    assert padded["flash_dkv"] == (32, 64)
+    assert fa.effective_blocks(*dims, Dv=192) == padded
+    assert {k: v for k, v in split.items() if k != "flash_dkv"} == \
+        {k: v for k, v in padded.items() if k != "flash_dkv"}
+    assert fa.DKV_SPLIT == {(192, 128): 64}
+    assert fa.COMPILED["flash_dkv"][192] == ((64, 64), (128, 64))
+
+
+def _stub_launches(monkeypatch):
+    """Replace the kernels' launch with a recorder of its arguments."""
+    calls = []
+
+    def record(name, device, effective, *args, **kwargs):
+        calls.append({"name": name, "effective": effective, "args": args,
+                      **kwargs})
+
+    monkeypatch.setattr(fa, "_launch", record)
+    return calls
+
+
+@pytest.mark.parametrize("D,Dv,width", [
+    (192, 128, 192), (192, 192, 192), (128, 128, 128), (64, 64, 64), (32, 32, 64),
+])
+@pytest.mark.parametrize("causal", [True, False])
+def test_dkv_route_hands_the_kernel_its_widths(monkeypatch, D, Dv, width, causal):
+    """The card path's choice, with the launch stubbed on CPU tensors: at
+    (192, 128) v and dO reach the one-launch entry as they are (the same
+    storage, widths 192 and 128 in its arguments, dV allocated at 128);
+    every other (D, Dv) reaches flash_dkv's entry at the kernel width,
+    padded where D is below it, with dK and dV cut back to D and Dv."""
+    calls = _stub_launches(monkeypatch)
+    B, S, H, KV = 1, 80, 4, 2
+    bf = torch.bfloat16
+    q, k = torch.randn(B, S, H, D, dtype=bf), torch.randn(B, S, KV, D, dtype=bf)
+    v, do = torch.randn(B, S, KV, Dv, dtype=bf), torch.randn(B, S, H, Dv, dtype=bf)
+    lse, delta = torch.zeros(B, H, S), torch.zeros(B, H, S)
+    dk, dv = fa._dkv_on_card(q, k, v, do, lse, delta, causal, None, None, None)
+    assert dk.shape == k.shape and dv.shape == v.shape
+    (call,) = calls
+    assert call["name"] == "flash_dkv"
+    ptrs, ints = call["args"][:8], call["args"][8:]
+    split = (D, Dv) == (192, 128)
+    assert (ptrs[2] == v.data_ptr() and ptrs[3] == do.data_ptr()) is (width == D)
+    if split:
+        assert call["entry"] == "flash_dkv_mla" and call["v_width"] == 128
+        assert ints[:7] == (B, H, KV, S, S, 192, 128)
+        assert call["effective"] == (64, 64)
+    else:
+        assert "entry" not in call and "v_width" not in call
+        assert ints[:6] == (B, H, KV, S, S, width)
+    assert ints[-2] == pytest.approx(1 / np.sqrt(D))
+    assert ints[-1] == int(causal)
+
+
+@pytest.mark.parametrize("Dv,do_width,ok", [(128, 128, True), (64, 64, False),
+                                            (128, 192, False), (192, 192, False)])
+def test_split_input_check(Dv, do_width, ok):
+    """The one-launch route takes only a listed (q·k, v) pair, dO as wide
+    as v; the other kernels still refuse a v narrower than q."""
+    bf = torch.bfloat16
+    named = {"q": torch.zeros(1, 16, 2, 192, dtype=bf),
+             "k": torch.zeros(1, 16, 2, 192, dtype=bf),
+             "v": torch.zeros(1, 16, 2, Dv, dtype=bf),
+             "do": torch.zeros(1, 16, 2, do_width, dtype=bf),
+             "lse": torch.zeros(1, 2, 16), "delta": torch.zeros(1, 2, 16)}
+    if ok:
+        fa._check_kernel_inputs(named, True)
+        with pytest.raises(ValueError, match="as wide as q"):
+            fa._check_kernel_inputs(named)
+    else:
+        with pytest.raises(ValueError):
+            fa._check_kernel_inputs(named, True)
+
+
 def _card_inputs(B, S, Sk, H, KV, D):
     """Seeded bf16 q, k, v, dO on the card; skips where there is none."""
     if not torch.cuda.is_available():
@@ -354,9 +449,10 @@ def test_kernels_match_plain_versions_on_card(B, S, Sk, H, KV, D, causal, tiles)
 @pytest.mark.parametrize("causal", [True, False])
 def test_narrow_v_and_a_scale_on_card(causal):
     """DeepSeek-V2's attention through the public API on the card: q, k
-    of width 192, v of 128 (padded to 192 for the kernels, sliced back),
-    the YaRN scale; O, lse and the three gradients against the plain
-    versions on the unpadded inputs (the limits above)."""
+    of width 192, v of 128 (padded to 192 for flash_fwd and flash_dq,
+    sliced back; as it is for flash_dkv's one launch), the YaRN scale; O,
+    lse and the three gradients against the plain versions on the
+    unpadded inputs (the limits above)."""
     q, k, _, _ = _card_inputs(2, 384, 384, 4, 4, 192)
     v, do = (t[..., :128].contiguous() for t in _card_inputs(2, 384, 384, 4, 4, 192)[2:])
     scale = 0.1147
@@ -369,11 +465,55 @@ def test_narrow_v_and_a_scale_on_card(causal):
     assert o.shape == (2, 384, 4, 128)
     assert (o.float() - ref_o.float()).abs().max().item() <= 2e-2
     assert (lse - ref_lse).abs().max().item() <= 1e-4
+    fa.reset_launches()
     o.backward(do)
     for t, b in zip(leaves, want):
         assert t.grad.shape == b.shape
         rel = ((t.grad.float() - b.float()).norm() / b.float().norm()).item()
         assert rel <= 1e-2
+    # dK and dV came from the one launch at the true widths, not from the
+    # two launches of the padded route.
+    dkv_keys = {key: n for key, n in fa.tile_launches.items()
+                if key.startswith("flash_dkv[")}
+    assert dkv_keys == {"flash_dkv[64x64,v128]": 1}
+    assert fa.launches["flash_dkv"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tiles", [(bq, bk) for bq in fa.TILES for bk in fa.TILES])
+@pytest.mark.parametrize(
+    "B,S,Sk,H,KV,causal",
+    [
+        (1, 300, 300, 4, 4, True),    # MHA, ragged
+        (1, 300, 300, 4, 4, False),
+        (2, 48, 48, 2, 2, True),      # below one tile
+        (2, 256, 256, 8, 2, True),    # GQA, whole tiles
+        (1, 200, 300, 8, 2, False),   # GQA, Sk > S
+        (1, 300, 200, 4, 1, False),   # MQA, Sk < S
+        (1, 129, 129, 4, 4, True),    # one past two 64-row tiles
+    ],
+)
+def test_split_widths_match_plain_version_on_card(B, S, Sk, H, KV, causal, tiles):
+    """flash_dkv at q·k 192 and v 128 (one launch, v and dO unpadded)
+    against its plain version on the same unpadded inputs, the YaRN scale,
+    at every tile request (gradients relative L2 1e-2); the launch is
+    counted once, under the split-width key."""
+    q, k, v, do = _card_inputs(B, S, Sk, H, KV, 192)
+    v, do = v[..., :128].contiguous(), do[..., :128].contiguous()
+    scale = 0.1147
+    ref_o, ref_lse = fa.flash_fwd_reference(q, k, v, causal, scale)
+    delta = fa.flash_delta(ref_o, do)
+    fa.reset_launches()
+    got = fa.flash_dkv(q, k, v, do, ref_lse, delta, causal, scale=scale,
+                       block_q=tiles[0], block_k=tiles[1])
+    want = fa.flash_dkv_reference(q, k, v, do, ref_lse, delta, causal, scale)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        rel = ((a.float() - b.float()).norm() / b.float().norm()).item()
+        assert rel <= 1e-2
+    assert fa.tile_launches == {"flash_dkv[64x64,v128]": 1}
+    first = fa.flash_dkv(q, k, v, do, ref_lse, delta, causal, scale=scale)
+    assert all(torch.equal(a, b) for a, b in zip(got, first))
 
 
 @pytest.mark.cuda

@@ -13,7 +13,8 @@ The JAX package has no counterpart; the plain float32 reference is
   k_nope and v. YaRN's RoPE turns the rope columns of q and of the shared
   key; attention runs at q·k width nope + rope and v width
   ``v_head_dim``, scaled by YaRN's mscale² / √(q·k width), on ``attn_impl``
-  (the flash kernels at width 192, v padded) or the plain path.
+  (the flash kernels at width 192: v padded for the forward and dQ,
+  unpadded in flash_dkv's one launch) or the plain path.
 - The first ``first_k_dense`` layers end in a dense SwiGLU; every other
   layer in DeepSeekMoE: an f32 softmax router over every routed expert,
   greedy top-k, gates the chosen probabilities (not renormalised) ×

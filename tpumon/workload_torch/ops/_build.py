@@ -35,6 +35,8 @@ SIGNATURES: dict[str, list] = {
     # q, k, v, dO, lse, delta, dk, dv, B, H, KV, S, Sk, D, block_q, block_k,
     # scale, causal, stream
     "flash_dkv": [_P] * 8 + [_I] * 8 + [_F, _I, _P],
+    # flash_dkv's route at q·k 192, v 128: its arguments with Dv after D
+    "flash_dkv_mla": [_P] * 8 + [_I] * 9 + [_F, _I, _P],
     # x, w, y, rstd, rows, D, is_f32, eps, stream
     "rms_norm_fwd": [_P] * 4 + [_I] * 3 + [_F, _P],
     # x, dy, w, rstd, dx, part, dw, rows, D, is_f32, grid, stream

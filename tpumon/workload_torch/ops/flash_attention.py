@@ -13,7 +13,8 @@ memory and the TPU's resident/streamed split has no reason to exist:
 
 - ``flash_fwd``  ← ``_fwd_kernel_resident`` + ``_fwd_kernel_streamed``
 - ``flash_dq``   ← ``_dq_kernel_resident`` + ``_dq_kernel_streamed``
-- ``flash_dkv``  ← ``_dkv_kernel``
+- ``flash_dkv``  ← ``_dkv_kernel`` (``flash_dkv.cu``; at the widths of
+  :data:`DKV_SPLIT`, ``flash_dkv_mla.cu``)
 
 Each wrapper checks its inputs and then, for a tensor on the card,
 launches its kernel or raises; it counts the launch in :data:`launches`.
@@ -24,8 +25,10 @@ head dims 64, 128 and 192; a narrower head dim that is a multiple of 8
 (the tiny preset's 32) runs on the next of them with zero columns, still
 one launch a call (:func:`kernel_width`, :func:`_on_width`). V may be
 narrower than q and k (DeepSeek-V2's latent attention: q·k width 192, v
-width 128): the kernels then run with v and dO padded to the q·k width
-and O and dV sliced back, which is exact. The softmax scale defaults to
+width 128): flash_fwd and flash_dq then run with v and dO padded to the
+q·k width and O sliced back, which is exact; flash_dkv takes the pairs
+of :data:`DKV_SPLIT` as they are, in one launch at their true widths,
+and pads any other. The softmax scale defaults to
 1/√D of the q·k width; ``scale`` sets another (YaRN's mscale² / √D) on
 the functions, and :func:`softmax_scale` is the one way a model sets it
 for an ``attn_impl``, whose call takes q, k and v only. The Δ pre-pass
@@ -93,6 +96,14 @@ COMPILED: dict[str, dict[int, tuple[tuple[int, int], ...]]] = {
 #: launch streams 64; at D = 192 both launches').
 DKV_Q_ROWS = {64: 64, 128: 32, 192: 32}
 
+#: (q·k width, v width) → q rows a stage, for the pairs flash_dkv runs at
+#: their true widths in one launch (``csrc/flash_dkv_mla.cu``): v and dO
+#: unpadded, dK and dV from one Sᵀ and one dPᵀ a tile. It takes the tile
+#: requests of ``COMPILED["flash_dkv"][192]`` (block_q 64 or 128, block_k
+#: 64) and streams 64 q rows. Every other (D, Dv) pads v to the kernel
+#: width (:func:`_on_width`).
+DKV_SPLIT = {(192, 128): 64}
+
 #: SMs of an H100: a grid below one wave of them leaves SMs idle.
 H100_SMS = 132
 
@@ -101,7 +112,9 @@ H100_SMS = 132
 launches: dict[str, int] = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
 
 #: The same launches by tiles, ``"<kernel>[<block_q>x<block_k>]"`` with
-#: the tiles the kernel ran (:func:`effective_blocks`).
+#: the tiles the kernel ran (:func:`effective_blocks`), and
+#: ``"<kernel>[<block_q>x<block_k>,v<Dv>]"`` for a flash_dkv launch at
+#: the true widths of :data:`DKV_SPLIT`.
 tile_launches: dict[str, int] = {}
 
 
@@ -173,19 +186,27 @@ def _requested(name: str, B, H, KV, S, Sk, D, causal, block_q, block_k):
     return bq, bk
 
 
+def dkv_split(D: int, Dv: int | None) -> bool:
+    """Whether flash_dkv runs q·k width ``D`` and v width ``Dv`` as they
+    are, in one launch (:data:`DKV_SPLIT`), rather than v padded to D."""
+    return (D, Dv) in DKV_SPLIT
+
+
 def effective_blocks(B: int, H: int, KV: int, S: int, Sk: int, D: int,
                      causal: bool = True, block_q: int | None = None,
-                     block_k: int | None = None) -> dict[str, tuple[int, int]]:
+                     block_k: int | None = None,
+                     Dv: int | None = None) -> dict[str, tuple[int, int]]:
     """kernel -> the (block_q, block_k) it runs on the card for this shape
     and request (``D`` the caller's head dim, padded as the wrappers pad
-    it): :func:`default_blocks` where a request is None, else
-    :func:`pick_block` of it, clamped to the kernel's compiled pairs, with
-    flash_dkv's q rows at its register cap (:data:`DKV_Q_ROWS`)."""
+    it; ``Dv`` v's width, None for D): :func:`default_blocks` where a
+    request is None, else :func:`pick_block` of it, clamped to the
+    kernel's compiled pairs, with flash_dkv's q rows at its register cap
+    (:data:`DKV_Q_ROWS`, or :data:`DKV_SPLIT`'s at those widths)."""
     out = {}
     for name in launches:
         bq, bk = _requested(name, B, H, KV, S, Sk, D, causal, block_q, block_k)
         if name == "flash_dkv":
-            bq = min(bq, DKV_Q_ROWS[kernel_width(D)])
+            bq = min(bq, DKV_SPLIT.get((D, Dv), DKV_Q_ROWS[kernel_width(D)]))
         out[name] = (bq, bk)
     return out
 
@@ -304,10 +325,13 @@ def _on_cpu(*tensors) -> bool:
     return False
 
 
-def _check_kernel_inputs(named: dict[str, torch.Tensor]) -> None:
+def _check_kernel_inputs(named: dict[str, torch.Tensor],
+                         split: bool = False) -> None:
     """What the CUDA kernels take: contiguous, 16-byte aligned tensors,
     bf16 for q/k/v/dO, f32 for lse/delta, head_dim in HEAD_DIMS (after
-    :func:`_on_width` padded a narrower one)."""
+    :func:`_on_width` padded a narrower one), v and dO as wide as q, or
+    with ``split`` (flash_dkv's route at true widths) a pair of
+    :data:`DKV_SPLIT`."""
     for name, t in named.items():
         want = torch.float32 if name in ("lse", "delta") else torch.bfloat16
         if t.dtype != want:
@@ -321,7 +345,13 @@ def _check_kernel_inputs(named: dict[str, torch.Tensor]) -> None:
         raise ValueError(
             f"flash kernel: head_dim {D} not compiled (takes {HEAD_DIMS})"
         )
-    if named["v"].shape[3] != D:
+    Dv = named["v"].shape[3]
+    if split:
+        if not dkv_split(D, Dv) or named["do"].shape[3] != Dv:
+            raise ValueError(f"flash kernel: q·k width {D}, v and dO "
+                             f"{Dv}/{named['do'].shape[3]} are not a pair of "
+                             f"{sorted(DKV_SPLIT)}")
+    elif Dv != D:
         raise ValueError("flash kernel: v must be as wide as q and k (the "
                          "wrappers pad a narrower v)")
 
@@ -332,12 +362,15 @@ TILE_ERROR = 20000
 
 
 def _launch(name: str, device: torch.device, effective: tuple[int, int],
-            *args) -> None:
-    """Launch kernel ``name`` with its C entry's ``args`` and count it
-    under the ``effective`` tiles it runs."""
+            *args, entry: str | None = None, v_width: int | None = None) -> None:
+    """Launch kernel ``name`` (through the C entry ``entry`` of the library
+    of that name, default ``name``) with the entry's ``args`` and count it
+    under the ``effective`` tiles it runs, and ``v_width`` where the
+    launch runs v at its own width (:data:`DKV_SPLIT`)."""
     from tpumon.workload_torch.ops._build import load
 
-    fn = getattr(load(name), name)
+    entry = entry or name
+    fn = getattr(load(entry), entry)
     with torch.cuda.device(device):
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err == TILE_ERROR:
@@ -348,7 +381,8 @@ def _launch(name: str, device: torch.device, effective: tuple[int, int],
             "the CUresult of a refused TMA tensor map)"
         )
     launches[name] += 1
-    key = f"{name}[{effective[0]}x{effective[1]}]"
+    key = f"{name}[{effective[0]}x{effective[1]}"
+    key += f",v{v_width}]" if v_width else "]"
     tile_launches[key] = tile_launches.get(key, 0) + 1
 
 
@@ -408,18 +442,18 @@ def _dims(q, k):
     return B, H, k.shape[2], S, k.shape[1], D
 
 
-def _tiles(name, q, k, causal, block_q, block_k):
+def _tiles(name, q, k, causal, block_q, block_k, Dv=None):
     """(requested, effective) tiles of kernel ``name`` for this call."""
-    return _tiles_of(name, *_dims(q, k), bool(causal), block_q, block_k)
+    return _tiles_of(name, *_dims(q, k), bool(causal), block_q, block_k, Dv)
 
 
 @functools.lru_cache(maxsize=1024)
-def _tiles_of(name, B, H, KV, S, Sk, D, causal, block_q, block_k):
+def _tiles_of(name, B, H, KV, S, Sk, D, causal, block_q, block_k, Dv):
     """:func:`_tiles` by shape, cached: the choice is pure, and a launch
     at a small shape costs about as much as this Python."""
     dims = (B, H, KV, S, Sk, D, causal)
     tiles = _requested(name, *dims, block_q, block_k)
-    return tiles, effective_blocks(*dims, block_q, block_k)[name]
+    return tiles, effective_blocks(*dims, block_q, block_k, Dv)[name]
 
 
 def _fwd_kernel(q, k, v, causal, scale, *, block_q=None, block_k=None):
@@ -454,19 +488,36 @@ def _dq_kernel(q, k, v, do, lse, delta, causal, scale, *, block_q=None,
 
 def _dkv_kernel(q, k, v, do, lse, delta, causal, scale, *, block_q=None,
                 block_k=None):
+    """dK, dV from ``flash_dkv.cu`` (v as wide as q) or, at the widths of
+    :data:`DKV_SPLIT`, from ``flash_dkv_mla.cu`` on v and dO as they are."""
+    Dv = v.shape[3]
+    split = dkv_split(q.shape[3], Dv)
     _check_kernel_inputs(
-        {"q": q, "k": k, "v": v, "do": do, "lse": lse, "delta": delta}
+        {"q": q, "k": k, "v": v, "do": do, "lse": lse, "delta": delta}, split
     )
     B, H, KV, S, Sk, D = _dims(q, k)
-    tiles, eff = _tiles("flash_dkv", q, k, causal, block_q, block_k)
+    tiles, eff = _tiles("flash_dkv", q, k, causal, block_q, block_k, Dv)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    _launch(
-        "flash_dkv", q.device, eff, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), B, H, KV, S, Sk, D, *tiles, scale, int(causal),
-    )
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr())
+    if split:
+        _launch("flash_dkv", q.device, eff, *ptrs, B, H, KV, S, Sk, D, Dv,
+                *tiles, scale, int(causal), entry="flash_dkv_mla", v_width=Dv)
+    else:
+        _launch("flash_dkv", q.device, eff, *ptrs, B, H, KV, S, Sk, D, *tiles,
+                scale, int(causal))
     return dk, dv
+
+
+def _dkv_on_card(q, k, v, do, lse, delta, causal, scale, block_q, block_k):
+    """flash_dkv for tensors on the card: the pairs of :data:`DKV_SPLIT`
+    as they are, any other (D, Dv) through :func:`_on_width`'s padding."""
+    run = functools.partial(_dkv_kernel, block_q=block_q, block_k=block_k)
+    if dkv_split(q.shape[3], v.shape[3]):
+        scale = 1.0 / math.sqrt(q.shape[3]) if scale is None else scale
+        return run(q, k, v, do, lse, delta, causal, scale)
+    return _on_width(run, q, k, v, do, lse, delta, causal=causal, scale=scale)
 
 
 def flash_fwd(q, k, v, causal: bool = True, *, scale: float | None = None,
@@ -500,14 +551,15 @@ def flash_dkv(q, k, v, do, lse, delta, causal: bool = True, *,
               scale: float | None = None, block_q: int | None = None,
               block_k: int | None = None):
     """(dK [B,Sk,KV,D], dV [B,Sk,KV,Dv]) — kernel ``flash_dkv`` on the
-    card at the tiles of :func:`effective_blocks`,
+    card at the tiles of :func:`effective_blocks` (one launch at the true
+    widths for a pair of :data:`DKV_SPLIT`, else v and dO padded to D),
     :func:`flash_dkv_reference` for CPU tensors."""
     _check_shapes(q, k, v, causal)
     _check_request(block_q, block_k)
     if _on_cpu(q, k, v, do, lse, delta):
         return flash_dkv_reference(q, k, v, do, lse, delta, causal, scale)
-    run = functools.partial(_dkv_kernel, block_q=block_q, block_k=block_k)
-    return _on_width(run, q, k, v, do, lse, delta, causal=causal, scale=scale)
+    return _dkv_on_card(q, k, v, do, lse, delta, causal, scale, block_q,
+                        block_k)
 
 
 def flash_delta(out, g_out, g_lse=None):
@@ -614,10 +666,12 @@ def make_flash_attn(*, causal: bool = True, block_q: int | None = None,
 __all__ = [
     "COMPILED",
     "DKV_Q_ROWS",
+    "DKV_SPLIT",
     "HEAD_DIMS",
     "NEG_BIG",
     "TILES",
     "default_blocks",
+    "dkv_split",
     "effective_blocks",
     "flash_attention",
     "flash_attention_with_lse",
