@@ -225,7 +225,7 @@ KERNELS = {
 #: micro-batch of the deepseek-v2-lite.s4096 cell's latent attention: q·k
 #: width 192, v width 128 (its ninth entry; the others' v is as wide as
 #: q), which flash_fwd and flash_dq pad to 192 and flash_dkv takes as it
-#: is (``DKV_SPLIT``).
+#: is (``WIDTHS``).
 CASES = [
     ("main", 2, 4096, 4096, 16, 4, 128, True),
     ("moe", 1, 4096, 4096, 8, 4, 64, True),
@@ -498,14 +498,14 @@ def bound(B, S, Sk, H, KV, D, causal, kernel, peak_flops, peak_bytes, Dv=None):
 
 def tile_requests(fa, name: str, shape: tuple) -> dict:
     """Kernel ``name``'s distinct effective tiles at ``shape`` (B, S, Sk,
-    H, KV, D, causal, Dv) → the first (block_q, block_k) request over
+    H, KV, D, causal) → the first (block_q, block_k) request over
     ``fa.TILES``² that runs them: every tile pair the kernel is compiled
-    for at these widths, the chooser's default among them."""
-    B, S, Sk, H, KV, D, causal, Dv = shape
+    for at this width, the chooser's default among them."""
+    B, S, Sk, H, KV, D, causal = shape
     out: dict = {}
     for bq in fa.TILES:
         for bk in fa.TILES:
-            eff = fa.effective_blocks(B, H, KV, S, Sk, D, causal, bq, bk, Dv)[name]
+            eff = fa.effective_blocks(B, H, KV, S, Sk, D, causal, bq, bk)[name]
             out.setdefault(eff, (bq, bk))
     return out
 
@@ -538,7 +538,7 @@ def phase_kernels(torch, reps: int, seed: int, cases=None) -> dict:
         q, k, v, do = randn(B, S, H, D), randn(B, Sk, KV, D), randn(B, Sk, KV, Dv), randn(B, S, H, Dv)
         shape = {"B": B, "S": S, "Sk": Sk, "H": H, "KV": KV, "D": D,
                  "Dv": Dv, "causal": causal}
-        default = fa.effective_blocks(B, H, KV, S, Sk, D, causal, Dv=Dv)
+        default = fa.effective_blocks(B, H, KV, S, Sk, D, causal)
 
         # The plain outputs, once a case. Each backward kernel gets the
         # same inputs as its plain version: the plain forward's lse and Δ,
@@ -599,7 +599,7 @@ def phase_kernels(torch, reps: int, seed: int, cases=None) -> dict:
             bound_ms, bound_by = bound(B, S, Sk, H, KV, D, causal, name,
                                        peak_flops, peak_bytes, Dv)
             by_tiles = {}
-            for eff, (bq, bk) in tile_requests(fa, name, (B, S, Sk, H, KV, D, causal, Dv)).items():
+            for eff, (bq, bk) in tile_requests(fa, name, (B, S, Sk, H, KV, D, causal)).items():
                 tiles = {"block_q": bq, "block_k": bk}
                 fa.reset_launches()
                 got, limit, worst_abs = errors(name, tiles)

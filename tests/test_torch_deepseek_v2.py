@@ -262,18 +262,20 @@ def _mla_inputs(B=2, S=48, H=4, seed=5):
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_at_qk_192_and_v_128_pads_exactly(causal):
     """The wrappers' padding path (``_on_width``: v and dO padded to the
-    q·k width 192, O and dV sliced back to 128, the scale given) on the
-    plain versions, against the plain versions on the unpadded inputs:
-    forward and backward at f32 rel 1e-6."""
+    q·k width 192 for flash_fwd and flash_dq, O sliced back to 128, and at
+    128 as they are for flash_dkv, the scale given) on the plain versions,
+    against the plain versions on the unpadded inputs: forward and
+    backward at f32 rel 1e-6."""
     q, k, v, do = _mla_inputs()
     scale = 0.1147
-    o, lse = fa._on_width(fa.flash_fwd_reference, q, k, v, causal=causal, scale=scale)
+    o, lse = fa._on_width("flash_fwd", fa.flash_fwd_reference, q, k, v,
+                          causal=causal, scale=scale)
     want_o, want_lse = fa.flash_fwd_reference(q, k, v, causal, scale)
     delta = fa.flash_delta(want_o, do)
-    dq = fa._on_width(fa.flash_dq_reference, q, k, v, do, want_lse, delta,
-                      causal=causal, scale=scale)
-    dk, dv = fa._on_width(fa.flash_dkv_reference, q, k, v, do, want_lse, delta,
-                          causal=causal, scale=scale)
+    dq = fa._on_width("flash_dq", fa.flash_dq_reference, q, k, v, do, want_lse,
+                      delta, causal=causal, scale=scale)
+    dk, dv = fa._on_width("flash_dkv", fa.flash_dkv_reference, q, k, v, do,
+                          want_lse, delta, causal=causal, scale=scale)
     want = [want_o, want_lse,
             fa.flash_dq_reference(q, k, v, do, want_lse, delta, causal, scale),
             *fa.flash_dkv_reference(q, k, v, do, want_lse, delta, causal, scale)]
@@ -366,7 +368,8 @@ def test_cli_trains_the_tiny_preset(caplog):
 
 def test_flops_count_the_layers_of_the_published_shape():
     """The port's count (attention at S², as flops.py counts) against the
-    benchmark family's (S(S+1)/2 pairs): they differ only in the core."""
+    benchmark family's (S(S+1)/2 pairs): they differ only in the core; a
+    step is three of the port's forwards."""
     from tpumon.workload_torch import flops
 
     cfg = ds.DeepseekV2Config.v2_lite_share()
@@ -374,8 +377,9 @@ def test_flops_count_the_layers_of_the_published_shape():
     B, S = 4, 4096
     core_s2 = 2 * B * S * S * 16 * (192 + 128) * 27
     core_pairs = 2 * B * 16 * (S * (S + 1) // 2) * (192 + 128) * 27
-    assert flops.deepseek_forward_flops(cfg, B, S) - core_s2 == pytest.approx(
+    assert ds.forward_flops(cfg, B, S) - core_s2 == pytest.approx(
         family.forward_flops(m, B, S) - core_pairs, rel=1e-12)
+    assert flops.train_flops_per_step(cfg, B, S) == 3.0 * ds.forward_flops(cfg, B, S)
 
 
 @pytest.mark.cuda

@@ -7,8 +7,9 @@ The two hosts' ranks must report the same losses as one host that starts
 all four (rel 1e-6, the reference's bound across its processes), and
 descending; the hosts share the checkpoint directory, as two hosts on one
 machine do. A host whose peer host dies or hangs must exit non-zero in
-bounded time. Each rank runs one thread (``OMP_NUM_THREADS=1``) to keep
-the load of the test run small. The hosts' agreement on the backend and
+bounded time; hosts that start their ranks far apart still meet. Each
+rank runs one thread (``OMP_NUM_THREADS=1``) to keep the load of the
+test run small. The hosts' agreement on the backend and
 MFU's count of distinct (host, card) pairs are checked in one process.
 """
 
@@ -56,6 +57,16 @@ def _stop(procs):
         if p.poll() is None:
             os.killpg(p.pid, signal.SIGKILL)
             p.wait(timeout=30)
+
+
+def _ended_early(hosts) -> str:
+    """Stop every host, then each one's exit code and the tail of its
+    log."""
+    codes = [p.poll() for p in hosts]
+    _stop(hosts)
+    return "a host ended early\n" + "\n".join(
+        f"--- host {i}: exit code {code} ---\n{p.communicate()[0][-3000:]}"
+        for i, (p, code) in enumerate(zip(hosts, codes)))
 
 
 def _reports(out: str) -> dict:
@@ -203,7 +214,8 @@ def test_a_dead_peer_host_ends_the_other_in_bounded_time(how):
             page = _page(metrics)
             if page and re.search(r"^tpu_step_counter(_total)? [1-9]", page, re.M):
                 break
-            assert all(p.poll() is None for p in hosts), "a host ended early"
+            if any(p.poll() is not None for p in hosts):
+                pytest.fail(_ended_early(hosts))
             time.sleep(0.25)
         else:
             pytest.fail("rank 0's page never counted a step")
@@ -212,6 +224,33 @@ def test_a_dead_peer_host_ends_the_other_in_bounded_time(how):
         rc = hosts[0].wait(timeout=120)
         assert rc != 0
         assert time.monotonic() - t0 < 120
+    finally:
+        _stop(hosts)
+
+
+def test_hosts_that_start_apart_still_meet():
+    """Host 1 starts 25 s after host 0, past the 20 s group timeout: the
+    ranks' wait for each other at the job's store is not the collectives'
+    timeout, so both hosts stay up and rank 0's page counts a step."""
+    metrics = launch.free_port()
+    env = _env(TPUMON_DIST_TIMEOUT_S="20", TPUMON_STEP_TERM_GRACE_S="1")
+    args = [*MESH, "--steps", "1000000", "--stats-every", "1",
+            "--metrics-port", str(metrics), "--coordinator",
+            f"127.0.0.1:{launch.free_port()}", "--num-processes", "2"]
+    hosts = [_host([*args, "--process-id", "0"], env)]
+    try:
+        time.sleep(25)
+        hosts.append(_host([*args, "--process-id", "1"], env))
+        deadline = time.monotonic() + 120
+        while time.monotonic() < deadline:
+            page = _page(metrics)
+            if page and re.search(r"^tpu_step_counter(_total)? [1-9]", page, re.M):
+                break
+            if any(p.poll() is not None for p in hosts):
+                pytest.fail(_ended_early(hosts))
+            time.sleep(0.25)
+        else:
+            pytest.fail("rank 0's page never counted a step")
     finally:
         _stop(hosts)
 

@@ -243,7 +243,7 @@ def test_kernel_input_checks(dtype, D, contiguous, error):
         q = torch.zeros(1, 2, 16, D, dtype=dtype).transpose(1, 2)
     k = torch.zeros(1, 16, 1, D, dtype=dtype)
     with pytest.raises(error):
-        fa._check_kernel_inputs({"q": q, "k": k, "v": k})
+        fa._check_kernel_inputs({"q": q, "k": k, "v": k}, "flash_fwd")
 
 
 @pytest.mark.parametrize("D,width", [(32, 64), (8, 64), (40, 64), (96, 128),
@@ -272,13 +272,14 @@ def test_padding_to_the_kernel_width_is_exact(B, S, Sk, H, KV, D, causal):
     and backward at f32 rel 1e-6."""
     q, k, v, do, _ = (torch.from_numpy(a) for a in _inputs(B, S, Sk, H, KV, D, seed=3))
     assert fa.kernel_width(D) != D
-    o, lse = fa._on_width(fa.flash_fwd_reference, q, k, v, causal=causal)
+    o, lse = fa._on_width("flash_fwd", fa.flash_fwd_reference, q, k, v,
+                          causal=causal)
     want_o, want_lse = fa.flash_fwd_reference(q, k, v, causal)
     delta = fa.flash_delta(want_o, do)
-    dq = fa._on_width(fa.flash_dq_reference, q, k, v, do, want_lse, delta,
-                      causal=causal)
-    dk, dv = fa._on_width(fa.flash_dkv_reference, q, k, v, do, want_lse, delta,
-                          causal=causal)
+    dq = fa._on_width("flash_dq", fa.flash_dq_reference, q, k, v, do, want_lse,
+                      delta, causal=causal)
+    dk, dv = fa._on_width("flash_dkv", fa.flash_dkv_reference, q, k, v, do,
+                          want_lse, delta, causal=causal)
     want = [want_o, want_lse, fa.flash_dq_reference(q, k, v, do, want_lse, delta, causal),
             *fa.flash_dkv_reference(q, k, v, do, want_lse, delta, causal)]
     for name, got, ref in zip(("o", "lse", "dq", "dk", "dv"),
@@ -288,32 +289,53 @@ def test_padding_to_the_kernel_width_is_exact(B, S, Sk, H, KV, D, causal):
                                    atol=0, err_msg=name)
 
 
-@pytest.mark.parametrize("D,Dv,split", [
-    (192, 128, True),    # DeepSeek-V2's latent attention: the one-launch route
-    (192, 192, False),   # v as wide as q: the two-launch route
-    (192, 64, False),    # a narrower v of no listed pair: padded
-    (128, 128, False), (64, 64, False), (32, 32, False),
+@pytest.mark.parametrize("D,Dv,entry,widths", [
+    (192, 128, "flash_dkv_mla", (192, 128)),  # DeepSeek-V2's latent attention
+    (192, 192, None, None),   # v wider than the table's 128 at 192: refused
+    (192, 64, "flash_dkv_mla", (192, 128)),   # a narrower v: padded to 128
+    (128, 128, "flash_dkv", (128, 128)), (64, 64, "flash_dkv", (64, 64)),
+    (32, 32, "flash_dkv", (64, 64)),
 ])
-def test_dkv_split_is_read_from_the_widths(D, Dv, split):
-    assert fa.dkv_split(D, Dv) is split
-    assert ((D, Dv) in fa.DKV_SPLIT) is split
+def test_dkv_split_is_read_from_the_widths(D, Dv, entry, widths):
+    """flash_dkv's C entry and the (q·k, v) widths it runs, read from
+    ``WIDTHS`` at the compiled width of the caller's D: the kernel sees q,
+    k, v and dO at those widths and the caller gets dK and dV back at its
+    own; a v wider than the table's is refused before any run."""
+    B, S, H, KV = 1, 16, 2, 1
+    q, k = torch.zeros(B, S, H, D), torch.zeros(B, S, KV, D)
+    v, do = torch.zeros(B, S, KV, Dv), torch.zeros(B, S, H, Dv)
+    lse, delta = torch.zeros(B, H, S), torch.zeros(B, H, S)
+    seen = []
+
+    def run(q, k, v, do, lse, delta, causal, scale):
+        seen.append((q.shape[3], k.shape[3], v.shape[3], do.shape[3]))
+        return torch.zeros_like(k), torch.zeros_like(v)
+
+    width = fa.kernel_width(D)
+    if entry is None:
+        with pytest.raises(ValueError, match=r"runs v up to 128 wide \(WIDTHS\)"):
+            fa._on_width("flash_dkv", run, q, k, v, do, lse, delta, causal=True)
+        assert seen == []
+        return
+    dk, dv = fa._on_width("flash_dkv", run, q, k, v, do, lse, delta, causal=True)
+    assert fa.WIDTHS["flash_dkv"][width].entry == entry
+    assert seen == [(widths[0], widths[0], widths[1], widths[1])]
+    assert dk.shape == k.shape and dv.shape == v.shape
 
 
 @pytest.mark.parametrize("tiles", [(None, None), (64, 64), (128, 64), (128, 128),
                                    (64, 128), (256, 32)])
 def test_effective_blocks_at_split_widths(tiles):
-    """At q·k 192 and v 128 flash_dkv streams 64 q rows a stage at k tiles
-    of 64, whatever the request; the same request at v 192 keeps the
-    two-launch route's 32-row cap; the other kernels do not see Dv."""
+    """At q·k 192 flash_dkv (flash_dkv_mla, v 128) streams 64 q rows a
+    stage at k tiles of 64, whatever the request; flash_fwd and flash_dq
+    run a pair they are compiled for at 192, their q rows uncapped."""
     dims = (16, 16, 16, 4096, 4096, 192, True, *tiles)
-    split = fa.effective_blocks(*dims, Dv=128)
-    padded = fa.effective_blocks(*dims)
-    assert split["flash_dkv"] == (64, 64)
-    assert padded["flash_dkv"] == (32, 64)
-    assert fa.effective_blocks(*dims, Dv=192) == padded
-    assert {k: v for k, v in split.items() if k != "flash_dkv"} == \
-        {k: v for k, v in padded.items() if k != "flash_dkv"}
-    assert fa.DKV_SPLIT == {(192, 128): 64}
+    got = fa.effective_blocks(*dims)
+    assert got["flash_dkv"] == (64, 64)
+    for name in ("flash_fwd", "flash_dq"):
+        assert got[name] in fa.COMPILED[name][192]
+        assert fa.WIDTHS[name][192] == (192, name, 128)
+    assert fa.WIDTHS["flash_dkv"][192] == (128, "flash_dkv_mla", 64)
     assert fa.COMPILED["flash_dkv"][192] == ((64, 64), (128, 64))
 
 
@@ -321,44 +343,51 @@ def _stub_launches(monkeypatch):
     """Replace the kernels' launch with a recorder of its arguments."""
     calls = []
 
-    def record(name, device, effective, *args, **kwargs):
-        calls.append({"name": name, "effective": effective, "args": args,
-                      **kwargs})
+    def record(name, D, device, effective, *args):
+        calls.append({"name": name, "D": D, "effective": effective, "args": args})
 
     monkeypatch.setattr(fa, "_launch", record)
     return calls
 
 
-@pytest.mark.parametrize("D,Dv,width", [
-    (192, 128, 192), (192, 192, 192), (128, 128, 128), (64, 64, 64), (32, 32, 64),
+@pytest.mark.parametrize("D,Dv,width,v_width", [
+    (192, 128, 192, 128), (192, 192, 192, None), (192, 64, 192, 128),
+    (128, 128, 128, 128), (64, 64, 64, 64), (32, 32, 64, 64),
 ])
 @pytest.mark.parametrize("causal", [True, False])
-def test_dkv_route_hands_the_kernel_its_widths(monkeypatch, D, Dv, width, causal):
-    """The card path's choice, with the launch stubbed on CPU tensors: at
-    (192, 128) v and dO reach the one-launch entry as they are (the same
-    storage, widths 192 and 128 in its arguments, dV allocated at 128);
-    every other (D, Dv) reaches flash_dkv's entry at the kernel width,
-    padded where D is below it, with dK and dV cut back to D and Dv."""
+def test_dkv_route_hands_the_kernel_its_widths(monkeypatch, D, Dv, width, v_width,
+                                               causal):
+    """The card path, with the launch stubbed on CPU tensors: each (D, Dv)
+    reaches the entry ``WIDTHS`` names at the kernel width (q·k 192:
+    flash_dkv_mla, else flash_dkv) with q and k padded to the q·k width
+    and v and dO to the table's v width (the same storage where they are
+    already that wide, dV allocated at it), dK and dV cut back to D and
+    Dv; at (192, 192) v is wider than the table's 128 and nothing
+    launches."""
     calls = _stub_launches(monkeypatch)
     B, S, H, KV = 1, 80, 4, 2
     bf = torch.bfloat16
     q, k = torch.randn(B, S, H, D, dtype=bf), torch.randn(B, S, KV, D, dtype=bf)
     v, do = torch.randn(B, S, KV, Dv, dtype=bf), torch.randn(B, S, H, Dv, dtype=bf)
     lse, delta = torch.zeros(B, H, S), torch.zeros(B, H, S)
-    dk, dv = fa._dkv_on_card(q, k, v, do, lse, delta, causal, None, None, None)
+    args = (q, k, v, do, lse, delta)
+    if v_width is None:
+        with pytest.raises(ValueError, match="WIDTHS"):
+            fa._on_width("flash_dkv", fa._dkv_kernel, *args, causal=causal)
+        assert calls == []
+        return
+    dk, dv = fa._on_width("flash_dkv", fa._dkv_kernel, *args, causal=causal)
     assert dk.shape == k.shape and dv.shape == v.shape
     (call,) = calls
-    assert call["name"] == "flash_dkv"
+    assert call["name"] == "flash_dkv" and call["D"] == width
+    assert fa.WIDTHS["flash_dkv"][width].entry == (
+        "flash_dkv_mla" if width == 192 else "flash_dkv")
     ptrs, ints = call["args"][:8], call["args"][8:]
-    split = (D, Dv) == (192, 128)
-    assert (ptrs[2] == v.data_ptr() and ptrs[3] == do.data_ptr()) is (width == D)
-    if split:
-        assert call["entry"] == "flash_dkv_mla" and call["v_width"] == 128
-        assert ints[:7] == (B, H, KV, S, S, 192, 128)
+    assert (ptrs[0] == q.data_ptr() and ptrs[1] == k.data_ptr()) is (width == D)
+    assert (ptrs[2] == v.data_ptr() and ptrs[3] == do.data_ptr()) is (v_width == Dv)
+    assert ints[:7] == (B, H, KV, S, S, width, v_width)
+    if width == 192:
         assert call["effective"] == (64, 64)
-    else:
-        assert "entry" not in call and "v_width" not in call
-        assert ints[:6] == (B, H, KV, S, S, width)
     assert ints[-2] == pytest.approx(1 / np.sqrt(D))
     assert ints[-1] == int(causal)
 
@@ -366,8 +395,9 @@ def test_dkv_route_hands_the_kernel_its_widths(monkeypatch, D, Dv, width, causal
 @pytest.mark.parametrize("Dv,do_width,ok", [(128, 128, True), (64, 64, False),
                                             (128, 192, False), (192, 192, False)])
 def test_split_input_check(Dv, do_width, ok):
-    """The one-launch route takes only a listed (q·k, v) pair, dO as wide
-    as v; the other kernels still refuse a v narrower than q."""
+    """At q·k 192 flash_dkv's kernel takes v and dO 128 wide only (the
+    wrapper pads a narrower v); flash_fwd and flash_dq take them as wide
+    as q."""
     bf = torch.bfloat16
     named = {"q": torch.zeros(1, 16, 2, 192, dtype=bf),
              "k": torch.zeros(1, 16, 2, 192, dtype=bf),
@@ -375,12 +405,13 @@ def test_split_input_check(Dv, do_width, ok):
              "do": torch.zeros(1, 16, 2, do_width, dtype=bf),
              "lse": torch.zeros(1, 2, 16), "delta": torch.zeros(1, 2, 16)}
     if ok:
-        fa._check_kernel_inputs(named, True)
-        with pytest.raises(ValueError, match="as wide as q"):
-            fa._check_kernel_inputs(named)
+        fa._check_kernel_inputs(named, "flash_dkv")
+        for kernel in ("flash_fwd", "flash_dq"):
+            with pytest.raises(ValueError, match="192 wide"):
+                fa._check_kernel_inputs(named, kernel)
     else:
-        with pytest.raises(ValueError):
-            fa._check_kernel_inputs(named, True)
+        with pytest.raises(ValueError, match=r"flash_dkv at q·k width 192 takes v and dO 128 wide"):
+            fa._check_kernel_inputs(named, "flash_dkv")
 
 
 def _card_inputs(B, S, Sk, H, KV, D):
@@ -433,16 +464,24 @@ def test_kernels_match_plain_versions_on_card(B, S, Sk, H, KV, D, causal, tiles)
     assert (o.float() - ref_o.float()).abs().max().item() <= 2e-2
     assert (lse - ref_lse).abs().max().item() <= 1e-4
     delta = fa.flash_delta(ref_o, do)
-    got = [fa.flash_dq(q, k, v, do, ref_lse, delta, causal, **req),
-           *fa.flash_dkv(q, k, v, do, ref_lse, delta, causal, **req)]
-    want = [fa.flash_dq_reference(q, k, v, do, ref_lse, delta, causal),
-            *fa.flash_dkv_reference(q, k, v, do, ref_lse, delta, causal)]
+    got = [fa.flash_dq(q, k, v, do, ref_lse, delta, causal, **req)]
+    want = [fa.flash_dq_reference(q, k, v, do, ref_lse, delta, causal)]
+    # At q·k 192 flash_dkv runs v 128 wide (WIDTHS): this v of 192 is
+    # refused before any launch.
+    dkv_runs = D != 192
+    if dkv_runs:
+        got += fa.flash_dkv(q, k, v, do, ref_lse, delta, causal, **req)
+        want += fa.flash_dkv_reference(q, k, v, do, ref_lse, delta, causal)
+    else:
+        with pytest.raises(ValueError, match="runs v up to 128 wide"):
+            fa.flash_dkv(q, k, v, do, ref_lse, delta, causal, **req)
     for a, b in zip(got, want):
         rel = ((a.float() - b.float()).norm() / b.float().norm()).item()
         assert rel <= 1e-2
-    assert fa.launches == {"flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1}
+    assert fa.launches == {"flash_fwd": 1, "flash_dq": 1, "flash_dkv": int(dkv_runs)}
     eff = fa.effective_blocks(B, H, KV, S, Sk, D, causal, *tiles)
-    assert fa.tile_launches == {f"{name}[{a}x{b}]": 1 for name, (a, b) in eff.items()}
+    assert fa.tile_launches == {f"{name}[{a}x{b}]": 1 for name, (a, b) in eff.items()
+                                if name != "flash_dkv" or dkv_runs}
 
 
 @pytest.mark.cuda
@@ -521,12 +560,18 @@ def test_split_widths_match_plain_version_on_card(B, S, Sk, H, KV, causal, tiles
 @pytest.mark.parametrize("D", [64, 128, 192])
 def test_backward_kernels_are_deterministic_on_card(kernel, D):
     """dQ, dK and dV are sums kept on chip and written once (no atomics),
-    so two calls on the same inputs agree bit for bit."""
+    so two calls on the same inputs agree bit for bit. At q·k 192 flash_dkv
+    refuses this v of 192 (its v width there is 128; the one launch's
+    determinism at v 128 is checked above)."""
     q, k, v, do = _card_inputs(1, 640, 640, 8, 2, D)
     _, lse = fa.flash_fwd(q, k, v, True)
     o, _ = fa.flash_fwd_reference(q, k, v, True)
     delta = fa.flash_delta(o, do)
     fn = getattr(fa, kernel)
+    if kernel == "flash_dkv" and D == 192:
+        with pytest.raises(ValueError, match="runs v up to 128 wide"):
+            fn(q, k, v, do, lse, delta, True)
+        return
     first = fn(q, k, v, do, lse, delta, True)
     second = fn(q, k, v, do, lse, delta, True)
     if kernel == "flash_dq":

@@ -19,7 +19,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from tpumon.workload_torch import harness  # noqa: E402
-from tpumon.workload_torch.models.llama import LlamaConfig  # noqa: E402
+from tpumon.workload_torch.models.llama import LlamaConfig, init_params  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -104,7 +104,7 @@ def test_page_parses_with_lifecycle_probe():
 
 
 def test_phase_probe_leaves_live_state_untouched():
-    model = harness.init_params(LlamaConfig.tiny(), torch.Generator().manual_seed(0))
+    model = init_params(LlamaConfig.tiny(), torch.Generator().manual_seed(0))
     optimizer = harness.make_optimizer(model.parameters())
     step = harness.make_train_step(model, optimizer, grad_accum=2, remat=True)
     tokens = torch.randint(0, 512, (4, 33), generator=torch.Generator().manual_seed(1))

@@ -4,8 +4,9 @@
 accounting (``tpumon/workload/flops.py``), copied: they count the matmul
 FLOPs one optimizer step of ``models.llama`` or ``models.moe`` executes, attention at the
 full S×S the additive-mask implementation computes, backward = 2× forward.
-``models.deepseek_v2``, which the reference lacks, is counted by the same
-rules (:func:`deepseek_forward_flops`).
+A step of any family is 3× its record's forward count (``models.family``):
+``forward_flops`` for those two, ``models.deepseek_v2.forward_flops`` (by
+the same rules) for DeepSeek-V2, which the reference lacks.
 
 The peak table is keyed on ``torch.cuda.get_device_name()`` and holds only
 the H100's published dense (no sparsity) bf16 rates and HBM bandwidths,
@@ -21,7 +22,7 @@ import math
 
 import torch
 
-from tpumon.workload_torch.models.deepseek_v2 import DeepseekV2Config
+from tpumon.workload_torch.models import family
 
 #: Device-name substring → peak dense bf16 FLOP/s. The name of an H100
 #: SXM part is "NVIDIA H100 80GB HBM3"; a PCIe part says "PCIe". First
@@ -85,32 +86,10 @@ def forward_flops(cfg, batch: int, seq: int) -> float:
     return float(L * (qkvo + attn + ffn) + unembed)
 
 
-def deepseek_forward_flops(cfg, batch: int, seq: int) -> float:
-    """Matmul FLOPs of one forward of ``models.deepseek_v2`` as this file
-    counts the others (attention at the full S², 2·m·n·k a product): each
-    layer's latent attention (q, the kv down- and up-projections, the
-    scores at the q·k width, probs·V at the v width, the output), the
-    dense layers' SwiGLU, the MoE layers' router, shared experts and the
-    held experts' expected share of the top-k (k · held / E a token), and
-    the unembed."""
-    T, D, H = batch * seq, cfg.dim, cfg.n_heads
-    proj = 2 * T * D * H * cfg.qk_head_dim
-    proj += 2 * T * D * (cfg.kv_lora_rank + cfg.qk_rope_head_dim)
-    proj += 2 * T * cfg.kv_lora_rank * H * (cfg.qk_nope_head_dim + cfg.v_head_dim)
-    proj += 2 * T * H * cfg.v_head_dim * D
-    attn = 2 * batch * seq * seq * H * (cfg.qk_head_dim + cfg.v_head_dim)
-    dense = 6 * T * D * cfg.ffn_dim
-    moe = 6 * T * D * cfg.shared_ffn_dim + 2 * T * D * cfg.n_routed_experts
-    moe += 6 * T * D * cfg.moe_ffn_dim * cfg.top_k * cfg.held / cfg.n_routed_experts
-    layers = cfg.n_layers * (proj + attn) + cfg.first_k_dense * dense
-    return float(layers + cfg.n_moe_layers * moe + 2 * T * D * cfg.vocab)
-
-
 def train_flops_per_step(cfg, batch: int, seq: int) -> float:
-    """One optimizer step: forward + backward (2× forward) = 3× forward."""
-    if isinstance(cfg, DeepseekV2Config):
-        return 3.0 * deepseek_forward_flops(cfg, batch, seq)
-    return 3.0 * forward_flops(cfg, batch, seq)
+    """One optimizer step: forward + backward (2× forward) = 3× the
+    forward of ``cfg``'s family."""
+    return 3.0 * family.of(cfg).forward_flops(cfg, batch, seq)
 
 
 def peak_flops_total(devices) -> float | None:
@@ -149,7 +128,6 @@ def mfu(cfg, batch: int, seq: int, steps_per_sec: float, devices) -> float | Non
 __all__ = [
     "PEAK_BF16_FLOPS",
     "PEAK_HBM_BYTES",
-    "deepseek_forward_flops",
     "forward_flops",
     "mfu",
     "peak_flops_per_device",

@@ -1,7 +1,7 @@
-"""Training harness of the port: the dense Llama and MoE train steps, on
-one card or on a dp×pp×ep×sp×tp mesh of processes, and DeepSeek-V2's
-(latent attention, DeepSeekMoE over a held share of the experts) on one
-card.
+"""Training harness of the port: the train step of a model family
+(``models.family``: the dense Llama and MoE on one card or on a
+dp×pp×ep×sp×tp mesh of processes, DeepSeek-V2's latent attention and
+DeepSeekMoE over a held share of the experts on one card).
 
 The counterpart of ``tpumon/workload/harness.py`` for the single-device
 and dp×pp×ep×sp×tp paths: next-token cross-entropy (plus the weighted GShard aux
@@ -55,16 +55,7 @@ from torch.utils.checkpoint import checkpoint
 
 from tpumon.workload_torch import flops as flops_mod
 from tpumon.workload_torch import spans
-from tpumon.workload_torch.models import deepseek_v2 as deepseek_mod
-from tpumon.workload_torch.models import moe as moe_mod
-from tpumon.workload_torch.models.deepseek_v2 import DeepseekV2, DeepseekV2Config
-from tpumon.workload_torch.models.llama import (
-    Llama,
-    LlamaConfig,
-    from_jax_params,
-    init_params,
-)
-from tpumon.workload_torch.models.moe import Moe, MoeConfig
+from tpumon.workload_torch.models import family
 from tpumon.workload_torch.ops.core import cast
 from tpumon.workload_torch.parallel import mesh as mesh_mod
 from tpumon.workload_torch.platform import PLATFORMS, resolve_device
@@ -123,30 +114,24 @@ def _chunked_nll(x, unembed_w, targets, chunk, dtype, mesh=None):
 def loss_fn(model, tokens, attn_impl=None, remat=False, loss_chunk=0,
             forward_fn=None):
     """Next-token cross-entropy; inputs [B, S], targets are the shift-by-1.
-    A :class:`Moe` or :class:`DeepseekV2` adds its config's ``aux_weight``
-    × its aux loss (Mixtral's GShard loss at 0.01, DeepSeek-V2's
+    A forward that returns (logits, aux) adds its config's ``aux_weight``
+    × the aux loss (Mixtral's GShard loss at 0.01, DeepSeek-V2's
     sequence-level balance loss at ``aux_loss_alpha``). ``loss_chunk``
     (dense model only) fuses the unembed projection into the loss in
     sequence chunks of that many tokens (:func:`_chunked_nll`). Under the
     model's mesh the loss is the rank's data shard's, from vocab-sharded
     logits. ``forward_fn`` replaces the model's forward (the pipelined
-    forward, ``parallel.pipeline.make_pipelined_forward``: logits, or
-    logits and the aux loss)."""
+    forward, ``parallel.pipeline.make_pipelined_forward``)."""
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
     mesh = model.mesh
-    if forward_fn is not None:
-        out = forward_fn(inputs)
-        logits, aux = out if isinstance(out, tuple) else (out, None)
-        loss = _mean_nll(logits, targets, mesh)
-        return loss if aux is None else loss + model.cfg.aux_weight * aux
-    if isinstance(model, (Moe, DeepseekV2)):
-        logits, aux = model(inputs, attn_impl, remat)
-        return _mean_nll(logits, targets, mesh) + model.cfg.aux_weight * aux
-    if loss_chunk:
+    if loss_chunk and forward_fn is None:
         x = model(inputs, attn_impl, remat, unembed=False)
         return _chunked_nll(x, model.unembed, targets, loss_chunk,
                             model.cfg.dtype, mesh)
-    return _mean_nll(model(inputs, attn_impl, remat), targets, mesh)
+    out = model(inputs, attn_impl, remat) if forward_fn is None else forward_fn(inputs)
+    logits, aux = out if isinstance(out, tuple) else (out, None)
+    loss = _mean_nll(logits, targets, mesh)
+    return loss if aux is None else loss + model.cfg.aux_weight * aux
 
 
 @spans.traced("loss")
@@ -171,8 +156,8 @@ def make_optimizer(params, lr: float = LEARNING_RATE) -> torch.optim.Optimizer:
     )
 
 
-def _param_specs(model) -> dict[str, int]:
-    return mesh_mod.MOE_PARAM_SPECS if isinstance(model, Moe) else mesh_mod.PARAM_SPECS
+def _param_specs(model) -> dict[str, tuple]:
+    return family.of(model.cfg).param_specs or {}
 
 
 def build_optimizer(named_params, model, zero1: bool = False):
@@ -441,29 +426,19 @@ def _record_serve_window(serve, batch: int, n_steps: int, window_s: float) -> No
 
 
 def _build_model(cfg, params, generator, device, mesh=None, interleave: int = 1):
-    """The seeded model for ``cfg``'s family, or ``params`` (a model, or
+    """The seeded model of ``cfg``'s family, or ``params`` (a model, or
     the reference's parameter tree as numpy arrays) on ``device``. On a
     ``mesh`` every rank builds the full model from the same seed (or
     tree) and keeps its slice (``parallel.mesh.shard_params``): under pp,
     the layers of its stage's ``interleave`` chunks
-    (``parallel.pipeline.stage_layers``). DeepSeek-V2 has no JAX
-    counterpart and runs on one device."""
-    if isinstance(cfg, DeepseekV2Config):
-        if params is None:
-            return deepseek_mod.init_params(cfg, generator)
-        if isinstance(params, torch.nn.Module):
-            return params.to(device)
-        raise ValueError("DeepSeek-V2 has no JAX counterpart: params must be "
-                         "a DeepseekV2 module or None")
-    is_moe = isinstance(cfg, MoeConfig)
+    (``parallel.pipeline.stage_layers``)."""
+    fam = family.of(cfg)
     if params is None:
-        full = (moe_mod.init_params if is_moe else init_params)(cfg, generator)
+        full = fam.init_params(cfg, generator)
     elif isinstance(params, torch.nn.Module):
         full = params.to(device)
     else:
-        full = (moe_mod.from_jax_params if is_moe else from_jax_params)(
-            cfg, params, device
-        )
+        full = fam.from_jax_params(cfg, params, device)
     if mesh is None:
         return full
     layers = None
@@ -472,16 +447,15 @@ def _build_model(cfg, params, generator, device, mesh=None, interleave: int = 1)
 
         layers = sum(stage_layers(cfg.n_layers, mesh.pp, interleave,
                                   mesh.coords["stage"]), [])
-    model = (Moe if is_moe else Llama)(cfg, device, mesh, layers)
-    specs = _param_specs(model)
+    model = fam.model(cfg, device, mesh, layers)
     with torch.no_grad():
         model.load_state_dict(
-            mesh_mod.shard_params(full.state_dict(), mesh, specs, layers))
+            mesh_mod.shard_params(full.state_dict(), mesh, fam.param_specs, layers))
     return model
 
 
 def run(
-    cfg: LlamaConfig | MoeConfig,
+    cfg,
     *,
     steps: int = 10,
     batch: int = 8,
@@ -514,8 +488,8 @@ def run(
 ) -> RunResult:
     """Build and run the train step; returns losses + throughput.
 
-    ``cfg`` is a :class:`LlamaConfig` or a :class:`MoeConfig`, and picks
-    the model. ``device=None`` means the card (``cuda``); pass ``"cpu"``
+    ``cfg`` is the config of a model family (``models.family``), and
+    picks the model. ``device=None`` means the card (``cuda``); pass ``"cpu"``
     for the host. ``attn="flash"`` runs attention on the flash kernels.
     ``params`` (a model, or the reference's parameter tree as numpy
     arrays) and ``tokens`` ([batch, seq + 1] integers) replace the seeded
@@ -550,7 +524,7 @@ def run(
     with ``interleave`` > 1, the circular one (each stage holds that many
     chunks of layers). It composes with dp, tp, sp and, for MoE, ep (not
     sp); the reference refuses ``grad_accum`` and ``loss_chunk`` with it
-    (:func:`check_pp`). ``remat`` then recomputes each tick's chunk of
+    (:func:`check_layout`). ``remat`` then recomputes each tick's chunk of
     layers as one.
 
     The token batch is fixed and reused every step. A warm-up step runs
@@ -598,24 +572,10 @@ def run(
     if zero1 and dp < 2:
         raise ValueError("zero1 shards optimizer state over dp; it needs a "
                          "mesh with dp > 1")
-    check_deepseek(cfg, dp=dp, tp=tp, sp=sp, pp=pp, ep=ep, loss_chunk=loss_chunk)
-    if loss_chunk:
-        if loss_chunk < 1:
-            raise ValueError(f"loss_chunk must be >= 1, got {loss_chunk}")
-        if isinstance(cfg, MoeConfig):
-            raise ValueError(
-                "loss_chunk fuses the dense model's unembed into the loss; "
-                "it does not compose with MoE"
-            )
-        if seq % loss_chunk:
-            raise ValueError(
-                f"seq ({seq}) must divide by loss_chunk ({loss_chunk})"
-            )
-    check_sp(cfg, seq=seq, sp=sp, sp_layout=sp_layout, loss_chunk=loss_chunk)
-    check_ep(cfg, ep)
-    check_pp(cfg, pp=pp, microbatches=microbatches, interleave=interleave,
-             grad_accum=grad_accum, loss_chunk=loss_chunk, sp=sp,
-             per_shard=batch // dp)
+    check_layout(cfg, seq=seq, dp=dp, tp=tp, sp=sp, pp=pp, ep=ep,
+                 sp_layout=sp_layout, loss_chunk=loss_chunk, grad_accum=grad_accum,
+                 microbatches=microbatches, interleave=interleave,
+                 per_shard=batch // dp)
     if pp == 1:
         microbatches = interleave = 1  # no pipeline: not used
     if serve is not None and checkpoint_dir is not None:
@@ -694,78 +654,44 @@ def run(
     return result
 
 
-def check_deepseek(cfg, *, dp: int = 1, tp: int = 1, sp: int = 1, pp: int = 1,
-                   ep: int = 1, loss_chunk: int = 0) -> None:
-    """DeepSeek-V2 runs on one device, as one card's share of its experts:
-    raise for a mesh (its exchange and splits are not written) and for
-    ``loss_chunk`` (the dense model's fused unembed)."""
-    if not isinstance(cfg, DeepseekV2Config):
-        return
-    axes = {"dp": dp, "tp": tp, "sp": sp, "pp": pp, "ep": ep}
-    meshed = [f"{axis}={n}" for axis, n in axes.items() if n > 1]
-    if meshed:
-        raise ValueError(f"DeepSeek-V2 runs on one device; it takes no mesh "
-                         f"({', '.join(meshed)})")
-    if loss_chunk:
-        raise ValueError("loss_chunk fuses the dense model's unembed into the "
-                         "loss; it does not compose with DeepSeek-V2")
-
-
-def check_ep(cfg, ep: int) -> None:
-    """The reference's refusal of expert parallelism without experts (its
-    message), and an expert count that ``ep`` does not divide."""
-    if ep < 2:
-        return
-    if not isinstance(cfg, MoeConfig):
-        raise ValueError("ep > 1 requires a MoeConfig")
-    moe_mod.check_ep(cfg, ep)
-
-
-def check_pp(cfg, *, pp: int, microbatches: int, interleave: int,
-             grad_accum: int, loss_chunk: int, sp: int,
-             per_shard: int | None = None) -> None:
-    """The reference's refusals of a pipelined run (its messages): the
-    options it does not compose with, and the schedule's divisibility
-    (``parallel.pipeline.check_schedule``; ``per_shard`` is the rows of a
-    data rank)."""
-    if pp < 2:
-        return
-    from tpumon.workload_torch.parallel import pipeline
-
-    if isinstance(cfg, MoeConfig) and sp > 1:
-        raise ValueError("pp with MoE composes with dp/ep/tp only (sp=1)")
-    if grad_accum > 1:
+def check_layout(cfg, *, seq: int, dp: int = 1, tp: int = 1, sp: int = 1,
+                 pp: int = 1, ep: int = 1, sp_layout: str = "contiguous",
+                 loss_chunk: int = 0, grad_accum: int = 1, microbatches: int = 1,
+                 interleave: int = 1, per_shard: int | None = None) -> None:
+    """A run's refusals, before anything is built (the reference's words
+    where it has them): ``cfg``'s family's, the fused loss's, sp's and pp's
+    (``per_shard``: the rows of a data rank)."""
+    family.of(cfg).check(cfg, dp=dp, tp=tp, sp=sp, pp=pp, ep=ep, seq=seq,
+                         sp_layout=sp_layout, loss_chunk=loss_chunk,
+                         grad_accum=grad_accum)
+    if loss_chunk < 0:
+        raise ValueError(f"loss_chunk must be >= 1, got {loss_chunk}")
+    if loss_chunk and seq % loss_chunk:
+        raise ValueError(f"seq ({seq}) must divide by loss_chunk ({loss_chunk})")
+    if sp > 1:
+        if seq % sp:
+            raise ValueError(f"seq ({seq}) must divide by sp ({sp})")
+        if sp_layout not in ("contiguous", "zigzag"):
+            raise ValueError(f"unknown sp_layout: {sp_layout!r}")
+        if sp_layout == "zigzag" and seq % (2 * sp):
+            raise ValueError(
+                f"zigzag needs an even local shard: seq ({seq}) must "
+                f"divide by 2*sp ({2 * sp})"
+            )
+    if pp > 1 and grad_accum > 1:
         raise ValueError("grad_accum composes with dp/tp/sp/ep, not pp")
-    if loss_chunk:
+    if loss_chunk and (sp > 1 or pp > 1):
         raise ValueError(
             "loss_chunk fuses the dense model's unembed into the "
             "loss; it composes with dp/tp (not MoE, pp, or sp — the "
             "seq-chunk reshape would fight the seq sharding)"
         )
-    pipeline.check_schedule(cfg.n_layers, pp, interleave, microbatches)
-    if per_shard is not None:
-        pipeline.check_batch(per_shard, microbatches)
+    if pp > 1:
+        from tpumon.workload_torch.parallel import pipeline
 
-
-def check_sp(cfg, *, seq: int, sp: int, sp_layout: str, loss_chunk: int) -> None:
-    """The reference's refusals of a sequence-parallel run (its messages)."""
-    if sp < 2:
-        return
-    if seq % sp:
-        raise ValueError(f"seq ({seq}) must divide by sp ({sp})")
-    if sp_layout not in ("contiguous", "zigzag"):
-        raise ValueError(f"unknown sp_layout: {sp_layout!r}")
-    if sp_layout == "zigzag" and seq % (2 * sp):
-        raise ValueError(
-            f"zigzag needs an even local shard: seq ({seq}) must "
-            f"divide by 2*sp ({2 * sp})"
-        )
-    if loss_chunk:
-        raise ValueError(
-            "loss_chunk fuses the dense model's unembed into the "
-            "loss; it composes with dp/tp (not MoE, pp, or sp — the "
-            "seq-chunk reshape would fight the seq sharding)"
-        )
+        pipeline.check_schedule(cfg.n_layers, pp, interleave, microbatches)
+        if per_shard is not None:
+            pipeline.check_batch(per_shard, microbatches)
 
 
 def _run_windowed(step, model, tokens, steps, result, *, stats, stats_every,
@@ -979,26 +905,27 @@ def _install_sigterm_marker(stats, grace_s: float | None = None) -> None:
 
 
 def build_parser() -> argparse.ArgumentParser:
+    families = family.families()
+    presets = dict.fromkeys(p for fam in families.values() for p in fam.presets)
     parser = argparse.ArgumentParser(prog="tpumon-workload-torch")
     parser.add_argument("--steps", type=int, default=10)
     parser.add_argument("--batch", type=int, default=8)
     parser.add_argument("--seq", type=int, default=None)
     parser.add_argument(
-        "--preset",
-        choices=("tiny", "small", "medium", "llama3-8b", "v2-lite-share"),
-        default="tiny",
+        "--preset", choices=tuple(presets), default="tiny",
         help="model size: tiny/small for quick runs; medium (~0.67B) is the "
         "main path's model at seq 4096 (pair with --attn flash, --remat "
-        "and --grad-accum); llama3-8b is Llama-3-8B's shape; v2-lite-share "
-        "(--model deepseek_v2) is one EP8 card's share of DeepSeek-V2-Lite",
+        "and --grad-accum); llama3-8b is Llama-3-8B's shape; moe small is "
+        "0.153B, 8 experts top-2; v2-lite-share (--model deepseek_v2) is one "
+        "EP8 card's share of DeepSeek-V2-Lite (2.744B: all 27 layers, routed "
+        "experts 0-7 of 64, an eighth of the vocabulary)",
     )
     parser.add_argument(
-        "--model", choices=("llama", "moe", "deepseek_v2"), default="llama",
-        help="moe takes the presets tiny and small (moe-small: 0.153B, 8 "
-        "experts top-2; pair with --seq 4096 --attn flash --remat); "
-        "deepseek_v2 the presets tiny and v2-lite-share (2.744 B: all 27 "
-        "layers, routed experts 0-7 of 64, an eighth of the vocabulary; "
-        "one card, pair with --seq 4096 --attn flash --remat)",
+        "--model", choices=tuple(families), default="llama",
+        help="the model family (models/family.py) and its presets: " + "; ".join(
+            f"{name}: {'/'.join(fam.presets)}" for name, fam in families.items())
+        + " (moe small, deepseek_v2 v2-lite-share: pair with --seq 4096 "
+        "--attn flash --remat)",
     )
     for axis in ("dp", "tp", "sp", "pp", "ep"):
         parser.add_argument(f"--{axis}", type=int, default=1)
@@ -1127,31 +1054,18 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def model_config(args: argparse.Namespace) -> LlamaConfig | MoeConfig | DeepseekV2Config:
+def model_config(args: argparse.Namespace):
     """The config that ``--model``, ``--preset`` and ``--capacity-factor``
-    of parsed :func:`build_parser` arguments name."""
-    if args.model == "deepseek_v2":
-        presets = {"tiny": DeepseekV2Config.tiny,
-                   "v2-lite-share": DeepseekV2Config.v2_lite_share}
-        if args.preset not in presets:
-            log.warning("--model deepseek_v2 has tiny/v2-lite-share presets; "
-                        "ignoring --preset %s", args.preset)
-        return presets.get(args.preset, DeepseekV2Config.tiny)()
-    if args.model == "moe":
-        moe_presets = {"tiny": MoeConfig.tiny, "small": MoeConfig.small}
-        if args.preset not in moe_presets:
-            log.warning("--model moe has tiny/small presets; ignoring "
-                        "--preset %s", args.preset)
-        cfg = moe_presets.get(args.preset, MoeConfig.tiny)()
-        if args.capacity_factor is not None:
-            cfg = dataclasses.replace(cfg, capacity_factor=args.capacity_factor)
-        return cfg
-    return {
-        "tiny": LlamaConfig.tiny,
-        "small": LlamaConfig.small,
-        "medium": LlamaConfig.medium,
-        "llama3-8b": LlamaConfig.llama3_8b,
-    }[args.preset]()
+    of parsed :func:`build_parser` arguments name: a preset the family
+    lacks is ignored, with a warning, for the family's first."""
+    presets = family.families()[args.model].presets
+    if args.preset not in presets:
+        log.warning("--model %s has %s presets; ignoring --preset %s",
+                    args.model, "/".join(presets), args.preset)
+    cfg = presets.get(args.preset, next(iter(presets.values())))()
+    if args.capacity_factor is not None:
+        cfg = dataclasses.replace(cfg, capacity_factor=args.capacity_factor)
+    return cfg
 
 
 def round_layers(cfg, pp: int, interleave: int):
@@ -1240,10 +1154,13 @@ def _main(argv: list[str], results=None) -> int:
     if args.serve and args.checkpoint_dir:
         parser.error("--serve composes with the windowed loop, not "
                      "--checkpoint-dir")
-    if args.capacity_factor is not None and args.model != "moe":
-        parser.error("--capacity-factor requires --model moe")
-    if args.preset == "v2-lite-share" and args.model != "deepseek_v2":
-        parser.error("--preset v2-lite-share requires --model deepseek_v2")
+    for name, fam in family.families().items():
+        if args.preset in fam.own_presets and args.model != name:
+            parser.error(f"--preset {args.preset} requires --model {name}")
+    capacity = [name for name, fam in family.families().items()
+                if "capacity_factor" in {f.name for f in dataclasses.fields(fam.config)}]
+    if args.capacity_factor is not None and args.model not in capacity:
+        parser.error(f"--capacity-factor requires --model {' or '.join(capacity)}")
     if min(args.dp, args.tp, args.sp, args.pp, args.ep) < 1:
         parser.error("--dp, --tp, --sp, --pp and --ep must be >= 1")
     if args.zero1 and args.dp < 2:
@@ -1262,15 +1179,11 @@ def _main(argv: list[str], results=None) -> int:
                  model_config(args).n_layers, cfg.n_layers, args.pp,
                  args.interleave)
     try:  # before any rank starts
-        check_deepseek(cfg, dp=args.dp, tp=args.tp, sp=args.sp, pp=args.pp,
-                       ep=args.ep, loss_chunk=args.loss_chunk)
-        check_sp(cfg, seq=args.seq or cfg.max_seq, sp=args.sp,
-                 sp_layout=args.sp_layout, loss_chunk=args.loss_chunk)
-        check_ep(cfg, args.ep)
-        check_pp(cfg, pp=args.pp, microbatches=args.microbatches,
-                 interleave=args.interleave, grad_accum=args.grad_accum,
-                 loss_chunk=args.loss_chunk, sp=args.sp,
-                 per_shard=args.batch // args.dp)
+        check_layout(cfg, seq=args.seq or cfg.max_seq, dp=args.dp, tp=args.tp,
+                     sp=args.sp, pp=args.pp, ep=args.ep, sp_layout=args.sp_layout,
+                     loss_chunk=args.loss_chunk, grad_accum=args.grad_accum,
+                     microbatches=args.microbatches, interleave=args.interleave,
+                     per_shard=args.batch // args.dp)
     except ValueError as exc:
         parser.error(str(exc))
     if world > 1 and not as_rank:

@@ -48,11 +48,9 @@ from dataclasses import dataclass
 
 import torch
 from torch import nn
-from torch.nn import functional as F
-from torch.utils.checkpoint import checkpoint
-
 from tpumon.workload_torch.models import llama as _llama
 from tpumon.workload_torch.models import moe as _moe
+from tpumon.workload_torch.models.family import Family, register
 from tpumon.workload_torch.ops.core import (
     apply_rope,
     cast,
@@ -277,16 +275,10 @@ def seq_aux_loss(probs: torch.Tensor, experts: torch.Tensor) -> torch.Tensor:
     return (counts * (E / (k * S)) * probs.mean(dim=1)).sum(dim=1).mean()
 
 
-def swiglu(x, w_gate, w_up, w_down, dtype):
-    """silu(x·W_gate) · (x·W_up), then ·W_down, in ``dtype``."""
-    return (F.silu(x @ cast(w_gate, dtype)) * (x @ cast(w_up, dtype))) @ cast(
-        w_down, dtype)
-
-
 #: The dense layers' SwiGLU, and the shared experts' (one SwiGLU of
 #: ``n_shared_experts`` × the expert width on every token).
-_dense = traced("mlp")(swiglu)
-_shared = traced("shared")(swiglu)
+_dense = traced("mlp")(_llama.swiglu)
+_shared = traced("shared")(_llama.swiglu)
 
 
 class Block(nn.Module):
@@ -331,34 +323,24 @@ class DeepseekV2(nn.Module):
 
     def __init__(self, cfg: DeepseekV2Config, device=None) -> None:
         super().__init__()
-        self.cfg, self.mesh = cfg, None
-        self.embed = _llama._param((cfg.vocab, cfg.dim), device)
-        self.blocks = nn.ModuleList(Block(cfg, i >= cfg.first_k_dense, device)
-                                    for i in range(cfg.n_layers))
-        self.final_norm = _llama._param((cfg.dim,), device)
-        self.unembed = _llama._param((cfg.dim, cfg.vocab), device)
+        _llama.decoder_params(self, cfg, lambda i: Block(cfg, i >= cfg.first_k_dense,
+                                                         device), device)
 
     def forward(self, tokens: torch.Tensor, attn_impl=None, remat: bool = False):
         """tokens [B, S] → (logits [B, S, vocab] f32, the balance loss f32,
         the mean over the MoE layers). ``remat`` checkpoints each layer,
         routing included."""
         cfg = self.cfg
-        S = tokens.shape[1]
-        x = _llama.embed_tokens(self, tokens)
-        freqs = yarn_freqs(cfg.qk_rope_head_dim, max(S, cfg.max_seq), cfg.rope_theta,
-                           cfg.rope_factor, cfg.original_max_seq, cfg.beta_fast,
-                           cfg.beta_slow, device=x.device)
-        mask = _llama.causal_mask(S, x.device) if attn_impl is None else None
-        aux = x.new_zeros((), dtype=torch.float32)
-        for block in self.blocks:
-            if remat:
-                x, layer_aux = checkpoint(block, x, freqs, mask, attn_impl,
-                                          use_reentrant=False)
-            else:
-                x, layer_aux = block(x, freqs, mask, attn_impl)
-            aux = aux + layer_aux
-        x = rms_norm(x, self.final_norm, cfg.rms_eps)
-        return _llama.unembed_logits(self, x), aux / max(cfg.n_moe_layers, 1)
+        return _llama.trunk(self, tokens, attn_impl, remat, freqs=_yarn_table,
+                            eps=cfg.rms_eps, aux_layers=max(cfg.n_moe_layers, 1))
+
+
+def _yarn_table(model: DeepseekV2, seq: int, device) -> torch.Tensor:
+    """YaRN's RoPE table of the rope columns, at least ``seq`` rows."""
+    cfg = model.cfg
+    return yarn_freqs(cfg.qk_rope_head_dim, max(seq, cfg.max_seq), cfg.rope_theta,
+                      cfg.rope_factor, cfg.original_max_seq, cfg.beta_fast,
+                      cfg.beta_slow, device=device)
 
 
 def init_params(cfg: DeepseekV2Config, generator: torch.Generator,
@@ -368,3 +350,55 @@ def init_params(cfg: DeepseekV2Config, generator: torch.Generator,
     generator's device."""
     device = generator.device if device is None else torch.device(device)
     return _llama.init_weights(DeepseekV2(cfg, device), generator)
+
+
+def from_jax_params(cfg: DeepseekV2Config, tree, device=None) -> DeepseekV2:
+    """Refused: the JAX package has no DeepSeek-V2."""
+    raise ValueError("DeepSeek-V2 has no JAX counterpart: params must be "
+                     "a DeepseekV2 module or None")
+
+
+def forward_flops(cfg: DeepseekV2Config, batch: int, seq: int) -> float:
+    """Matmul FLOPs of one forward, counted as ``flops.forward_flops``
+    counts the others (attention at the full S², 2·m·n·k a product): each
+    layer's latent attention (q, the kv down- and up-projections, the
+    scores at the q·k width, probs·V at the v width, the output), the
+    dense layers' SwiGLU, the MoE layers' router, shared experts and the
+    held experts' expected share of the top-k (k · held / E a token), and
+    the unembed."""
+    T, D, H = batch * seq, cfg.dim, cfg.n_heads
+    proj = 2 * T * D * H * cfg.qk_head_dim
+    proj += 2 * T * D * (cfg.kv_lora_rank + cfg.qk_rope_head_dim)
+    proj += 2 * T * cfg.kv_lora_rank * H * (cfg.qk_nope_head_dim + cfg.v_head_dim)
+    proj += 2 * T * H * cfg.v_head_dim * D
+    attn = 2 * batch * seq * seq * H * (cfg.qk_head_dim + cfg.v_head_dim)
+    dense = 6 * T * D * cfg.ffn_dim
+    moe = 6 * T * D * cfg.shared_ffn_dim + 2 * T * D * cfg.n_routed_experts
+    moe += 6 * T * D * cfg.moe_ffn_dim * cfg.top_k * cfg.held / cfg.n_routed_experts
+    layers = cfg.n_layers * (proj + attn) + cfg.first_k_dense * dense
+    return float(layers + cfg.n_moe_layers * moe + 2 * T * D * cfg.vocab)
+
+
+def check(cfg: DeepseekV2Config, *, dp: int = 1, tp: int = 1, sp: int = 1,
+          pp: int = 1, ep: int = 1, loss_chunk: int = 0, **_) -> None:
+    """DeepSeek-V2 runs on one device, as one card's share of its experts:
+    raise for a mesh (its exchange and splits are not written) and for
+    ``loss_chunk`` (the dense model's fused unembed)."""
+    axes = {"dp": dp, "tp": tp, "sp": sp, "pp": pp, "ep": ep}
+    meshed = [f"{axis}={n}" for axis, n in axes.items() if n > 1]
+    if meshed:
+        raise ValueError(f"DeepSeek-V2 runs on one device; it takes no mesh "
+                         f"({', '.join(meshed)})")
+    if loss_chunk:
+        raise ValueError("loss_chunk fuses the dense model's unembed into the "
+                         "loss; it does not compose with DeepSeek-V2")
+
+
+FAMILY = register(Family(
+    name="deepseek_v2", config=DeepseekV2Config,
+    presets={"tiny": DeepseekV2Config.tiny,
+             "v2-lite-share": DeepseekV2Config.v2_lite_share},
+    own_presets=("v2-lite-share",),
+    model=DeepseekV2, init_params=init_params, from_jax_params=from_jax_params,
+    forward_flops=forward_flops, check=check,
+))

@@ -24,6 +24,8 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from tpumon.workload_torch import flops
+from tpumon.workload_torch.models.family import Family, register
 from tpumon.workload_torch.ops.core import apply_rope, cast, rms_norm, rope_freqs
 from tpumon.workload_torch.parallel import mesh as mesh_mod
 from tpumon.workload_torch.spans import traced
@@ -172,6 +174,15 @@ def _attn_out(out, wo, dtype):
     return out.reshape(B, S, -1) @ cast(wo, dtype)
 
 
+def swiglu(x, w_gate, w_up, w_down, dtype):
+    """The dense SwiGLU, silu(x·W_gate) · (x·W_up), then ·W_down, in
+    ``dtype``: a dense layer's MLP (:meth:`Block.mlp`) and DeepSeek-V2's
+    dense layers and shared experts."""
+    gate = x @ cast(w_gate, dtype)
+    up = x @ cast(w_up, dtype)
+    return (nn.functional.silu(gate) * up) @ cast(w_down, dtype)
+
+
 def check_tp(cfg, tp: int) -> None:
     """Raise unless ``tp`` splits the heads, the kv heads, the FFN and the
     vocabulary evenly."""
@@ -201,17 +212,18 @@ class Block(nn.Module):
 
     @traced("mlp")
     def mlp(self, x):
-        dtype = self.cfg.dtype
         x = mesh_mod.copy_to_model(x, self.mesh)
-        gate = x @ cast(self.w_gate, dtype)
-        up = x @ cast(self.w_up, dtype)
-        out = (nn.functional.silu(gate) * up) @ cast(self.w_down, dtype)
+        out = swiglu(x, self.w_gate, self.w_up, self.w_down, self.cfg.dtype)
         return mesh_mod.reduce_from_model(out, self.mesh)
 
     @traced("layer")
     def forward(self, h, freqs, mask, attn_impl=None):
+        """The layer's output and its aux loss: none (:func:`trunk`)."""
         h = h + attention(self, rms_norm(h, self.attn_norm), freqs, mask, attn_impl)
-        return h + self.mlp(rms_norm(h, self.mlp_norm))
+        return h + self.mlp(rms_norm(h, self.mlp_norm)), None
+
+    #: A pipeline stage's call (``parallel.pipeline``): no aux statistics.
+    forward_sums = forward
 
 
 def embed_tokens(model: nn.Module, tokens: torch.Tensor) -> torch.Tensor:
@@ -256,20 +268,54 @@ def unembed_logits(model: nn.Module, x: torch.Tensor) -> torch.Tensor:
     return (x @ cast(model.unembed, model.cfg.dtype)).float()
 
 
-def make_blocks(make, n_layers: int, layers=None) -> nn.Module:
-    """The decoder's layers: an ``nn.ModuleList`` of ``make()`` for all
-    ``n_layers``, or, for a pipeline stage, an ``nn.ModuleDict`` of the
-    global ``layers`` it holds, keyed by their index, so that a stage's
-    state-dict names are the full model's (``blocks.<i>.<param>``)."""
+def decoder_params(model: nn.Module, cfg, make_block, device=None, mesh=None,
+                   layers=None, specs=mesh_mod.PARAM_SPECS) -> None:
+    """Give ``model`` its config, mesh and parameters: the embedding and
+    unembedding (the rank's vocabulary block under tp, by ``specs``), the
+    final norm and the layers ``make_block(i)``, all ``cfg.n_layers`` or a
+    pipeline stage's ``layers`` keyed by their global index (the full
+    model's state-dict names, ``blocks.<i>.<param>``)."""
+    tp = _tp(mesh)
+    model.cfg, model.mesh = cfg, mesh
+    model.embed = _param(
+        mesh_mod.local_shape("embed", (cfg.vocab, cfg.dim), specs, tp), device)
     if layers is None:
-        return nn.ModuleList(make() for _ in range(n_layers))
-    return nn.ModuleDict({str(i): make() for i in layers})
+        model.blocks = nn.ModuleList(make_block(i) for i in range(cfg.n_layers))
+    else:
+        model.blocks = nn.ModuleDict({str(i): make_block(i) for i in layers})
+    model.final_norm = _param((cfg.dim,), device)
+    model.unembed = _param(
+        mesh_mod.local_shape("unembed", (cfg.dim, cfg.vocab), specs, tp), device)
 
 
-def _check_whole(model: nn.Module) -> None:
+def trunk(model: nn.Module, tokens: torch.Tensor, attn_impl=None,
+          remat: bool = False, *, freqs=rank_freqs, eps: float = 1e-5,
+          aux_layers: int | None = None, unembed: bool = True):
+    """The decoder every family runs: the embedding, the RoPE table
+    ``freqs(model, S, device)``, the mask (plain attention only), each
+    block (h, freqs, mask, attn_impl) → (h, its aux loss or None),
+    checkpointed under ``remat``, the final norm at ``eps``, the unembed
+    (skipped under ``unembed=False``). Returns the logits, or with
+    ``aux_layers`` (logits, the aux losses' sum over ``aux_layers``)."""
     if isinstance(model.blocks, nn.ModuleDict):
         raise RuntimeError("this model holds one pipeline stage's layers; "
                            "it runs through parallel.pipeline")
+    S = tokens.shape[1]
+    x = embed_tokens(model, tokens)
+    table = freqs(model, S, x.device)
+    mask = causal_mask(S, x.device) if attn_impl is None else None
+    aux = None if aux_layers is None else x.new_zeros((), dtype=torch.float32)
+    for block in model.blocks:
+        if remat:
+            x, layer_aux = checkpoint(block, x, table, mask, attn_impl,
+                                      use_reentrant=False)
+        else:
+            x, layer_aux = block(x, table, mask, attn_impl)
+        if aux is not None:
+            aux = aux + layer_aux
+    x = rms_norm(x, model.final_norm, eps)
+    out = unembed_logits(model, x) if unembed else x
+    return out if aux is None else (out, aux / aux_layers)
 
 
 class Llama(nn.Module):
@@ -280,23 +326,15 @@ class Llama(nn.Module):
     and vocabulary ``vocab/tp``; fill it with ``parallel.mesh.shard_params``
     of a full model's state. ``layers`` (a pipeline stage's global layer
     indices, ``parallel.pipeline.stage_layers``) makes it hold only those
-    (:func:`make_blocks`); such a model runs through
+    (:func:`decoder_params`); such a model runs through
     ``parallel.pipeline.make_pipelined_forward``."""
 
     def __init__(self, cfg: LlamaConfig, device=None, mesh=None,
                  layers=None) -> None:
         super().__init__()
         check_tp(cfg, _tp(mesh))
-        self.cfg = cfg
-        self.mesh = mesh
-        specs, tp = mesh_mod.PARAM_SPECS, _tp(mesh)
-        self.embed = _param(
-            mesh_mod.local_shape("embed", (cfg.vocab, cfg.dim), specs, tp), device)
-        self.blocks = make_blocks(lambda: Block(cfg, device, mesh), cfg.n_layers,
-                                  layers)
-        self.final_norm = _param((cfg.dim,), device)
-        self.unembed = _param(
-            mesh_mod.local_shape("unembed", (cfg.dim, cfg.vocab), specs, tp), device)
+        decoder_params(self, cfg, lambda i: Block(cfg, device, mesh), device, mesh,
+                       layers)
 
     def forward(
         self,
@@ -314,20 +352,7 @@ class Llama(nn.Module):
         (flash attention). ``remat=True`` checkpoints each block, so the
         backward recomputes its activations instead of keeping them.
         """
-        _check_whole(self)
-        S = tokens.shape[1]
-        x = embed_tokens(self, tokens)
-        freqs = rank_freqs(self, S, x.device)
-        mask = causal_mask(S, x.device) if attn_impl is None else None
-        for block in self.blocks:
-            if remat:
-                x = checkpoint(block, x, freqs, mask, attn_impl, use_reentrant=False)
-            else:
-                x = block(x, freqs, mask, attn_impl)
-        x = rms_norm(x, self.final_norm)
-        if not unembed:
-            return x
-        return unembed_logits(self, x)
+        return trunk(self, tokens, attn_impl, remat, unembed=unembed)
 
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
@@ -381,3 +406,20 @@ def from_jax_params(cfg: LlamaConfig, tree, device=None) -> Llama:
     """Build a :class:`Llama` from the reference's parameter pytree as
     numpy arrays (:func:`load_jax_tree`)."""
     return load_jax_tree(Llama(cfg, device), tree, LAYER_PARAMS)
+
+
+def check(cfg: LlamaConfig, *, ep: int = 1, **_) -> None:
+    """The reference's refusal of expert parallelism without experts (its
+    message)."""
+    if ep > 1:
+        raise ValueError("ep > 1 requires a MoeConfig")
+
+
+FAMILY = register(Family(
+    name="llama", config=LlamaConfig,
+    presets={"tiny": LlamaConfig.tiny, "small": LlamaConfig.small,
+             "medium": LlamaConfig.medium, "llama3-8b": LlamaConfig.llama3_8b},
+    model=Llama, init_params=init_params, from_jax_params=from_jax_params,
+    forward_flops=flops.forward_flops, check=check,
+    param_specs=mesh_mod.PARAM_SPECS,
+))

@@ -34,9 +34,10 @@ from typing import ClassVar
 import torch
 from torch import nn
 from torch.nn import functional as F
-from torch.utils.checkpoint import checkpoint
 
+from tpumon.workload_torch import flops
 from tpumon.workload_torch.models import llama as _llama
+from tpumon.workload_torch.models.family import Family, register
 from tpumon.workload_torch.ops.core import cast, rms_norm
 from tpumon.workload_torch.parallel import mesh as mesh_mod
 from tpumon.workload_torch.spans import traced
@@ -324,7 +325,7 @@ class MoeBlock(nn.Module):
         aux loss's statistics as token sums over the rank's rows: [2E]
         f32, the tokens routed to each expert, then each expert's summed
         probability. Sums, not means, so that a pipeline adds them up over
-        its microbatches (``_moe_mlp_local``)."""
+        its microbatches."""
         cfg, mesh = self.cfg, self.mesh
         dispatch, combine, probs = route_tokens(x, self.router, cfg, mesh)
         sums = torch.cat([dispatch.sum(dim=-1).sum(dim=(0, 1)),  # [E]
@@ -337,46 +338,36 @@ class MoeBlock(nn.Module):
             combine = combine[:, :, start:start + local]
         return dispatch, combine, sums
 
-    def experts(self, x, dispatch, combine):
+    def moe_mlp(self, x, sums: bool = False):
+        """x [B,S,D] → (out [B,S,D], GShard aux loss, a f32 scalar), or
+        with ``sums`` (out, the aux statistics' token sums [2E]). The aux
+        loss is taken before the experts run, so that a remat's recompute
+        stops before the combine's sum over expert."""
+        dispatch, combine, stats = self.route_sums(x)
+        if not sums:
+            stats = aux_loss(stats / (x.shape[0] * x.shape[1]), self.cfg, self.mesh)
         return expert_ffn(x, dispatch, combine, self.w_gate, self.w_up,
-                          self.w_down, self.cfg, self.mesh)
-
-    def moe_mlp(self, x):
-        """x [B,S,D] → (out [B,S,D], GShard aux loss, a f32 scalar). The
-        aux loss is taken before the experts run, so that a remat's
-        recompute stops before the combine's sum over expert."""
-        dispatch, combine, sums = self.route_sums(x)
-        aux = aux_loss(sums / (x.shape[0] * x.shape[1]), self.cfg, self.mesh)
-        return self.experts(x, dispatch, combine), aux
-
-    def moe_mlp_sums(self, x):
-        """x [B,S,D] → (out [B,S,D], the aux statistics' token sums [2E])."""
-        dispatch, combine, sums = self.route_sums(x)
-        return self.experts(x, dispatch, combine), sums
+                          self.w_down, self.cfg, self.mesh), stats
 
     @traced("layer")
+    def forward(self, h, freqs, mask, attn_impl=None, sums: bool = False):
+        """The layer's output and its aux loss (with ``sums``: statistics)."""
+        h = h + _llama.attention(
+            self, rms_norm(h, self.attn_norm), freqs, mask, attn_impl
+        )
+        out, stats = self.moe_mlp(rms_norm(h, self.mlp_norm), sums)
+        return h + out, stats
+
     def forward_sums(self, h, freqs, mask, attn_impl=None):
-        """The layer's output and its aux statistics (``moe_mlp_sums``)."""
-        h = h + _llama.attention(
-            self, rms_norm(h, self.attn_norm), freqs, mask, attn_impl
-        )
-        out, sums = self.moe_mlp_sums(rms_norm(h, self.mlp_norm))
-        return h + out, sums
-
-    @traced("layer")
-    def forward(self, h, freqs, mask, attn_impl=None):
-        h = h + _llama.attention(
-            self, rms_norm(h, self.attn_norm), freqs, mask, attn_impl
-        )
-        out, aux = self.moe_mlp(rms_norm(h, self.mlp_norm))
-        return h + out, aux
+        """A pipeline stage's call (``parallel.pipeline``)."""
+        return self.forward(h, freqs, mask, attn_impl, sums=True)
 
 
 @traced("router")
 def aux_loss(means: torch.Tensor, cfg: MoeConfig, mesh=None) -> torch.Tensor:
     """The GShard aux loss E · Σ_e fraction-routed(e) / k · mean-prob(e)
-    from the rank's means ``[..., 2E]`` (``moe_mlp_sums`` over its token
-    count), summed over any leading (layer) dims. Both statistics are
+    from the rank's means ``[..., 2E]`` (:meth:`MoeBlock.moe_mlp`'s sums
+    over its token count), summed over any leading (layer) dims. Both statistics are
     means over the whole batch: on a mesh they average over the data×seq
     ranks (the rows are equal shards) first."""
     if mesh is not None:
@@ -396,19 +387,10 @@ class Moe(nn.Module):
     def __init__(self, cfg: MoeConfig, device=None, mesh=None,
                  layers=None) -> None:
         super().__init__()
-        tp = _llama._tp(mesh)
-        _llama.check_tp(cfg, tp)
+        _llama.check_tp(cfg, _llama._tp(mesh))
         check_ep(cfg, _ep(mesh))
-        self.cfg = cfg
-        self.mesh = mesh
-        specs = mesh_mod.MOE_PARAM_SPECS
-        self.embed = _llama._param(
-            mesh_mod.local_shape("embed", (cfg.vocab, cfg.dim), specs, tp), device)
-        self.blocks = _llama.make_blocks(lambda: MoeBlock(cfg, device, mesh),
-                                         cfg.n_layers, layers)
-        self.final_norm = _llama._param((cfg.dim,), device)
-        self.unembed = _llama._param(
-            mesh_mod.local_shape("unembed", (cfg.dim, cfg.vocab), specs, tp), device)
+        _llama.decoder_params(self, cfg, lambda i: MoeBlock(cfg, device, mesh),
+                              device, mesh, layers, mesh_mod.MOE_PARAM_SPECS)
 
     def forward(self, tokens: torch.Tensor, attn_impl=None, remat: bool = False):
         """tokens [B, S] → (logits [B, S, vocab] f32 (the rank's vocabulary
@@ -419,23 +401,14 @@ class Moe(nn.Module):
         [B,S,E,C] dispatch/combine tensors are the model's largest
         activations, and the backward recomputes them.
         """
-        _llama._check_whole(self)
-        cfg = self.cfg
-        S = tokens.shape[1]
-        x = _llama.embed_tokens(self, tokens)
-        freqs = _llama.rank_freqs(self, S, x.device)
-        mask = _llama.causal_mask(S, x.device) if attn_impl is None else None
-        aux = x.new_zeros((), dtype=torch.float32)
-        for block in self.blocks:
-            if remat:
-                x, layer_aux = checkpoint(
-                    block, x, freqs, mask, attn_impl, use_reentrant=False
-                )
-            else:
-                x, layer_aux = block(x, freqs, mask, attn_impl)
-            aux = aux + layer_aux
-        x = rms_norm(x, self.final_norm)
-        return _llama.unembed_logits(self, x), aux / cfg.n_layers
+        return _llama.trunk(self, tokens, attn_impl, remat,
+                            aux_layers=self.cfg.n_layers)
+
+    def aux_of_sums(self, sums: torch.Tensor, tokens: int) -> torch.Tensor:
+        """The aux loss of a pipeline stage's layers from their token sums
+        ``[layers, 2E]`` over the rank's ``tokens``
+        (``parallel.pipeline``)."""
+        return aux_loss(sums / tokens, self.cfg, self.mesh)
 
 
 def init_params(cfg: MoeConfig, generator: torch.Generator, device=None) -> Moe:
@@ -450,3 +423,27 @@ def from_jax_params(cfg: MoeConfig, tree, device=None) -> Moe:
     """Build a :class:`Moe` from the reference's parameter pytree as numpy
     arrays, with the layer keys of :data:`LAYER_PARAMS`."""
     return _llama.load_jax_tree(Moe(cfg, device), tree, LAYER_PARAMS)
+
+
+def check(cfg: MoeConfig, *, sp: int = 1, pp: int = 1, ep: int = 1,
+          loss_chunk: int = 0, **_) -> None:
+    """What the MoE model does not run: the dense model's fused unembed,
+    an expert count that ``ep`` does not divide, and the pipeline under
+    sp (routing's capacity cumsum runs over the whole sequence)."""
+    if loss_chunk:
+        raise ValueError(
+            "loss_chunk fuses the dense model's unembed into the loss; "
+            "it does not compose with MoE"
+        )
+    check_ep(cfg, ep)
+    if pp > 1 and sp > 1:
+        raise ValueError("pp with MoE composes with dp/ep/tp only (sp=1)")
+
+
+FAMILY = register(Family(
+    name="moe", config=MoeConfig,
+    presets={"tiny": MoeConfig.tiny, "small": MoeConfig.small},
+    model=Moe, init_params=init_params, from_jax_params=from_jax_params,
+    forward_flops=flops.forward_flops, check=check,
+    param_specs=mesh_mod.MOE_PARAM_SPECS,
+))

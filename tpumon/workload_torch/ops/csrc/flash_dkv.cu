@@ -38,12 +38,10 @@
 //   D = 64 one CTA holds both (PART BOTH: 32 + 32 + 32 + 32).
 // - BQ q rows per ring stage, the reference's block_q of this grid, capped
 //   by the registers: 64, and 32 for PART DK at D = 128 (a 64-row tile put
-//   its accumulators at 128 and spilled 8 bytes), and 32 for both parts
-//   at D = 192 (96 accumulator registers for dV or dK alone). Every
-//   block_q the wrapper takes (64 or 128) therefore streams at the cap.
-// - D = 192 (DeepSeek-V2's q.k width; the wrapper pads v and dO to it)
-//   splits as D = 128 does, at BK = 64 only: at 128 k rows the 168
-//   registers of a thread spilled 4 bytes in either part.
+//   its accumulators at 128 and spilled 8 bytes). Every block_q the
+//   wrapper takes (64 or 128) therefore streams at the cap.
+// - Head dims 64 and 128, the widths the reference runs, v as wide as q.
+//   DeepSeek-V2's q.k width 192 with v 128 is flash_dkv_mla.cu's.
 // - BK = 64 halves the CTA and doubles the grid, for shapes whose 128-row
 //   grid leaves SMs idle (few kv heads, short ring stripes).
 // - The first warp of the last warpgroup is the producer (its other three
@@ -78,7 +76,7 @@ enum Part { BOTH = 0, DV = 1, DK = 2 };
 // The most q rows a stage that a part's registers hold.
 template <int D, int PART>
 constexpr int q_cap() {
-  return D == 192 || (D == 128 && PART == DK) ? 32 : 64;
+  return D == 128 && PART == DK ? 32 : 64;
 }
 
 template <int D, int PART, int BK, int BQ_>
@@ -362,14 +360,13 @@ int run_part(const void* q, const void* k, const void* v, const void* dout,
                 scale, causal);
 }
 
-// Every part of one call at k tile BK: at D = 128 and 192 the dV part,
-// then the dK part, each at its q cap; at D = 64 both gradients in one
-// launch.
+// Every part of one call at k tile BK: at D = 128 the dV part, then the
+// dK part, each at its q cap; at D = 64 both gradients in one launch.
 template <int D, int BK>
 int run(const void* q, const void* k, const void* v, const void* dout,
         const void* lse, const void* delta, void* dk, void* dv, int B, int H,
         int KV, int S, int Sk, float scale, int causal, void* stream) {
-  if constexpr (D >= 128) {
+  if constexpr (D == 128) {
     int err = run_part<D, DV, BK, q_cap<D, DV>()>(
         q, k, v, dout, lse, delta, dk, dv, B, H, KV, S, Sk, scale, causal,
         stream);
@@ -386,8 +383,7 @@ int run(const void* q, const void* k, const void* v, const void* dout,
 
 // The compiled tile pairs at head dim D (ops/flash_attention.py COMPILED
 // lists the same): block_q 64 or 128, both streamed at the q cap, and
-// block_k 64 or 128; at D = 192 block_k 64 only (at 128 rows, in 168
-// registers a thread, ptxas spilled 4 bytes in either part).
+// block_k 64 or 128.
 template <int D>
 int dispatch(int block_q, int block_k, const void* q, const void* k,
              const void* v, const void* dout, const void* lse,
@@ -398,25 +394,26 @@ int dispatch(int block_q, int block_k, const void* q, const void* k,
     return run<D, 64>(q, k, v, dout, lse, delta, dk, dv, B, H, KV, S, Sk,
                       scale, causal, stream);
   }
-  if constexpr (D <= 128) {
-    if (block_k == 128) {
-      return run<D, 128>(q, k, v, dout, lse, delta, dk, dv, B, H, KV, S, Sk,
-                         scale, causal, stream);
-    }
+  if (block_k == 128) {
+    return run<D, 128>(q, k, v, dout, lse, delta, dk, dv, B, H, KV, S, Sk,
+                       scale, causal, stream);
   }
   return TILE_ERROR;
 }
 
 }  // namespace dkv
 
-// Plain C entry for ctypes. Returns 0 when launched, else a cudaError_t
-// value, hopper::TMAP_ERROR + CUresult when a tensor map is refused, or
+// Plain C entry for ctypes, with flash_dkv_mla.cu's arguments: v's width
+// Dv beside D, which must equal it here. Returns 0 when launched,
+// cudaErrorInvalidValue for other widths, else a cudaError_t value,
+// hopper::TMAP_ERROR + CUresult when a tensor map is refused, or
 // hopper::TILE_ERROR for a (block_q, block_k) pair that is not compiled.
 extern "C" int flash_dkv(const void* q, const void* k, const void* v,
                          const void* dout, const void* lse, const void* delta,
                          void* dk, void* dv, int B, int H, int KV, int S,
-                         int Sk, int D, int block_q, int block_k, float scale,
-                         int causal, void* stream) {
+                         int Sk, int D, int Dv, int block_q, int block_k,
+                         float scale, int causal, void* stream) {
+  if (Dv != D) return int(cudaErrorInvalidValue);
   if (D == 128) {
     return dkv::dispatch<128>(block_q, block_k, q, k, v, dout, lse, delta, dk,
                               dv, B, H, KV, S, Sk, scale, causal, stream);
@@ -424,10 +421,6 @@ extern "C" int flash_dkv(const void* q, const void* k, const void* v,
   if (D == 64) {
     return dkv::dispatch<64>(block_q, block_k, q, k, v, dout, lse, delta, dk,
                              dv, B, H, KV, S, Sk, scale, causal, stream);
-  }
-  if (D == 192) {
-    return dkv::dispatch<192>(block_q, block_k, q, k, v, dout, lse, delta, dk,
-                              dv, B, H, KV, S, Sk, scale, causal, stream);
   }
   return int(cudaErrorInvalidValue);
 }

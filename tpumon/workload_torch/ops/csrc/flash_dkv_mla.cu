@@ -1,8 +1,8 @@
 // flash_dkv_mla: the attention backward's dK and dV for latent attention
 // (DeepSeek-V2's MLA) at its true widths, q and k of DQK = 192 columns, v
-// and dO of DV = 128, in one launch. flash_dkv.cu serves every other
-// (D, Dv); the wrapper (ops/flash_attention.py, DKV_SPLIT) picks this
-// route from the tensors' widths.
+// and dO of DV = 128, in one launch. flash_dkv.cu serves q.k widths 64 and
+// 128; the wrapper's width table (ops/flash_attention.py, WIDTHS) sends
+// every flash_dkv call at q.k width 192 here, v and dO padded to 128.
 //
 // Replaces _dkv_kernel of tpumon/workload/ops/flash_attention.py (:476) at
 // these widths (the JAX package runs no MLA). As there and in flash_dkv.cu
@@ -17,10 +17,11 @@
 // causal: 8,390,656 pairs) that is 2.75 TFLOP, 2.78 ms at 989 TFLOP/s
 // bf16, against 0.60 ms for its 2.0 GB of bytes: bound by operations.
 //
-// Why a route of its own: flash_dkv.cu at 192 needs v and dO padded to
-// 192 (two copies of the inputs, a sliced copy of dV), runs dP^T and dV at
-// 192, and splits dK and dV into two launches that each recompute S^T:
-// 960 columns of products a (q, k) pair where 640 are needed.
+// Why a kernel of its own: flash_dkv.cu's design at 192 would need v and
+// dO padded to 192 (two copies of the inputs, a sliced copy of dV), run
+// dP^T and dV at 192, and split dK and dV into two launches that each
+// recompute S^T: 960 columns of products a (q, k) pair where 640 are
+// needed.
 //
 // Design (one CTA per batch, kv-head and 64-row k-block; 288 threads):
 // - Two consumer warpgroups on the same 64 k rows (wgmma's M), split by

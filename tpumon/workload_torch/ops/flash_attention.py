@@ -13,8 +13,8 @@ memory and the TPU's resident/streamed split has no reason to exist:
 
 - ``flash_fwd``  ← ``_fwd_kernel_resident`` + ``_fwd_kernel_streamed``
 - ``flash_dq``   ← ``_dq_kernel_resident`` + ``_dq_kernel_streamed``
-- ``flash_dkv``  ← ``_dkv_kernel`` (``flash_dkv.cu``; at the widths of
-  :data:`DKV_SPLIT`, ``flash_dkv_mla.cu``)
+- ``flash_dkv``  ← ``_dkv_kernel`` (``flash_dkv.cu``; at q·k width 192,
+  ``flash_dkv_mla.cu``)
 
 Each wrapper checks its inputs and then, for a tensor on the card,
 launches its kernel or raises; it counts the launch in :data:`launches`.
@@ -25,10 +25,11 @@ head dims 64, 128 and 192; a narrower head dim that is a multiple of 8
 (the tiny preset's 32) runs on the next of them with zero columns, still
 one launch a call (:func:`kernel_width`, :func:`_on_width`). V may be
 narrower than q and k (DeepSeek-V2's latent attention: q·k width 192, v
-width 128): flash_fwd and flash_dq then run with v and dO padded to the
-q·k width and O sliced back, which is exact; flash_dkv takes the pairs
-of :data:`DKV_SPLIT` as they are, in one launch at their true widths,
-and pads any other. The softmax scale defaults to
+width 128): each kernel runs v at the width :data:`WIDTHS` gives for its
+compiled q·k width, v and dO padded up to it and O and dV sliced back,
+which is exact. At 192 flash_fwd and flash_dq run v at 192 and flash_dkv
+at 128, in one launch at DeepSeek-V2's true widths; a wider v is refused
+there. The softmax scale defaults to
 1/√D of the q·k width; ``scale`` sets another (YaRN's mscale² / √D) on
 the functions, and :func:`softmax_scale` is the one way a model sets it
 for an ``attn_impl``, whose call takes q, k and v only. The Δ pre-pass
@@ -57,6 +58,7 @@ import contextlib
 import contextvars
 import functools
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -80,8 +82,8 @@ TILES = (64, 128)
 #: 128 x 128 (ptxas spilled it at both head dims; ``csrc/flash_dq.cu``),
 #: and at D = 192 takes 64 x 64 only (its registers and shared memory).
 #: flash_fwd at D = 192 leaves out 128 x 128 (over the shared memory).
-#: flash_dkv takes both block_q and streams each at its register cap
-#: (:data:`DKV_Q_ROWS`); at D = 192 its k tile is 64 rows (128 spilled).
+#: flash_dkv takes both block_q and streams each at its q-row cap
+#: (:data:`WIDTHS`); at D = 192 its k tile is 64 rows.
 _ALL_PAIRS = tuple((bq, bk) for bq in TILES for bk in TILES)
 _NOT_128x128 = tuple(p for p in _ALL_PAIRS if p != (128, 128))
 COMPILED: dict[str, dict[int, tuple[tuple[int, int], ...]]] = {
@@ -91,18 +93,26 @@ COMPILED: dict[str, dict[int, tuple[tuple[int, int], ...]]] = {
                   192: tuple(p for p in _ALL_PAIRS if p[1] == 64)},
 }
 
-#: flash_dkv's q rows a stage at each kernel head dim, whatever block_q
-#: asks (the registers' cap; at D = 128 the dK launch's, where the dV
-#: launch streams 64; at D = 192 both launches').
-DKV_Q_ROWS = {64: 64, 128: 32, 192: 32}
 
-#: (q·k width, v width) → q rows a stage, for the pairs flash_dkv runs at
-#: their true widths in one launch (``csrc/flash_dkv_mla.cu``): v and dO
-#: unpadded, dK and dV from one Sᵀ and one dPᵀ a tile. It takes the tile
-#: requests of ``COMPILED["flash_dkv"][192]`` (block_q 64 or 128, block_k
-#: 64) and streams 64 q rows. Every other (D, Dv) pads v to the kernel
-#: width (:func:`_on_width`).
-DKV_SPLIT = {(192, 128): 64}
+class Width(NamedTuple):
+    """A kernel at one compiled q·k width: v's width (v and dO padded up
+    to it, a wider one refused), its C entry, and its q rows a stage
+    whatever block_q asks (its registers' cap; 128 caps nothing)."""
+    v: int
+    entry: str
+    q_rows: int
+
+
+#: kernel -> compiled q·k width -> :class:`Width`. flash_dkv runs v = D
+#: at 64 and 128 (``csrc/flash_dkv.cu``; at 128 the dK launch caps q rows
+#: at 32) and v = 128 at 192 in one launch (``csrc/flash_dkv_mla.cu``:
+#: DeepSeek-V2's true widths); the others run v as wide as q·k.
+WIDTHS: dict[str, dict[int, Width]] = {
+    "flash_fwd": {D: Width(D, "flash_fwd", 128) for D in HEAD_DIMS},
+    "flash_dq": {D: Width(D, "flash_dq", 128) for D in HEAD_DIMS},
+    "flash_dkv": {64: Width(64, "flash_dkv", 64), 128: Width(128, "flash_dkv", 32),
+                  192: Width(128, "flash_dkv_mla", 64)},
+}
 
 #: SMs of an H100: a grid below one wave of them leaves SMs idle.
 H100_SMS = 132
@@ -113,8 +123,8 @@ launches: dict[str, int] = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
 
 #: The same launches by tiles, ``"<kernel>[<block_q>x<block_k>]"`` with
 #: the tiles the kernel ran (:func:`effective_blocks`), and
-#: ``"<kernel>[<block_q>x<block_k>,v<Dv>]"`` for a flash_dkv launch at
-#: the true widths of :data:`DKV_SPLIT`.
+#: ``"<kernel>[<block_q>x<block_k>,v<Dv>]"`` where :data:`WIDTHS` runs v
+#: narrower than q·k.
 tile_launches: dict[str, int] = {}
 
 
@@ -186,28 +196,19 @@ def _requested(name: str, B, H, KV, S, Sk, D, causal, block_q, block_k):
     return bq, bk
 
 
-def dkv_split(D: int, Dv: int | None) -> bool:
-    """Whether flash_dkv runs q·k width ``D`` and v width ``Dv`` as they
-    are, in one launch (:data:`DKV_SPLIT`), rather than v padded to D."""
-    return (D, Dv) in DKV_SPLIT
-
-
 def effective_blocks(B: int, H: int, KV: int, S: int, Sk: int, D: int,
                      causal: bool = True, block_q: int | None = None,
-                     block_k: int | None = None,
-                     Dv: int | None = None) -> dict[str, tuple[int, int]]:
+                     block_k: int | None = None) -> dict[str, tuple[int, int]]:
     """kernel -> the (block_q, block_k) it runs on the card for this shape
     and request (``D`` the caller's head dim, padded as the wrappers pad
-    it; ``Dv`` v's width, None for D): :func:`default_blocks` where a
-    request is None, else :func:`pick_block` of it, clamped to the
-    kernel's compiled pairs, with flash_dkv's q rows at its register cap
-    (:data:`DKV_Q_ROWS`, or :data:`DKV_SPLIT`'s at those widths)."""
+    it): :func:`default_blocks` where a request is None, else
+    :func:`pick_block` of it, clamped to the kernel's compiled pairs and
+    to its q-row cap (:data:`WIDTHS`)."""
+    width = kernel_width(D)
     out = {}
     for name in launches:
         bq, bk = _requested(name, B, H, KV, S, Sk, D, causal, block_q, block_k)
-        if name == "flash_dkv":
-            bq = min(bq, DKV_SPLIT.get((D, Dv), DKV_Q_ROWS[kernel_width(D)]))
-        out[name] = (bq, bk)
+        out[name] = (min(bq, WIDTHS[name][width].q_rows), bk)
     return out
 
 
@@ -325,13 +326,11 @@ def _on_cpu(*tensors) -> bool:
     return False
 
 
-def _check_kernel_inputs(named: dict[str, torch.Tensor],
-                         split: bool = False) -> None:
-    """What the CUDA kernels take: contiguous, 16-byte aligned tensors,
-    bf16 for q/k/v/dO, f32 for lse/delta, head_dim in HEAD_DIMS (after
-    :func:`_on_width` padded a narrower one), v and dO as wide as q, or
-    with ``split`` (flash_dkv's route at true widths) a pair of
-    :data:`DKV_SPLIT`."""
+def _check_kernel_inputs(named: dict[str, torch.Tensor], kernel: str) -> None:
+    """What CUDA kernel ``kernel`` takes: contiguous, 16-byte aligned
+    tensors, bf16 for q/k/v/dO, f32 for lse/delta, head_dim in HEAD_DIMS
+    (after :func:`_on_width` padded a narrower one), v and dO at the
+    width :data:`WIDTHS` gives there."""
     for name, t in named.items():
         want = torch.float32 if name in ("lse", "delta") else torch.bfloat16
         if t.dtype != want:
@@ -345,15 +344,12 @@ def _check_kernel_inputs(named: dict[str, torch.Tensor],
         raise ValueError(
             f"flash kernel: head_dim {D} not compiled (takes {HEAD_DIMS})"
         )
-    Dv = named["v"].shape[3]
-    if split:
-        if not dkv_split(D, Dv) or named["do"].shape[3] != Dv:
-            raise ValueError(f"flash kernel: q·k width {D}, v and dO "
-                             f"{Dv}/{named['do'].shape[3]} are not a pair of "
-                             f"{sorted(DKV_SPLIT)}")
-    elif Dv != D:
-        raise ValueError("flash kernel: v must be as wide as q and k (the "
-                         "wrappers pad a narrower v)")
+    v_width = WIDTHS[kernel][D].v
+    widths = sorted({named[n].shape[3] for n in ("v", "do") if n in named})
+    if widths != [v_width]:
+        raise ValueError(f"flash kernel: {kernel} at q·k width {D} takes v and "
+                         f"dO {v_width} wide (WIDTHS; the wrappers pad a "
+                         f"narrower v), got {widths}")
 
 
 #: The C entries' code for a tile pair they are not compiled for
@@ -361,16 +357,16 @@ def _check_kernel_inputs(named: dict[str, torch.Tensor],
 TILE_ERROR = 20000
 
 
-def _launch(name: str, device: torch.device, effective: tuple[int, int],
-            *args, entry: str | None = None, v_width: int | None = None) -> None:
-    """Launch kernel ``name`` (through the C entry ``entry`` of the library
-    of that name, default ``name``) with the entry's ``args`` and count it
-    under the ``effective`` tiles it runs, and ``v_width`` where the
-    launch runs v at its own width (:data:`DKV_SPLIT`)."""
+def _launch(name: str, D: int, device: torch.device, effective: tuple[int, int],
+            *args) -> None:
+    """Launch kernel ``name`` at compiled q·k width ``D`` through the C
+    entry :data:`WIDTHS` gives there, with the entry's ``args``, and count
+    it under the ``effective`` tiles it runs (and v's width where that is
+    not ``D``)."""
     from tpumon.workload_torch.ops._build import load
 
-    entry = entry or name
-    fn = getattr(load(entry), entry)
+    width = WIDTHS[name][D]
+    fn = getattr(load(width.entry), width.entry)
     with torch.cuda.device(device):
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err == TILE_ERROR:
@@ -382,7 +378,7 @@ def _launch(name: str, device: torch.device, effective: tuple[int, int],
         )
     launches[name] += 1
     key = f"{name}[{effective[0]}x{effective[1]}"
-    key += f",v{v_width}]" if v_width else "]"
+    key += "]" if width.v == D else f",v{width.v}]"
     tile_launches[key] = tile_launches.get(key, 0) + 1
 
 
@@ -405,22 +401,27 @@ def _pad(t: torch.Tensor, width: int) -> torch.Tensor:
     return t if t.shape[3] == width else F.pad(t, (0, width - t.shape[3]))
 
 
-def _on_width(run, q, k, v, *rest, causal: bool, scale: float | None = None):
-    """``run(q, k, v, *rest, causal, scale)`` at the kernels' width
-    (:func:`kernel_width` of the q·k width D): q, k, v and dO (the first
-    of ``rest``, in the backward) padded with zero columns, ``scale``
-    1/√D of the true D unless given, and each [B, S, heads, width] output
-    sliced back to its own width: O and dV to v's width Dv, dQ and dK to
-    D. The padding is exact: zero columns add nothing to QKᵀ or dO·Vᵀ, so
-    P, lse and Δ are unchanged, and the padded columns of O = P·V,
-    dQ = dS·K, dK = dSᵀ·Q and dV = Pᵀ·dO are zeros that the slice
-    drops."""
+def _on_width(name, run, q, k, v, *rest, causal: bool,
+              scale: float | None = None):
+    """``run(q, k, v, *rest, causal, scale)`` at kernel ``name``'s widths:
+    q and k padded with zero columns to the compiled q·k width
+    (:func:`kernel_width` of D), v and dO (the first of ``rest``, in the
+    backward) to the v width :data:`WIDTHS` gives there, ``scale`` 1/√D of
+    the true D unless given, and each [B, S, heads, width] output sliced
+    back to its own width: O and dV to v's width Dv, dQ and dK to D. The
+    padding is exact: zero columns add nothing to QKᵀ or dO·Vᵀ, so P, lse
+    and Δ are unchanged, and the padded columns of O = P·V, dQ = dS·K,
+    dK = dSᵀ·Q and dV = Pᵀ·dO are zeros that the slice drops. A v wider
+    than the table's is refused."""
     D, Dv = q.shape[3], v.shape[3]
     width = kernel_width(D)
+    v_width = WIDTHS[name][width].v
+    if Dv > v_width:
+        raise ValueError(f"flash kernel: {name} at q·k width {width} runs v up "
+                         f"to {v_width} wide (WIDTHS), not {Dv}")
     scale = 1.0 / math.sqrt(D) if scale is None else scale
-    if width != D or Dv != width:
-        q, k, v = (_pad(t, width) for t in (q, k, v))
-        rest = (_pad(rest[0], width), *rest[1:]) if rest else rest
+    q, k, v = _pad(q, width), _pad(k, width), _pad(v, v_width)
+    rest = (_pad(rest[0], v_width), *rest[1:]) if rest else rest
     out = run(q, k, v, *rest, causal, scale)
     if not rest:
         widths = (Dv, None)  # O, lse
@@ -442,28 +443,28 @@ def _dims(q, k):
     return B, H, k.shape[2], S, k.shape[1], D
 
 
-def _tiles(name, q, k, causal, block_q, block_k, Dv=None):
+def _tiles(name, q, k, causal, block_q, block_k):
     """(requested, effective) tiles of kernel ``name`` for this call."""
-    return _tiles_of(name, *_dims(q, k), bool(causal), block_q, block_k, Dv)
+    return _tiles_of(name, *_dims(q, k), bool(causal), block_q, block_k)
 
 
 @functools.lru_cache(maxsize=1024)
-def _tiles_of(name, B, H, KV, S, Sk, D, causal, block_q, block_k, Dv):
+def _tiles_of(name, B, H, KV, S, Sk, D, causal, block_q, block_k):
     """:func:`_tiles` by shape, cached: the choice is pure, and a launch
     at a small shape costs about as much as this Python."""
     dims = (B, H, KV, S, Sk, D, causal)
     tiles = _requested(name, *dims, block_q, block_k)
-    return tiles, effective_blocks(*dims, block_q, block_k, Dv)[name]
+    return tiles, effective_blocks(*dims, block_q, block_k)[name]
 
 
 def _fwd_kernel(q, k, v, causal, scale, *, block_q=None, block_k=None):
-    _check_kernel_inputs({"q": q, "k": k, "v": v})
+    _check_kernel_inputs({"q": q, "k": k, "v": v}, "flash_fwd")
     B, H, KV, S, Sk, D = _dims(q, k)
     tiles, eff = _tiles("flash_fwd", q, k, causal, block_q, block_k)
     out = torch.empty_like(q)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     _launch(
-        "flash_fwd", q.device, eff, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        "flash_fwd", D, q.device, eff, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), lse.data_ptr(), B, H, KV, S, Sk, D, *tiles, scale,
         int(causal),
     )
@@ -473,13 +474,13 @@ def _fwd_kernel(q, k, v, causal, scale, *, block_q=None, block_k=None):
 def _dq_kernel(q, k, v, do, lse, delta, causal, scale, *, block_q=None,
                block_k=None):
     _check_kernel_inputs(
-        {"q": q, "k": k, "v": v, "do": do, "lse": lse, "delta": delta}
+        {"q": q, "k": k, "v": v, "do": do, "lse": lse, "delta": delta}, "flash_dq"
     )
     B, H, KV, S, Sk, D = _dims(q, k)
     tiles, eff = _tiles("flash_dq", q, k, causal, block_q, block_k)
     dq = torch.empty_like(q)
     _launch(
-        "flash_dq", q.device, eff, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        "flash_dq", D, q.device, eff, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         B, H, KV, S, Sk, D, *tiles, scale, int(causal),
     )
@@ -488,36 +489,20 @@ def _dq_kernel(q, k, v, do, lse, delta, causal, scale, *, block_q=None,
 
 def _dkv_kernel(q, k, v, do, lse, delta, causal, scale, *, block_q=None,
                 block_k=None):
-    """dK, dV from ``flash_dkv.cu`` (v as wide as q) or, at the widths of
-    :data:`DKV_SPLIT`, from ``flash_dkv_mla.cu`` on v and dO as they are."""
-    Dv = v.shape[3]
-    split = dkv_split(q.shape[3], Dv)
+    """dK, dV from the C entry :data:`WIDTHS` gives at q's width, on v and
+    dO at the width it runs."""
     _check_kernel_inputs(
-        {"q": q, "k": k, "v": v, "do": do, "lse": lse, "delta": delta}, split
+        {"q": q, "k": k, "v": v, "do": do, "lse": lse, "delta": delta}, "flash_dkv"
     )
     B, H, KV, S, Sk, D = _dims(q, k)
-    tiles, eff = _tiles("flash_dkv", q, k, causal, block_q, block_k, Dv)
+    tiles, eff = _tiles("flash_dkv", q, k, causal, block_q, block_k)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr())
-    if split:
-        _launch("flash_dkv", q.device, eff, *ptrs, B, H, KV, S, Sk, D, Dv,
-                *tiles, scale, int(causal), entry="flash_dkv_mla", v_width=Dv)
-    else:
-        _launch("flash_dkv", q.device, eff, *ptrs, B, H, KV, S, Sk, D, *tiles,
-                scale, int(causal))
+    _launch("flash_dkv", D, q.device, eff, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), B, H, KV, S, Sk, D, v.shape[3],
+            *tiles, scale, int(causal))
     return dk, dv
-
-
-def _dkv_on_card(q, k, v, do, lse, delta, causal, scale, block_q, block_k):
-    """flash_dkv for tensors on the card: the pairs of :data:`DKV_SPLIT`
-    as they are, any other (D, Dv) through :func:`_on_width`'s padding."""
-    run = functools.partial(_dkv_kernel, block_q=block_q, block_k=block_k)
-    if dkv_split(q.shape[3], v.shape[3]):
-        scale = 1.0 / math.sqrt(q.shape[3]) if scale is None else scale
-        return run(q, k, v, do, lse, delta, causal, scale)
-    return _on_width(run, q, k, v, do, lse, delta, causal=causal, scale=scale)
 
 
 def flash_fwd(q, k, v, causal: bool = True, *, scale: float | None = None,
@@ -530,7 +515,7 @@ def flash_fwd(q, k, v, causal: bool = True, *, scale: float | None = None,
     if _on_cpu(q, k, v):
         return flash_fwd_reference(q, k, v, causal, scale)
     run = functools.partial(_fwd_kernel, block_q=block_q, block_k=block_k)
-    return _on_width(run, q, k, v, causal=causal, scale=scale)
+    return _on_width("flash_fwd", run, q, k, v, causal=causal, scale=scale)
 
 
 def flash_dq(q, k, v, do, lse, delta, causal: bool = True, *,
@@ -544,22 +529,23 @@ def flash_dq(q, k, v, do, lse, delta, causal: bool = True, *,
     if _on_cpu(q, k, v, do, lse, delta):
         return flash_dq_reference(q, k, v, do, lse, delta, causal, scale)
     run = functools.partial(_dq_kernel, block_q=block_q, block_k=block_k)
-    return _on_width(run, q, k, v, do, lse, delta, causal=causal, scale=scale)
+    return _on_width("flash_dq", run, q, k, v, do, lse, delta, causal=causal,
+                     scale=scale)
 
 
 def flash_dkv(q, k, v, do, lse, delta, causal: bool = True, *,
               scale: float | None = None, block_q: int | None = None,
               block_k: int | None = None):
     """(dK [B,Sk,KV,D], dV [B,Sk,KV,Dv]) — kernel ``flash_dkv`` on the
-    card at the tiles of :func:`effective_blocks` (one launch at the true
-    widths for a pair of :data:`DKV_SPLIT`, else v and dO padded to D),
-    :func:`flash_dkv_reference` for CPU tensors."""
+    card at the tiles of :func:`effective_blocks` and the widths of
+    :data:`WIDTHS`, :func:`flash_dkv_reference` for CPU tensors."""
     _check_shapes(q, k, v, causal)
     _check_request(block_q, block_k)
     if _on_cpu(q, k, v, do, lse, delta):
         return flash_dkv_reference(q, k, v, do, lse, delta, causal, scale)
-    return _dkv_on_card(q, k, v, do, lse, delta, causal, scale, block_q,
-                        block_k)
+    run = functools.partial(_dkv_kernel, block_q=block_q, block_k=block_k)
+    return _on_width("flash_dkv", run, q, k, v, do, lse, delta, causal=causal,
+                     scale=scale)
 
 
 def flash_delta(out, g_out, g_lse=None):
@@ -665,13 +651,11 @@ def make_flash_attn(*, causal: bool = True, block_q: int | None = None,
 
 __all__ = [
     "COMPILED",
-    "DKV_Q_ROWS",
-    "DKV_SPLIT",
     "HEAD_DIMS",
     "NEG_BIG",
     "TILES",
+    "WIDTHS",
     "default_blocks",
-    "dkv_split",
     "effective_blocks",
     "flash_attention",
     "flash_attention_with_lse",

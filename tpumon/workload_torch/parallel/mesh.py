@@ -87,6 +87,8 @@ def data_seq_groups(grid: np.ndarray) -> list[list[int]]:
 #: Seconds a rank waits for a peer, in a collective or while the group
 #: forms, before it raises (TPUMON_DIST_TIMEOUT_S overrides): a rank
 #: whose peer died or hangs exits non-zero instead of waiting forever.
+#: Ranks wait at least this long for each other at the job's store
+#: (:func:`env_store`): hosts start their ranks at their own pace.
 GROUP_TIMEOUT_S = 600.0
 
 
@@ -129,11 +131,12 @@ def init_group(store, rank: int, world: int, device: torch.device,
 def env_store(rank: int, world: int) -> "dist.TCPStore":
     """The job's store at ``$MASTER_ADDR:$MASTER_PORT`` (the coordinator
     of a multi-host job), hosted by global rank 0 as ``env://`` does, or
-    by torchrun's agent when it says it hosts one."""
+    by torchrun's agent when it says it hosts one. Its waits (every rank's
+    connection, :func:`agree_backend`'s) last at least GROUP_TIMEOUT_S."""
     agent = os.environ.get("TORCHELASTIC_USE_AGENT_STORE") == str(True)
+    timeout = max(group_timeout(), datetime.timedelta(seconds=GROUP_TIMEOUT_S))
     return dist.TCPStore(os.environ["MASTER_ADDR"], int(os.environ["MASTER_PORT"]),
-                         world, is_master=rank == 0 and not agent,
-                         timeout=group_timeout())
+                         world, is_master=rank == 0 and not agent, timeout=timeout)
 
 
 def rank_device(platform: str, local_rank: int) -> torch.device:

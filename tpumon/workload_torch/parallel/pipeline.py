@@ -39,12 +39,14 @@ leaves through ``reduce_from_stage`` (the reference's masked ``psum``),
 so their gradients are equal on every stage and need no reduction.
 
 The MoE aux loss needs full-batch means of two per-expert statistics.
-The stage bodies return token sums (``MoeBlock.moe_mlp_sums``), added up
-over the real ticks of each (chunk, layer) only (bubble ticks route zero
-padding to uniform probabilities), then divided by the rank's tokens and
-averaged over data (``models.moe.aux_loss``); each stage's part of the
-aux loss is summed over stage. Means of per-microbatch means would not
-be the reference's loss.
+The stage bodies ask each block for its statistics (``forward_sums``:
+the layer's output and its token sums, ``MoeBlock.moe_mlp``'s; None for
+a dense layer), added up over the real ticks of each (chunk, layer)
+only (bubble ticks route zero padding to uniform probabilities); the
+model turns them into its aux loss (``Moe.aux_of_sums``: divided by the
+rank's tokens and averaged over data, ``models.moe.aux_loss``), and each
+stage's part of the aux loss is summed over stage. Means of
+per-microbatch means would not be the reference's loss.
 
 The stage bodies are the port's own layers (``models.llama.Block``,
 ``models.moe.MoeBlock``), whose Megatron, expert and ring collectives are
@@ -161,33 +163,20 @@ def make_attn_impl(mesh, *, sp_layout: str = "contiguous", attn: str = "xla"):
 def make_pipelined_forward(model, *, microbatches: int = 2, interleave: int = 1,
                            remat: bool = False, sp_layout: str = "contiguous",
                            attn: str = "xla"):
-    """``forward(tokens) → logits`` (an MoE model: ``(logits, aux)``), the
-    reference's ``forward_fn``, over the stage axis of ``model.mesh``.
+    """``forward(tokens) → logits`` (a model whose blocks return aux
+    statistics: ``(logits, aux)``), the reference's ``forward_fn``, over
+    the stage axis of ``model.mesh``.
 
     ``model`` is the rank's stage of a ``Llama`` or ``Moe`` built with
     ``layers = stage_layers(...)`` of this ``interleave``; ``tokens`` are
     the rank's [b_loc, S/sp] and split into ``microbatches`` of b_loc/M
     rows. Logits and aux are the whole model's, on every stage."""
-    from tpumon.workload_torch.models.moe import MoeConfig, aux_loss
-
     mesh, cfg = model.mesh, model.cfg
     pp, v = mesh.pp, interleave
-    is_moe = isinstance(cfg, MoeConfig)
     if sp_layout not in ("contiguous", "zigzag"):
         raise ValueError(f"unknown sp_layout: {sp_layout!r}")
     if attn not in ("xla", "flash"):
         raise ValueError(f"unknown attn impl: {attn!r}")
-    if is_moe and mesh.sp > 1:
-        raise ValueError(
-            "pp×MoE composes with dp/ep/tp, not sp: routing's capacity "
-            "cumsum runs over the whole sequence, which a seq-sharded "
-            "stage body cannot compute locally"
-        )
-    if is_moe and cfg.n_experts % mesh.ep:
-        raise ValueError(
-            f"n_experts ({cfg.n_experts}) must divide by the mesh expert "
-            f"axis ({mesh.ep})"
-        )
     check_schedule(cfg.n_layers, pp, v, microbatches)
     stage = mesh.coords["stage"]
     chunks = [[model.blocks[str(i)] for i in layers]
@@ -201,20 +190,19 @@ def make_pipelined_forward(model, *, microbatches: int = 2, interleave: int = 1,
 
     def pipe(x, freqs, mask):
         """x [b_loc, S, D] → (the finished microbatches [b_loc, S, D] on
-        the last stage, zeros that keep the graph elsewhere; MoE: the
-        stage's token sums [v·lpg, 2E] over real ticks)."""
+        the last stage, zeros that keep the graph elsewhere; the stage's
+        aux statistics [v·lpg, ...] summed over real ticks, or None where
+        the blocks have none)."""
         b_loc, S, D = x.shape
         mb = b_loc // microbatches
 
         def run_body(c, h):
             sums = []
             for block in chunks[c]:
-                if is_moe:
-                    h, s = block.forward_sums(h, freqs, mask, attn_impl)
+                h, s = block.forward_sums(h, freqs, mask, attn_impl)
+                if s is not None:
                     sums.append(s)
-                else:
-                    h = block(h, freqs, mask, attn_impl)
-            return (h, torch.stack(sums)) if is_moe else (h,)
+            return (h, torch.stack(sums)) if sums else (h,)
 
         recv = x.new_zeros((mb, S, D))
         ys, stats = [], [None] * v
@@ -232,7 +220,7 @@ def make_pipelined_forward(model, *, microbatches: int = 2, interleave: int = 1,
             else:
                 out = run_body(c, x_in)
             y = out[0]
-            if is_moe and u >= 0 and (u // period) * pp + u % pp < microbatches:
+            if len(out) > 1 and u >= 0 and (u // period) * pp + u % pp < microbatches:
                 stats[c] = out[1] if stats[c] is None else stats[c] + out[1]
             if t in finished:
                 ys.append(y)
@@ -240,7 +228,7 @@ def make_pipelined_forward(model, *, microbatches: int = 2, interleave: int = 1,
         outs = torch.cat(ys)
         if not last:
             outs = _Pick.apply(torch.zeros_like(outs), outs)
-        return outs, (torch.cat(stats) if is_moe else None)
+        return outs, (None if stats[0] is None else torch.cat(stats))
 
     def forward(tokens):
         b_loc, S = tokens.shape
@@ -251,9 +239,9 @@ def make_pipelined_forward(model, *, microbatches: int = 2, interleave: int = 1,
         h, sums = pipe(mesh_mod.copy_to_stage(x, mesh), freqs, mask)
         h = rms_norm(mesh_mod.reduce_from_stage(h, mesh), model.final_norm)
         logits = _llama.unembed_logits(model, h)
-        if not is_moe:
+        if sums is None:
             return logits
-        aux = mesh_mod.reduce_from_stage(aux_loss(sums / (b_loc * S), cfg, mesh), mesh)
+        aux = mesh_mod.reduce_from_stage(model.aux_of_sums(sums, b_loc * S), mesh)
         return logits, aux / cfg.n_layers
 
     return forward
