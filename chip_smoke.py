@@ -10,7 +10,7 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
 1. env        torch/CUDA versions, device name and capability, nvidia-smi's
               name and power limit, nvcc --version.
 2. build      build every kernel of ops/csrc/*.cu (the three flash
-              kernels and RMSNorm's pair) and print the build seconds and
+              kernels, RMSNorm's pair and RoPE's kernel) and print the build seconds and
               ptxas' register/shared-memory report for every
               instantiation (head dim x tile pair, dtype x row layout); fails on
               any spilled register, ignored setmaxnreg or serialized
@@ -52,11 +52,24 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
               card's peak, the plain chain's time (forward, and
               autograd's backward through it) and torch's rms_norm's
               (bf16 weight), which the port never calls.
+3c. rope      RoPE's kernel (ops/core.py rope_fwd and rope_bwd, one
+              launch each over q and k) against the eager chain on the
+              card at ROPE_CASES (bf16: the four cells' micro-batches and
+              those of the main, moe and deepseek paths, DeepSeek-V2's as
+              the strided views the model hands it): outputs and
+              gradients bit for bit equal; one JSON line a case with each
+              launch's time (CUDA events, median, as the norm phase's),
+              the whole forward's (rope_qk: cos and sin of the table, then
+              the launch), its byte bound at the card's peak and the
+              eager chain's time (forward, and autograd's backward
+              through it).
 4. main       tpumon.workload_torch.harness.main on the medium preset
               (--seq 4096 --batch 8 --grad-accum 4 --attn flash --remat
               --loss-chunk 1024 --steps 10 --phase-stats --serve) with the
               launch counters zeroed just before and read just after (they
-              must equal the counts the run implies); the metrics page is
+              must equal the counts the run implies, flash's and RoPE's:
+              one rope launch an attention call, as flash_fwd, and one a
+              backward, as flash_dq); the metrics page is
               scraped while the run is live and parsed with the lifecycle
               probe; losses must be finite.
 5. moe        the same checks on the MoE path: --model moe --preset small
@@ -743,6 +756,88 @@ def phase_norm(torch, reps: int, seed: int) -> None:
         fail("RMSNorm kernels disagree with the plain version: " + "; ".join(failed))
 
 
+#: name -> (B, S, q heads, k heads, D, views): the micro-batches of
+#: mistral-7b.s4096, mistral-7b.s1024, mixtral-8x7b.s4096 and
+#: deepseek-v2-lite.s4096, then of the main, moe and deepseek paths below
+#: (medium, moe small, deepseek_v2 tiny). Where ``views`` is (q's head
+#: width, the latent product's width), q and k are DeepSeek-V2's rope
+#: columns: the last D of each head of a [B, S, H, q width] q and of a
+#: [B, S, latent width] product, as ``deepseek_v2._latent`` hands them over.
+ROPE_CASES = {
+    "mistral-s4096": (16, 4096, 32, 8, 128, None),
+    "mistral-s1024": (64, 1024, 32, 8, 128, None),
+    "mixtral": (4, 4096, 32, 8, 128, None),
+    "deepseek": (16, 4096, 16, 1, 64, (192, 576)),
+    "main": (2, 4096, 16, 4, 128, None),
+    "moe": (1, 4096, 8, 4, 64, None),
+    "deepseek-tiny": (4, 1024, 4, 1, 16, (48, 48)),
+}
+
+
+def phase_rope(torch, reps: int, seed: int) -> None:
+    from tpumon.workload_torch import flops
+    from tpumon.workload_torch.ops import core
+
+    dev = torch.device("cuda", 0)
+    peak_bytes = flops.peak_hbm_bytes_per_device(dev)
+    if peak_bytes is None:
+        fail(f"no published peak for {torch.cuda.get_device_name(0)!r}")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    failed = []
+    for case, (B, S, H, KV, D, views) in ROPE_CASES.items():
+        if views:
+            q_width, latent_width = views
+            qf = randn(B, S, H, q_width).requires_grad_()
+            kf = randn(B, S, latent_width).requires_grad_()
+            q, k = qf[..., -D:], kf[..., -D:].reshape(B, S, 1, D)
+            dq = randn(B, S, H, q_width)[..., -D:]
+            leaves = (qf, kf)
+            freqs = core.yarn_freqs(D, S, 10000.0, 40.0, device=dev)
+        else:
+            q, k = randn(B, S, H, D).requires_grad_(), randn(B, S, KV, D).requires_grad_()
+            dq = randn(B, S, H, D)
+            leaves = (q, k)
+            freqs = core.rope_freqs(D, S, device=dev)
+        dk = randn(*k.shape)
+        cos, sin = torch.cos(freqs), torch.sin(freqs)
+        with torch.no_grad():
+            outs = core.rope_fwd(q, k, cos, sin)
+            grads = core.rope_bwd(dq, dk, cos, sin)
+        plain = (core.apply_rope(q, freqs), core.apply_rope(k, freqs))
+        plain_grads = torch.autograd.grad(plain, leaves, (dq, dk), retain_graph=True)
+        if views:  # the gradients of the views' columns
+            plain_grads = (plain_grads[0][..., -D:],
+                           plain_grads[1][..., -D:].reshape(B, S, 1, D))
+        equal = {"fwd": all(torch.equal(a, b) for a, b in zip(outs, plain)),
+                 "bwd": all(torch.equal(a, b) for a, b in zip(grads, plain_grads))}
+        if not all(equal.values()):
+            failed.append(f"{case}: {equal}")
+        moved = 2 * (q.numel() + k.numel()) * 2  # q and k read once, written once
+        table = 2 * S * (D // 2) * 4  # cos and sin, read once
+        with torch.no_grad():
+            emit({
+                "phase": "rope", "case": case, "B": B, "S": S, "heads": [H, KV],
+                "D": D, "views": views, "dtype": "bf16", "bit_for_bit": equal,
+                "fwd_ms": time_ms(torch, lambda: core.rope_fwd(q, k, cos, sin), reps),
+                "bwd_ms": time_ms(torch, lambda: core.rope_bwd(dq, dk, cos, sin), reps),
+                "rope_qk_fwd_ms": time_ms(torch, lambda: core.rope_qk(q, k, freqs), reps),
+                "bound_ms": 1e3 * (moved + table) / peak_bytes,
+                "plain_fwd_ms": time_ms(torch, lambda: (core.apply_rope(q, freqs),
+                                                        core.apply_rope(k, freqs)), reps),
+                "plain_bwd_ms": time_ms(torch, lambda: torch.autograd.grad(
+                    plain, leaves, (dq, dk), retain_graph=True), reps),
+                "reps": reps,
+            })
+        del q, k, dq, dk, leaves, outs, grads, plain, plain_grads
+        torch.cuda.empty_cache()
+    if failed:
+        fail("the RoPE kernel is not the eager chain bit for bit: " + "; ".join(failed))
+
+
 class _LossRecords(logging.Handler):
     """Collects the harness's final log record, whose args carry the
     first and last losses and the steps/s."""
@@ -850,6 +945,7 @@ def drive_path(torch, name: str, argv: list[str]) -> dict:
     ones ``argv`` names, read through the harness's own parser."""
     from tpumon.workload_torch import flops, harness
     from tpumon.workload_torch.models import moe
+    from tpumon.workload_torch.ops import core
     from tpumon.workload_torch.ops import flash_attention as fa
 
     args = harness.build_parser().parse_args(argv)
@@ -872,6 +968,7 @@ def drive_path(torch, name: str, argv: list[str]) -> dict:
         argv = [*argv, "--metrics-port", str(scraper.port)]
         torch.cuda.reset_peak_memory_stats()
         fa.reset_launches()
+        core.reset_launches()
         moe.reset_dropless_counts()
         fa._check_kernel_inputs = counting_check
         t0 = time.perf_counter()
@@ -881,6 +978,7 @@ def drive_path(torch, name: str, argv: list[str]) -> dict:
             wall = time.perf_counter() - t0
             fa._check_kernel_inputs = check_inputs
             counts = dict(fa.launches)
+            rope_counts = {key: core.launches[key] for key in ("rope_fwd", "rope_bwd")}
             tile_counts = dict(fa.tile_launches)
             dropless = dict(moe.dropless_counts)
             log.removeHandler(records)
@@ -916,6 +1014,12 @@ def drive_path(torch, name: str, argv: list[str]) -> dict:
     expected = expected_launches(cfg.n_layers, grad_accum, probes=probes)
     if counts != expected:
         fail(f"{name}: launch counts {counts} differ from the expected {expected}")
+    # Each attention call turns q and k in one launch, as it calls flash
+    # once: 2·L·micro forward launches a step under remat, L·micro backward.
+    rope_expected = {"rope_fwd": expected["flash_fwd"], "rope_bwd": expected["flash_dq"]}
+    if rope_counts != rope_expected:
+        fail(f"{name}: RoPE launch counts {rope_counts} differ from the "
+             f"expected {rope_expected}")
     by_kernel = {kernel: sum(n for key, n in tile_counts.items()
                              if key.startswith(f"{kernel}["))
                  for kernel in counts}
@@ -950,7 +1054,10 @@ def drive_path(torch, name: str, argv: list[str]) -> dict:
         "tile_launches": tile_counts, "launches_expected": expected,
         "launches_per_step": {"flash_fwd": grad_accum * 2 * L,
                               "flash_dq": grad_accum * L,
-                              "flash_dkv": grad_accum * L},
+                              "flash_dkv": grad_accum * L,
+                              "rope_fwd": grad_accum * 2 * L,
+                              "rope_bwd": grad_accum * L},
+        "rope_launches": rope_counts,
         "wall_s": wall, "snapshot": snap, "dropless_counts": dropless,
         "flash_calls_by_width": widths,
     }
@@ -1679,7 +1786,7 @@ def phase_drill(torch) -> dict:
     return result
 
 
-PHASES = ("env,build,kernels,norm,main,moe,deepseek,checkpoint,bench,profile,mesh,"
+PHASES = ("env,build,kernels,norm,rope,main,moe,deepseek,checkpoint,bench,profile,mesh,"
           "ring,expert,pipe,hosts,dryrun,entry,drill")
 
 
@@ -1720,6 +1827,8 @@ def main(argv: list[str] | None = None) -> int:
                if "kernels" in phases else {})
     if "norm" in phases:
         phase_norm(torch, args.reps, args.seed)
+    if "rope" in phases:
+        phase_rope(torch, args.reps, args.seed)
     main_run = phase_main(torch) if "main" in phases else {}
     moe_run = phase_moe(torch) if "moe" in phases else {}
     if "deepseek" in phases:

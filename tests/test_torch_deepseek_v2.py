@@ -337,7 +337,8 @@ def test_the_model_s_spans_and_their_backward_halves():
     for name, n in per_layer.items():
         assert counts.get(name) == 2 * M * n, name
         assert counts.get(f"{name}.bwd") == M * n, name
-    assert counts["rope"] == 2 * M * L * 2  # q's and the shared key's
+    assert counts["rope"] == 2 * M * L  # q's and the shared key's together
+    assert counts["rope.bwd"] == M * L
     assert counts["step"] == 1 and counts["optimizer"] == 1
 
 

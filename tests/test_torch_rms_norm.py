@@ -97,7 +97,8 @@ def test_cpu_path_is_the_plain_chain_and_launches_nothing(dtype):
     want_y, want_dx, want_dw = _autograd(x, w, dy)
     assert torch.equal(y.detach(), want_y)
     assert torch.equal(xa.grad, want_dx) and torch.equal(wa.grad, want_dw)
-    assert core.launches == {"rms_norm_fwd": 0, "rms_norm_bwd": 0}
+    assert core.launches == {"rms_norm_fwd": 0, "rms_norm_bwd": 0,
+                             "rope_fwd": 0, "rope_bwd": 0}
 
 
 @pytest.mark.parametrize("D", [8, 104, 128, 512, 1000, 2048, 4096, 8192])
@@ -141,7 +142,8 @@ def test_kernel_wrappers_refuse_cpu_tensors_before_any_launch():
     rstd = torch.ones(4, 1)
     with pytest.raises(ValueError, match="must be on x's CUDA device"):
         core.rms_norm_bwd(x, w, rstd, dy)
-    assert core.launches == {"rms_norm_fwd": 0, "rms_norm_bwd": 0}
+    assert core.launches == {"rms_norm_fwd": 0, "rms_norm_bwd": 0,
+                             "rope_fwd": 0, "rope_bwd": 0}
 
 
 @pytest.mark.parametrize("rstd", [torch.ones(4), torch.ones(4, 1, dtype=torch.bfloat16),
@@ -220,7 +222,8 @@ def test_kernel_pair_matches_the_plain_version_on_card(rows, D, dtype):
     y = core.rms_norm(xk, wk)
     y.backward(dy)
     torch.cuda.synchronize()
-    assert core.launches == {"rms_norm_fwd": 1, "rms_norm_bwd": 1}
+    assert core.launches == {"rms_norm_fwd": 1, "rms_norm_bwd": 1,
+                             "rope_fwd": 0, "rope_bwd": 0}
     want_y, want_dx, want_dw = _autograd(x, w, dy)
     ulp = 2 ** -7 if dtype == torch.bfloat16 else 1e-6
     assert y.dtype == dtype and xk.grad.dtype == dtype
@@ -275,7 +278,8 @@ def test_kernel_path_refuses_a_bf16_weight_on_card():
 def test_remat_train_step_launches_what_the_model_implies_on_card(is_moe):
     """One remat step of the tiny preset at grad_accum 2: each micro-batch
     runs 2L block norms and the final norm forward, the 2L block norms
-    again in the recompute, and 2L + 1 backwards."""
+    again in the recompute, and 2L + 1 backwards; beside them RoPE's one
+    launch a layer's pass (2L forwards, L backwards)."""
     dev = _card()
     gen = torch.Generator(device=dev).manual_seed(0)
     if is_moe:
@@ -294,7 +298,8 @@ def test_remat_train_step_launches_what_the_model_implies_on_card(is_moe):
     torch.cuda.synchronize()
     L = model.cfg.n_layers
     assert core.launches == {"rms_norm_fwd": micro * (4 * L + 1),
-                             "rms_norm_bwd": micro * (2 * L + 1)}
+                             "rms_norm_bwd": micro * (2 * L + 1),
+                             "rope_fwd": micro * 2 * L, "rope_bwd": micro * L}
     assert torch.isfinite(loss).all()
     for name, p in model.named_parameters():
         if name.endswith("norm"):

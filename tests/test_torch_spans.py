@@ -120,7 +120,7 @@ def _expected(is_moe: bool) -> dict[str, int]:
     M, L = MICRO, LAYERS
     loss = 2 if is_moe else SEQ // CHUNK  # unembed + mean, or one per chunk
     loss_runs = loss if is_moe else 2 * loss  # chunks are recomputed too
-    per_layer = {"layer": 1, "norm": 2, "qkv": 1, "rope": 2, "attn_core": 1,
+    per_layer = {"layer": 1, "norm": 2, "qkv": 1, "rope": 1, "attn_core": 1,
                  "attn_out": 1, "cast": 7}
     per_layer.update({"router": 2, "dispatch": 1, "experts": 1, "combine": 1}
                      if is_moe else {"mlp": 1})

@@ -32,7 +32,7 @@ The JAX package has no counterpart; the plain float32 reference is
   the train step's loss (``aux_weight``).
 
 Departure: RoPE turns split halves of the rope columns (the port's
-``apply_rope``), where the published weights pair interleaved columns; the
+``rope_qk``), where the published weights pair interleaved columns; the
 two differ by a fixed permutation of the rope columns of ``wq`` and
 ``wkv_a``. Every region runs in a span (``spans.py``): ``qkv`` (q's
 product), ``latent`` (the kv down-projection and its split, the latent
@@ -52,9 +52,9 @@ from tpumon.workload_torch.models import llama as _llama
 from tpumon.workload_torch.models import moe as _moe
 from tpumon.workload_torch.models.family import Family, register
 from tpumon.workload_torch.ops.core import (
-    apply_rope,
     cast,
     rms_norm,
+    rope_qk,
     yarn_freqs,
     yarn_mscale,
 )
@@ -229,8 +229,7 @@ def _latent(q, x, wkv_a, kv_norm, wkv_b, freqs, cfg: DeepseekV2Config):
         [nope, cfg.v_head_dim], dim=-1)
     H = k_nope.shape[2]
     q_nope, q_pe = q.split([nope, rope], dim=-1)
-    q_pe = apply_rope(q_pe, freqs[:S])
-    k_pe = apply_rope(k_pe.reshape(B, S, 1, rope), freqs[:S])
+    q_pe, k_pe = rope_qk(q_pe, k_pe.reshape(B, S, 1, rope), freqs)
     q = torch.cat([q_nope, q_pe], dim=-1)
     k = torch.cat([k_nope, k_pe.expand(B, S, H, rope)], dim=-1)
     return q, k, v

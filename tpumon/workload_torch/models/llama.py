@@ -26,7 +26,7 @@ from torch.utils.checkpoint import checkpoint
 
 from tpumon.workload_torch import flops
 from tpumon.workload_torch.models.family import Family, register
-from tpumon.workload_torch.ops.core import apply_rope, cast, rms_norm, rope_freqs
+from tpumon.workload_torch.ops.core import cast, rms_norm, rope_freqs, rope_qk
 from tpumon.workload_torch.parallel import mesh as mesh_mod
 from tpumon.workload_torch.spans import traced
 
@@ -136,11 +136,9 @@ def attention(layer: nn.Module, x, freqs, mask, attn_impl=None):
     heads (the heads are read off their widths), the projections' input
     is a column split's and the output projection a row split."""
     cfg = layer.cfg
-    S = x.shape[1]
     x = mesh_mod.copy_to_model(x, layer.mesh)
     q, k, v = _qkv(x, layer.wq, layer.wk, layer.wv, cfg.dtype, cfg.head_dim)
-    q = apply_rope(q, freqs[:S])
-    k = apply_rope(k, freqs[:S])
+    q, k = rope_qk(q, k, freqs)
     out = _attn_core(q, k, v, mask, attn_impl)
     return mesh_mod.reduce_from_model(_attn_out(out, layer.wo, cfg.dtype),
                                       layer.mesh)

@@ -24,7 +24,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent.parent / "build"
 
 #: Kernel name -> ctypes argument types of its C entry (same name).
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 SIGNATURES: dict[str, list] = {
     # q, k, v, o, lse, B, H, KV, S, Sk, D, block_q, block_k, scale, causal,
     # stream
@@ -41,6 +41,9 @@ SIGNATURES: dict[str, list] = {
     "rms_norm_fwd": [_P] * 4 + [_I] * 3 + [_F, _P],
     # x, dy, w, rstd, dx, part, dw, rows, D, is_f32, grid, stream
     "rms_norm_bwd": [_P] * 7 + [_I] * 4 + [_P],
+    # q, k, q_out, k_out, cos, sin, B, S, Hq, Hk, D, q's and k's batch,
+    # token and head strides, is_f32, negate, stream
+    "rope": [_P] * 6 + [_I] * 5 + [_L] * 6 + [_I] * 2 + [_P],
 }
 
 NVCC_FLAGS = [

@@ -14,6 +14,16 @@ is its closed form). The JAX package has no kernel here: XLA fuses its
 ``rms_norm`` on the TPU. On the CPU ``rms_norm`` is the plain eager f32
 chain (:func:`rms_norm_reference`) under autograd, as it always was; for
 CUDA tensors it launches the kernels or raises (:func:`check_kernel_inputs`).
+
+RoPE on the card is one hand-written CUDA kernel (``ops/csrc/rope.cu``)
+behind one autograd Function (:func:`rope_qk`): one launch turns q and k
+together, and the backward launches it again with sin negated, which is
+the rotation's gradient bit for bit. The kernel rounds every product on
+its own, then the difference or sum, then once to the input's dtype, so
+it gives the plain chain's bits (:func:`rope_rotate`). On the CPU
+``rope_qk`` is :func:`apply_rope` on each tensor, the plain chain under
+autograd; for CUDA tensors it launches the kernel or raises
+(:func:`check_rope_inputs`).
 """
 
 from __future__ import annotations
@@ -37,10 +47,15 @@ KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 #: bf16 on an H100 (0.609 ms at 4, 0.675 at 2, 0.618 at 8: PERF.md).
 BWD_CTAS_PER_SM = 4
 
+#: The widest head the rope kernel takes; a head's width must be a multiple
+#: of 16 (``ops/csrc/rope.cu``: a half-row is whole 16-byte vectors).
+ROPE_MAX_WIDTH = 256
+
 #: Kernel launches since the last :func:`reset_launches`, one count per
 #: wrapper, raised only where the wrapper launches (``rms_norm_bwd``'s call
 #: is two launches: the rows, then the column sums of dw).
-launches: dict[str, int] = {"rms_norm_fwd": 0, "rms_norm_bwd": 0}
+launches: dict[str, int] = {"rms_norm_fwd": 0, "rms_norm_bwd": 0,
+                            "rope_fwd": 0, "rope_bwd": 0}
 
 
 def reset_launches() -> None:
@@ -94,8 +109,9 @@ def check_kernel_inputs(x: torch.Tensor, weight: torch.Tensor) -> None:
         )
 
 
-def _launch(name: str, device: torch.device, *args) -> None:
-    """Launch kernel ``name`` with its C entry's ``args`` and count it."""
+def _launch(name: str, device: torch.device, *args, count: str | None = None) -> None:
+    """Launch kernel ``name`` with its C entry's ``args`` and count it under
+    ``count`` (its own name by default)."""
     from tpumon.workload_torch.ops._build import load
 
     fn = getattr(load(name), name)
@@ -104,19 +120,25 @@ def _launch(name: str, device: torch.device, *args) -> None:
     if err != 0:
         raise RuntimeError(
             f"{name} launch failed: error {err} (a cudaError_t, or 20001 for "
-            "a row width no layout takes)"
+            "a width the kernel does not take)"
         )
-    launches[name] += 1
+    launches[count or name] += 1
+
+
+def _check_devices(kernel: str, **named: torch.Tensor) -> None:
+    """Every tensor on the first one's CUDA device."""
+    first, device = next(iter(named)), next(iter(named.values())).device
+    for name, t in named.items():
+        if device.type != "cuda" or t.device != device:
+            raise ValueError(f"{kernel} kernel: {name} must be on {first}'s CUDA "
+                             f"device, got {t.device} ({first} on {device})")
 
 
 def _check_pointers(**named: torch.Tensor) -> None:
     """What the kernels' pointers need: every tensor on x's CUDA device,
     contiguous and 16-byte aligned."""
-    device = named["x"].device
+    _check_devices("rms_norm", **named)
     for name, t in named.items():
-        if device.type != "cuda" or t.device != device:
-            raise ValueError(f"rms_norm kernel: {name} must be on x's CUDA "
-                             f"device, got {t.device} (x on {device})")
         if not t.is_contiguous():
             raise ValueError(f"rms_norm kernel: {name} must be contiguous")
         if t.data_ptr() % 16:
@@ -243,15 +265,132 @@ def yarn_freqs(dim: int, max_seq: int, theta: float = 10000.0,
     return torch.outer(t, inv)
 
 
-@traced("rope")
-def apply_rope(x: torch.Tensor, freqs: torch.Tensor) -> torch.Tensor:
-    """Rotate channel halves (split-halves, not interleaved pairs); x is
-    [B, S, H, D], freqs [S, D//2]."""
+def rope_rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x [B, S, H, D] turned by the tables cos and sin [S, D//2] (f32) as
+    eager f32 passes, cast back to x's dtype: split halves x1, x2 give
+    x1·cos − x2·sin and x1·sin + x2·cos. By −sin it is the rotation's
+    gradient (what :func:`rope_bwd` computes)."""
     x1, x2 = x.float().chunk(2, dim=-1)
-    cos = torch.cos(freqs)[None, :, None, :]
-    sin = torch.sin(freqs)[None, :, None, :]
+    cos = cos[None, :, None, :]
+    sin = sin[None, :, None, :]
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, freqs: torch.Tensor) -> torch.Tensor:
+    """Rotate channel halves (split-halves, not interleaved pairs); x is
+    [B, S, H, D], freqs [S, D//2]: :func:`rope_rotate` by the angles'
+    cos and sin."""
+    return rope_rotate(x, torch.cos(freqs), torch.sin(freqs))
+
+
+def check_rope_inputs(q: torch.Tensor, k: torch.Tensor, table: torch.Tensor) -> None:
+    """What the rope kernel takes, whatever the device: q [B, S, H, D] and
+    k [B, S, KV, D] of one dtype, bf16 or f32, D a multiple of 16 from 16
+    to :data:`ROPE_MAX_WIDTH`, and an f32 table (the angles, or their cos
+    or sin) of at least S rows of D/2. Raises TypeError or ValueError
+    naming what is wrong."""
+    if q.dtype not in KERNEL_DTYPES or k.dtype != q.dtype:
+        raise TypeError("rope kernel: q and k must both be bfloat16 or float32, "
+                        f"got {q.dtype} and {k.dtype}")
+    if table.dtype != torch.float32:
+        raise TypeError(f"rope kernel: the table must be float32, got {table.dtype}")
+    if q.dim() != 4 or k.dim() != 4 or q.shape[:2] != k.shape[:2] or q.shape[3] != k.shape[3]:
+        raise ValueError("rope kernel: q and k must be [B, S, heads, D] of one B, S "
+                         f"and D, got {tuple(q.shape)} and {tuple(k.shape)}")
+    S, D = q.shape[1], q.shape[3]
+    if D % 16 or not 16 <= D <= ROPE_MAX_WIDTH:
+        raise ValueError(
+            f"rope kernel: head width {D} not compiled (takes multiples of 16 "
+            f"from 16 to {ROPE_MAX_WIDTH}: 16, 32, 64 and 128 among them)"
+        )
+    if table.dim() != 2 or table.shape[1] != D // 2 or table.shape[0] < S:
+        raise ValueError(f"rope kernel: the table must be [>= {S}, {D // 2}], "
+                         f"got {tuple(table.shape)}")
+
+
+def _rows_aligned(t: torch.Tensor) -> bool:
+    """Whether the rope kernel reads ``t`` in place: its last dimension
+    contiguous, its base and every stride whole 16-byte words."""
+    size = t.element_size()
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(st * size % 16 == 0
+                    for st, n in zip(t.stride()[:-1], t.shape[:-1]) if n > 1))
+
+
+def _rows(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as it is where the rope kernel reads it in place (strided
+    views such as DeepSeek's q_pe), else a contiguous copy (a fresh,
+    aligned one: ``contiguous()`` keeps a contiguous view off a word)."""
+    return t if _rows_aligned(t) else t.clone(memory_format=torch.contiguous_format)
+
+
+def _rope(q, k, cos, sin, backward: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """The one place the kernel's inputs are checked, then one launch."""
+    check_rope_inputs(q, k, cos)
+    if sin.shape != cos.shape or sin.dtype != cos.dtype:
+        raise ValueError(f"rope kernel: sin must match cos ({cos.dtype} "
+                         f"{tuple(cos.shape)}), got {sin.dtype} {tuple(sin.shape)}")
+    _check_devices("rope", q=q, k=k, cos=cos, sin=sin)
+    for name, t in (("cos", cos), ("sin", sin)):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"rope kernel: {name} must be contiguous and 16-byte aligned")
+    q, k = _rows(q), _rows(k)
+    B, S, H, D = q.shape
+    q_out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    k_out = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    _launch("rope", q.device, q.data_ptr(), k.data_ptr(), q_out.data_ptr(),
+            k_out.data_ptr(), cos.data_ptr(), sin.data_ptr(), B, S, H,
+            k.shape[2], D, *q.stride()[:3], *k.stride()[:3],
+            int(q.dtype == torch.float32), int(backward),
+            count="rope_bwd" if backward else "rope_fwd")
+    return q_out, k_out
+
+
+def rope_fwd(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor,
+             sin: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(q, k) turned by cos and sin [>= S, D/2] f32 (row i at position i),
+    contiguous, from one launch of kernel ``rope``; q and k on the card,
+    checked by :func:`check_rope_inputs`, each read in place where
+    :func:`_rows_aligned` (else from a contiguous copy, :func:`_rows`)."""
+    return _rope(q, k, cos, sin, backward=False)
+
+
+def rope_bwd(dq: torch.Tensor, dk: torch.Tensor, cos: torch.Tensor,
+             sin: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The gradients of q and k from theirs after the rotation: one launch
+    of kernel ``rope`` by −sin (:func:`rope_rotate`'s closed form)."""
+    return _rope(dq, dk, cos, sin, backward=True)
+
+
+class _Rope(torch.autograd.Function):
+    """q and k turned in one launch; saves the cos/sin pair only (the
+    rotation is linear, so its backward needs no input)."""
+
+    @staticmethod
+    def forward(ctx, q, k, freqs):
+        table = freqs[:q.shape[1]]
+        cos, sin = torch.cos(table), torch.sin(table)
+        ctx.save_for_backward(cos, sin)
+        return rope_fwd(q, k, cos, sin)
+
+    @staticmethod
+    def backward(ctx, dq, dk):
+        cos, sin = ctx.saved_tensors
+        return (*rope_bwd(dq, dk, cos, sin), None)
+
+
+@traced("rope")
+def rope_qk(q: torch.Tensor, k: torch.Tensor, freqs: torch.Tensor
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """q [B, S, H, D] and k [B, S, KV, D] turned by the angles ``freqs``
+    [>= S, D//2] (row i at position i): one launch of the rope kernel for
+    both on the card (and one for both gradients), :func:`apply_rope` on
+    each of them on the CPU."""
+    if all(t.device.type == "cpu" for t in (q, k, freqs)):
+        S = q.shape[1]
+        return apply_rope(q, freqs[:S]), apply_rope(k, freqs[:S])
+    return _Rope.apply(q, k, freqs)
 
 
 @traced("cast")
