@@ -30,7 +30,11 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
               micro-batch: B=4, S=4096, H=KV=16, q·k width 192, v width
               128, causal; flash_dkv there is the one launch of
               flash_dkv_mla.cu on v and dO at 128, and its rows name the
-              launch's tile_launches key and its share of the bound).
+              launch's tile_launches key and its share of the bound),
+              and at MiMo-V2-Flash's micro-batch (B=2, S=32768, H=64,
+              q·k 192, v 128): its window layers (KV=8, window 128,
+              sinks) and its full layers (KV=4, causal), and its window
+              at shorter and ragged lengths (CASES).
               --cases picks some of them. Every kernel runs at
               every tile pair it is compiled for (ops/flash_attention.py
               COMPILED: block_q, block_k in TILES = 64, 128), the chooser's
@@ -88,6 +92,14 @@ Phases (any failure exits non-zero; no phase's exception is swallowed):
               rows for the held experts only, every (token, choice) pair
               given to an expert where all are held, at most that many
               where a share is.
+5c. mimo     the same checks on MiMo-V2-Flash's path, twice: at its tiny
+              preset (--seq 1024 --batch 8 --grad-accum 2: flash at the
+              padded width 64, windows of 8 keys and sinks), then at the
+              mimo-v2-flash.s32768 cell's shape (--preset v2-flash-share
+              --seq 32768 --batch 2, without --phase-stats); the launches
+              split by the window (tile_launches keys with ",w<W>"): each
+              window layer's calls under its window, each full layer's
+              with none, as expected_launches gives for each kind's layers.
 6. checkpoint the MoE argv with --checkpoint-dir (no --serve or
               --phase-stats): an uninterrupted 4-step run saving every 2
               steps; a 2-step run into a second directory, then a 4-step
@@ -238,7 +250,14 @@ KERNELS = {
 #: micro-batch of the deepseek-v2-lite.s4096 cell's latent attention: q·k
 #: width 192, v width 128 (its ninth entry; the others' v is as wide as
 #: q), which flash_fwd and flash_dq pad to 192 and flash_dkv takes as it
-#: is (``WIDTHS``).
+#: is (``WIDTHS``). "swa" is the mimo-v2-flash.s32768 cell's micro-batch
+#: in its window layers (2 × 32,768 tokens, 64 q heads, 8 kv heads, q·k
+#: 192, v 128, the last 128 keys, sinks in flash_fwd's normaliser: its
+#: tenth entry, the window), "full32k" the same micro-batch in its full
+#: layers (4 kv heads, causal over every earlier key, no sinks), "swa4k"
+#: the window layers at 4096 tokens, and "swa1" a window of one key at a
+#: ragged length. The plain versions take causal calls in bands of query
+#: rows, so the cell's whole micro-batch fits beside them.
 CASES = [
     ("main", 2, 4096, 4096, 16, 4, 128, True),
     ("moe", 1, 4096, 4096, 8, 4, 64, True),
@@ -254,6 +273,10 @@ CASES = [
     ("d32", 2, 32, 32, 2, 1, 32, True),
     ("d32zz", 2, 8, 8, 2, 1, 32, False),
     ("mla", 4, 4096, 4096, 16, 16, 192, True, 128),
+    ("swa", 2, 32768, 32768, 64, 8, 192, True, 128, 128),
+    ("full32k", 2, 32768, 32768, 64, 4, 192, True, 128),
+    ("swa4k", 1, 4096, 4096, 64, 8, 192, True, 128, 128),
+    ("swa1", 2, 1000, 1000, 8, 2, 192, True, 128, 1),
 ]
 
 #: Limits: O and lse max-abs; dQ/dK/dV relative L2 (bf16 wgmma products
@@ -290,6 +313,19 @@ DEEPSEEK_ARGV = DEEPSEEK_TRAIN + RUN_ARGS
 DEEPSEEK_SHARE_ARGV = [
     "--model", "deepseek_v2", "--preset", "v2-lite-share", "--seq", "4096",
     "--batch", "16", "--attn", "flash", "--remat",
+    *(a for a in RUN_ARGS if a != "--phase-stats"),
+]
+
+MIMO_ARGV = [
+    "--model", "mimo_v2", "--preset", "tiny", "--seq", "1024", "--batch", "8",
+    "--grad-accum", "2", "--attn", "flash", "--remat", *RUN_ARGS,
+]
+#: The mimo-v2-flash.s32768 cell's model and micro-batch (2 × 1), with no
+#: phase probe: its copy of the AdamW state does not fit beside the share's
+#: 35.6 GB of state and its activations.
+MIMO_SHARE_ARGV = [
+    "--model", "mimo_v2", "--preset", "v2-flash-share", "--seq", "32768",
+    "--batch", "2", "--attn", "flash", "--remat",
     *(a for a in RUN_ARGS if a != "--phase-stats"),
 ]
 
@@ -486,14 +522,20 @@ def library_time(torch, fn, reps: int) -> float | None:
         return None
 
 
-def bound(B, S, Sk, H, KV, D, causal, kernel, peak_flops, peak_bytes, Dv=None):
+def bound(B, S, Sk, H, KV, D, causal, kernel, peak_flops, peak_bytes, Dv=None,
+          window=0):
     """(bound_ms, bound_by): the larger of the products' operations at
     the bf16 tensor peak and the bytes the function must move (each input
     read once, each output written once) at the HBM rate, at the true
     widths (q, k, dQ, dK at D; v, O, dO, dV at Dv). Under causal only the
-    live (q, k) pairs of this input count."""
+    live (q, k) pairs of this input count: under a window, each query's
+    last ``window`` keys."""
+    from tpumon.workload_torch.flops import window_pairs
+
     Dv = D if Dv is None else Dv
     pairs = S * (S + 1) // 2 if causal else S * Sk
+    if window:
+        pairs = window_pairs(S, window)
     q_bytes, k_bytes, row_bytes = B * S * H * D * 2, B * Sk * KV * D * 2, B * H * S * 4
     o_bytes, v_bytes = B * S * H * Dv * 2, B * Sk * KV * Dv * 2
     if kernel == "flash_fwd":  # S = qKᵀ, O = PV
@@ -538,10 +580,13 @@ def phase_kernels(torch, reps: int, seed: int, cases=None) -> dict:
     gen = torch.Generator(device=dev).manual_seed(seed)
     results: dict = {}
     failed = []
-    for case, B, S, Sk, H, KV, D, causal, *v_width in CASES:
+    for case, B, S, Sk, H, KV, D, causal, *extra in CASES:
         if cases is not None and case not in cases:
             continue
-        Dv = v_width[0] if v_width else D
+        Dv = extra[0] if extra else D
+        window = extra[1] if len(extra) > 1 else 0
+        # Under a window: the window to every kernel, sinks to flash_fwd.
+        wkw = {"window": window} if window else {}
 
         def randn(*shape):
             return torch.randn(
@@ -549,17 +594,21 @@ def phase_kernels(torch, reps: int, seed: int, cases=None) -> dict:
             ).to(torch.bfloat16)
 
         q, k, v, do = randn(B, S, H, D), randn(B, Sk, KV, D), randn(B, Sk, KV, Dv), randn(B, S, H, Dv)
+        fkw = dict(wkw)
+        if window:
+            fkw["sinks"] = torch.randn(H, generator=gen, device=dev)
         shape = {"B": B, "S": S, "Sk": Sk, "H": H, "KV": KV, "D": D,
-                 "Dv": Dv, "causal": causal}
+                 "Dv": Dv, "causal": causal, "window": window}
         default = fa.effective_blocks(B, H, KV, S, Sk, D, causal)
 
         # The plain outputs, once a case. Each backward kernel gets the
         # same inputs as its plain version: the plain forward's lse and Δ,
         # so its error is its own.
-        ref_o, ref_lse = fa.flash_fwd_reference(q, k, v, causal)
+        ref_o, ref_lse = fa.flash_fwd_reference(q, k, v, causal, **fkw)
         delta = fa.flash_delta(ref_o, do)
-        ref_dq = fa.flash_dq_reference(q, k, v, do, ref_lse, delta, causal)
-        ref_dk, ref_dv = fa.flash_dkv_reference(q, k, v, do, ref_lse, delta, causal)
+        ref_dq = fa.flash_dq_reference(q, k, v, do, ref_lse, delta, causal, **wkw)
+        ref_dk, ref_dv = fa.flash_dkv_reference(q, k, v, do, ref_lse, delta, causal,
+                                                **wkw)
         torch.cuda.synchronize()
 
         def rel_l2(a, b):
@@ -572,28 +621,32 @@ def phase_kernels(torch, reps: int, seed: int, cases=None) -> dict:
         def errors(name, tiles):
             """(errors, limits, worst max-abs) of one kernel at ``tiles``."""
             if name == "flash_fwd":
-                o, lse = fa.flash_fwd(q, k, v, causal, **tiles)
+                o, lse = fa.flash_fwd(q, k, v, causal, **fkw, **tiles)
                 err_o, err_lse = max_abs(o, ref_o), (lse - ref_lse).abs().max().item()
                 return ({"o_max_abs": err_o, "lse_max_abs": err_lse},
                         {"o_max_abs": LIMITS["o"], "lse_max_abs": LIMITS["lse"]},
                         max(err_o, err_lse))
             if name == "flash_dq":
-                dq = fa.flash_dq(q, k, v, do, ref_lse, delta, causal, **tiles)
+                dq = fa.flash_dq(q, k, v, do, ref_lse, delta, causal, **wkw, **tiles)
                 return ({"dq_rel_l2": rel_l2(dq, ref_dq)},
                         {"dq_rel_l2": LIMITS["grad_rel_l2"]}, max_abs(dq, ref_dq))
-            dk, dv = fa.flash_dkv(q, k, v, do, ref_lse, delta, causal, **tiles)
+            dk, dv = fa.flash_dkv(q, k, v, do, ref_lse, delta, causal, **wkw, **tiles)
             return ({"dk_rel_l2": rel_l2(dk, ref_dk), "dv_rel_l2": rel_l2(dv, ref_dv)},
                     {"dk_rel_l2": LIMITS["grad_rel_l2"],
                      "dv_rel_l2": LIMITS["grad_rel_l2"]},
                     max(max_abs(dk, ref_dk), max_abs(dv, ref_dv)))
 
         calls = {
-            "flash_fwd": (lambda t: fa.flash_fwd(q, k, v, causal, **t),
-                          lambda: fa.flash_fwd_reference(q, k, v, causal)),
-            "flash_dq": (lambda t: fa.flash_dq(q, k, v, do, ref_lse, delta, causal, **t),
-                         lambda: fa.flash_dq_reference(q, k, v, do, ref_lse, delta, causal)),
-            "flash_dkv": (lambda t: fa.flash_dkv(q, k, v, do, ref_lse, delta, causal, **t),
-                          lambda: fa.flash_dkv_reference(q, k, v, do, ref_lse, delta, causal)),
+            "flash_fwd": (lambda t: fa.flash_fwd(q, k, v, causal, **fkw, **t),
+                          lambda: fa.flash_fwd_reference(q, k, v, causal, **fkw)),
+            "flash_dq": (lambda t: fa.flash_dq(q, k, v, do, ref_lse, delta, causal,
+                                               **wkw, **t),
+                         lambda: fa.flash_dq_reference(q, k, v, do, ref_lse, delta,
+                                                       causal, **wkw)),
+            "flash_dkv": (lambda t: fa.flash_dkv(q, k, v, do, ref_lse, delta, causal,
+                                                 **wkw, **t),
+                          lambda: fa.flash_dkv_reference(q, k, v, do, ref_lse, delta,
+                                                         causal, **wkw)),
         }
         # Library yardstick for the forward: SDPA on the same inputs in
         # its [B, H, S, D] layout, K/V expanded to H heads outside the
@@ -601,7 +654,8 @@ def phase_kernels(torch, reps: int, seed: int, cases=None) -> dict:
         qt = q.transpose(1, 2).contiguous()
         kt = k.repeat_interleave(H // KV, dim=2).transpose(1, 2).contiguous()
         vt = v.repeat_interleave(H // KV, dim=2).transpose(1, 2).contiguous()
-        library = {"flash_fwd": lambda: F.scaled_dot_product_attention(
+        # SDPA computes no window and no sinks: no yardstick there.
+        library = {} if window else {"flash_fwd": lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal)}
         summary = {}
         for name in KERNELS:
@@ -610,7 +664,7 @@ def phase_kernels(torch, reps: int, seed: int, cases=None) -> dict:
             lib = library.get(name)
             library_ms = library_time(torch, lib, reps) if lib else None
             bound_ms, bound_by = bound(B, S, Sk, H, KV, D, causal, name,
-                                       peak_flops, peak_bytes, Dv)
+                                       peak_flops, peak_bytes, Dv, window)
             by_tiles = {}
             for eff, (bq, bk) in tile_requests(fa, name, (B, S, Sk, H, KV, D, causal)).items():
                 tiles = {"block_q": bq, "block_k": bk}
@@ -660,12 +714,12 @@ def phase_kernels(torch, reps: int, seed: int, cases=None) -> dict:
         # forward + backward minus its forward, on the K/V expanded to H
         # heads). No single library call computes dQ or dK/dV alone, so
         # the kernels' rows keep null.
-        o, lse = fa.flash_fwd(q, k, v, causal)
+        o, lse = fa.flash_fwd(q, k, v, causal, **fkw)
 
         def backward():
             d = fa.flash_delta(o, do)
-            fa.flash_dq(q, k, v, do, lse, d, causal)
-            fa.flash_dkv(q, k, v, do, lse, d, causal)
+            fa.flash_dq(q, k, v, do, lse, d, causal, **wkw)
+            fa.flash_dkv(q, k, v, do, lse, d, causal, **wkw)
 
         qg, kg, vg = (t.detach().requires_grad_() for t in (qt, kt, vt))
         dot = do.transpose(1, 2).contiguous()
@@ -675,8 +729,8 @@ def phase_kernels(torch, reps: int, seed: int, cases=None) -> dict:
             torch.autograd.grad(out, (qg, kg, vg), dot)
 
         bwd_ms = time_ms(torch, backward, reps)
-        fwd_bwd_ms = library_time(torch, sdpa_fwd_bwd, reps)
-        sdpa_fwd_ms = results["flash_fwd"][case]["library_ms"]
+        fwd_bwd_ms = None if window else library_time(torch, sdpa_fwd_bwd, reps)
+        sdpa_fwd_ms = results["flash_fwd"][case].get("library_ms")
         emit({"case": case, "backward": {
             "ms": bwd_ms,
             "library_ms": (None if fwd_bwd_ms is None or sdpa_fwd_ms is None
@@ -1076,6 +1130,35 @@ def phase_moe(torch) -> dict:
 def phase_deepseek(torch) -> list[dict]:
     return [drive_path(torch, "deepseek", DEEPSEEK_ARGV),
             drive_path(torch, "deepseek-share", DEEPSEEK_SHARE_ARGV)]
+
+
+def phase_mimo(torch) -> list[dict]:
+    """drive_path on MiMo-V2's two argvs, then the launches split by the
+    window: the window layers' under ``,w<W>`` keys, the full layers'
+    under none, each kind as expected_launches gives for its layers."""
+    from tpumon.workload_torch import harness
+
+    runs = []
+    for name, argv in (("mimo", MIMO_ARGV), ("mimo-share", MIMO_SHARE_ARGV)):
+        run = drive_path(torch, name, argv)
+        args = harness.build_parser().parse_args(argv)
+        cfg = harness.model_config(args)
+        n_swa = sum(cfg.layer_types)
+        kinds = {"window": expected_launches(n_swa, args.grad_accum,
+                                             probes="--phase-stats" in argv),
+                 "full": expected_launches(cfg.n_layers - n_swa, args.grad_accum,
+                                           probes="--phase-stats" in argv)}
+        tag = f",w{cfg.sliding_window}]"
+        got = {"window": {}, "full": {}}
+        for key, n in run["tile_launches"].items():
+            kind = "window" if key.endswith(tag) else "full"
+            kernel = key.split("[")[0]
+            got[kind][kernel] = got[kind].get(kernel, 0) + n
+        emit({"phase": name, "launches_by_kind": got, "expected_by_kind": kinds})
+        if got != kinds:
+            fail(f"{name}: launches by kind {got} differ from {kinds}")
+        runs.append(run)
+    return runs
 
 
 def phase_checkpoint(torch) -> dict:
@@ -1786,8 +1869,8 @@ def phase_drill(torch) -> dict:
     return result
 
 
-PHASES = ("env,build,kernels,norm,rope,main,moe,deepseek,checkpoint,bench,profile,mesh,"
-          "ring,expert,pipe,hosts,dryrun,entry,drill")
+PHASES = ("env,build,kernels,norm,rope,main,moe,deepseek,mimo,checkpoint,bench,profile,"
+          "mesh,ring,expert,pipe,hosts,dryrun,entry,drill")
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -1833,6 +1916,8 @@ def main(argv: list[str] | None = None) -> int:
     moe_run = phase_moe(torch) if "moe" in phases else {}
     if "deepseek" in phases:
         phase_deepseek(torch)
+    if "mimo" in phases:
+        phase_mimo(torch)
     if "checkpoint" in phases:
         phase_checkpoint(torch)
     if "bench" in phases:

@@ -11,6 +11,8 @@ block_q/block_k. Tolerances: O and lse atol 1e-5, gradients atol 1e-4
 effective_blocks) is pure Python and is checked here too.
 """
 
+import functools
+
 import numpy as np
 import pytest
 
@@ -343,8 +345,9 @@ def _stub_launches(monkeypatch):
     """Replace the kernels' launch with a recorder of its arguments."""
     calls = []
 
-    def record(name, D, device, effective, *args):
-        calls.append({"name": name, "D": D, "effective": effective, "args": args})
+    def record(name, D, device, effective, window, *args):
+        calls.append({"name": name, "D": D, "effective": effective,
+                      "window": window, "args": args})
 
     monkeypatch.setattr(fa, "_launch", record)
     return calls
@@ -388,8 +391,9 @@ def test_dkv_route_hands_the_kernel_its_widths(monkeypatch, D, Dv, width, v_widt
     assert ints[:7] == (B, H, KV, S, S, width, v_width)
     if width == 192:
         assert call["effective"] == (64, 64)
-    assert ints[-2] == pytest.approx(1 / np.sqrt(D))
-    assert ints[-1] == int(causal)
+    assert ints[-3] == pytest.approx(1 / np.sqrt(D))
+    assert ints[-2] == int(causal)
+    assert ints[-1] == call["window"] == 0
 
 
 @pytest.mark.parametrize("Dv,do_width,ok", [(128, 128, True), (64, 64, False),
@@ -578,3 +582,261 @@ def test_backward_kernels_are_deterministic_on_card(kernel, D):
         first, second = (first,), (second,)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# Sliding windows and sinks
+# ---------------------------------------------------------------------------
+
+
+def _dense_window_attention(q, k, v, window, sinks=None, scale=None):
+    """Attention as a dense f32 softmax over each query's last ``window``
+    keys (0: all earlier keys) and, where given, one more logit a head
+    that has no value, by autograd: (O, lse) with lse over the keys and
+    the sink."""
+    B, S, H, D = q.shape
+    rep = H // k.shape[2]
+    kk = k.float().repeat_interleave(rep, dim=2)
+    vv = v.float().repeat_interleave(rep, dim=2)
+    scale = 1 / np.sqrt(D) if scale is None else scale
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kk) * scale
+    i = torch.arange(S)[:, None]
+    j = torch.arange(S)[None, :]
+    dead = (j > i) | ((j <= i - window) if window else torch.zeros_like(j > i))
+    s = s.masked_fill(dead, float("-inf"))
+    if sinks is not None:
+        s = torch.cat([s, sinks[None, :, None, None].expand(B, H, S, 1)], dim=-1)
+    lse = torch.logsumexp(s, dim=-1)
+    p = torch.exp(s - lse[..., None])[..., :S]
+    return torch.einsum("bhqk,bkhd->bqhd", p, vv), lse
+
+
+@pytest.mark.parametrize("S,window", [(40, 1), (40, 8), (64, 64), (40, 100),
+                                      (700, 128), (1100, 3)])
+def test_windowed_plain_flash_matches_a_dense_masked_softmax(S, window):
+    """The plain versions under a window (1, inside a tile, a whole tile,
+    past S, and past the bands of BAND_ROWS rows) against the dense f32
+    softmax over the live keys: O and lse to 1e-5, and the gradients of q,
+    k and v, from the kernels' plain backward, to 1e-5 of autograd's."""
+    g = torch.Generator().manual_seed(S + window)
+    B, H, KV, D, Dv = 1, 4, 2, 16, 8
+    q = torch.randn(B, S, H, D, generator=g)
+    k = torch.randn(B, S, KV, D, generator=g)
+    v = torch.randn(B, S, KV, Dv, generator=g)
+    do = torch.randn(B, S, H, Dv, generator=g)
+    o, lse = fa.flash_fwd_reference(q, k, v, True, window=window)
+    want_o, want_lse = _dense_window_attention(q, k, v, window)
+    torch.testing.assert_close(o, want_o, rtol=0, atol=1e-5)
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-5)
+    delta = fa.flash_delta(o, do)
+    dq = fa.flash_dq_reference(q, k, v, do, lse, delta, True, window=window)
+    dk, dv = fa.flash_dkv_reference(q, k, v, do, lse, delta, True, window=window)
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    out, _ = _dense_window_attention(qg, kg, vg, window)
+    out.backward(do)
+    for got, want in ((dq, qg.grad), (dk, kg.grad), (dv, vg.grad)):
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    if window >= S:  # a window past the sequence masks nothing
+        torch.testing.assert_close(o, fa.flash_fwd_reference(q, k, v, True)[0],
+                                   rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("S", [512, 1100])
+def test_causal_plain_flash_in_bands_matches_one_dense_product(S):
+    """The plain versions take a causal call in bands of BAND_ROWS query
+    rows, each against its keys 0 … q1 − 1: at one band (S ≤ BAND_ROWS)
+    bit for bit the one dense product, past it the dense f32 softmax to
+    1e-5 in O, lse and the gradients of q, k and v."""
+    g = torch.Generator().manual_seed(S)
+    B, H, KV, D, Dv = 1, 4, 2, 16, 8
+    q = torch.randn(B, S, H, D, generator=g)
+    k = torch.randn(B, S, KV, D, generator=g)
+    v = torch.randn(B, S, KV, Dv, generator=g)
+    do = torch.randn(B, S, H, Dv, generator=g)
+    bands = fa._bands(S, S, True, 0)
+    assert bands[0][:3] == (0, min(S, fa.BAND_ROWS), 0)
+    assert [b[3] for b in bands] == [b[1] for b in bands]
+    # MiMo-V2-Flash's full layers at 32k (B·H 128): 128-row bands, 2 GiB
+    # of f32 scores in the last; its window layers keep 512 rows.
+    wide = fa._bands(32768, 32768, True, 0, 128)
+    assert wide[0] == (0, 128, 0, 128) and wide[-1] == (32640, 32768, 0, 32768)
+    assert 128 * 128 * 32768 == fa.BAND_ELEMENTS
+    assert fa._bands(32768, 32768, True, 128, 128)[-1] == (32256, 32768, 32129, 32768)
+    o, lse = fa.flash_fwd_reference(q, k, v, True)
+    if S <= fa.BAND_ROWS:
+        want = fa._fwd_dense(q, k, v, True, None)
+        assert torch.equal(o, want[0]) and torch.equal(lse, want[1])
+    want_o, want_lse = _dense_window_attention(q, k, v, 0)
+    torch.testing.assert_close(o, want_o, rtol=0, atol=1e-5)
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-5)
+    delta = fa.flash_delta(o, do)
+    dq = fa.flash_dq_reference(q, k, v, do, lse, delta, True)
+    dk, dv = fa.flash_dkv_reference(q, k, v, do, lse, delta, True)
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    out, _ = _dense_window_attention(qg, kg, vg, 0)
+    out.backward(do)
+    for got, want in ((dq, qg.grad), (dk, kg.grad), (dv, vg.grad)):
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("window", [0, 5])
+def test_sinks_forward_and_every_gradient_match_autograd(window):
+    """flash_attention_with_lse with sinks (the CPU path: the plain
+    versions and ``_FlashLse``'s backward) against autograd through a
+    dense softmax with the sink logit appended: O and lse′ to 1e-5, and
+    dQ, dK, dV and ∂b, with a cotangent on lse′ too, to 1e-5."""
+    g = torch.Generator().manual_seed(11 + window)
+    B, S, H, KV, D, Dv = 2, 24, 4, 1, 16, 8
+    q = torch.randn(B, S, H, D, generator=g, requires_grad=True)
+    k = torch.randn(B, S, KV, D, generator=g, requires_grad=True)
+    v = torch.randn(B, S, KV, Dv, generator=g, requires_grad=True)
+    sinks = (torch.randn(H, generator=g) * 2).requires_grad_()
+    do = torch.randn(B, S, H, Dv, generator=g)
+    dl = torch.randn(B, H, S, generator=g)
+    o, lse = fa.flash_attention_with_lse(q, k, v, window=window, sinks=sinks)
+    (o * do).sum().add((lse * dl).sum()).backward()
+    got = [t.grad.clone() for t in (q, k, v, sinks)]
+    for t in (q, k, v, sinks):
+        t.grad = None
+    want_o, want_lse = _dense_window_attention(q, k, v, window, sinks)
+    (want_o * do).sum().add((want_lse * dl).sum()).backward()
+    torch.testing.assert_close(o, want_o, rtol=0, atol=1e-5)
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-5)
+    for a, t in zip(got, (q, k, v, sinks)):
+        torch.testing.assert_close(a, t.grad, rtol=0, atol=1e-5)
+    assert got[3].abs().min() > 0
+
+
+def test_the_impl_reads_the_window_and_the_sinks_from_its_block():
+    """``make_flash_attn``'s call takes q, k and v only: inside
+    ``attention_window`` it attends under the block's window and sinks,
+    outside it as before."""
+    g = torch.Generator().manual_seed(5)
+    q, k, v = (torch.randn(1, 20, 2, 16, generator=g) for _ in range(3))
+    sinks = torch.randn(2, generator=g)
+    impl = fa.make_flash_attn()
+    with fa.attention_window(4, sinks):
+        inside = impl(q, k, v)
+    torch.testing.assert_close(
+        inside, fa.flash_attention(q, k, v, window=4, sinks=sinks), rtol=0, atol=0)
+    torch.testing.assert_close(impl(q, k, v), fa.flash_attention(q, k, v),
+                               rtol=0, atol=0)
+
+
+def test_a_window_is_refused_where_it_means_nothing():
+    q = torch.zeros(1, 8, 2, 16)
+    for bad in (-1, 2.5, True):
+        with pytest.raises(ValueError, match="window"):
+            fa.flash_attention(q, q, q, window=bad)
+    with pytest.raises(ValueError, match="needs causal"):
+        fa.flash_fwd(q, q, q, False, window=4)
+    with pytest.raises(ValueError, match=r"sinks must be \[2\] float32"):
+        fa.flash_attention(q, q, q, sinks=torch.zeros(3))
+
+
+@pytest.mark.parametrize("window", [0, 128])
+def test_windowed_launches_are_counted_under_their_window(monkeypatch, window):
+    """The card path with the launch stubbed: each kernel's C entry gets
+    the window as its last argument before the stream (flash_fwd: then
+    the sinks' pointer, null without them), and ``tile_launches`` keys a
+    windowed launch with ``,w<W>``."""
+    calls = _stub_launches(monkeypatch)
+    bf = torch.bfloat16
+    q = torch.zeros(1, 256, 4, 192, dtype=bf)
+    k = torch.zeros(1, 256, 2, 192, dtype=bf)
+    v, do = torch.zeros(1, 256, 2, 128, dtype=bf), torch.zeros(1, 256, 4, 128, dtype=bf)
+    lse, delta = torch.zeros(1, 4, 256), torch.zeros(1, 4, 256)
+    sinks = torch.zeros(4)
+    fa._on_width("flash_fwd", functools.partial(fa._fwd_kernel, window=window,
+                                                 sinks=sinks), q, k, v, causal=True)
+    fa._on_width("flash_dq", functools.partial(fa._dq_kernel, window=window),
+                 q, k, v, do, lse, delta, causal=True)
+    fa._on_width("flash_dkv", functools.partial(fa._dkv_kernel, window=window),
+                 q, k, v, do, lse, delta, causal=True)
+    fwd, dq, dkv = calls
+    assert fwd["args"][-2:] == (window, sinks.data_ptr())
+    assert dq["args"][-1] == dkv["args"][-1] == window
+    w = f",w{window}" if window else ""
+    seen = [fa.launch_key(c["name"], c["D"], c["effective"], c["window"])
+            for c in calls]
+    assert seen == [f"flash_fwd[64x64{w}]", f"flash_dq[64x64{w}]",
+                    f"flash_dkv[64x64,v128{w}]"]
+    assert fa.launch_key("flash_fwd", 128, (128, 128)) == "flash_fwd[128x128]"
+
+
+#: Window shapes on the card: MiMo-V2-Flash's window layers (64 q heads,
+#: 8 kv heads, q·k 192, v 128, window 128) at its micro-batch of 2 ×
+#: 32,768 tokens, and at shorter sequences; the ragged and
+#: head-dim-64/128 paths at small ones.
+WINDOW_CASES = [
+    (2, 32768, 64, 8, 192, 128, 128),
+    (1, 4096, 64, 8, 192, 128, 128),
+    (2, 1000, 8, 2, 192, 128, 1),
+    (2, 1000, 8, 2, 192, 128, 200),
+    (1, 777, 8, 2, 128, 128, 64),
+    (1, 777, 8, 2, 64, 64, 100),
+    (2, 300, 4, 1, 48, 32, 8),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,KV,D,Dv,window", WINDOW_CASES)
+def test_windowed_kernels_with_sinks_match_plain_versions_on_card(B, S, H, KV, D, Dv,
+                                                                 window):
+    """Each kernel under the window (flash_fwd with sinks folded into its
+    epilogue) against its banded plain version on the card: O atol 2e-2,
+    lse′ atol 1e-4, dQ, dK, dV relative L2 1e-2, as the causal cases."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(window)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    q, k, v, do = randn(B, S, H, D), randn(B, S, KV, D), randn(B, S, KV, Dv), randn(B, S, H, Dv)
+    sinks = torch.randn(H, generator=gen, device=dev)
+    o, lse = fa.flash_fwd(q, k, v, True, window=window, sinks=sinks)
+    ref_o, ref_lse = fa.flash_fwd_reference(q, k, v, True, window=window, sinks=sinks)
+    assert (o.float() - ref_o.float()).abs().max().item() <= 2e-2
+    assert (lse - ref_lse).abs().max().item() <= 1e-4
+    delta = fa.flash_delta(ref_o, do)
+    got = [fa.flash_dq(q, k, v, do, ref_lse, delta, True, window=window),
+           *fa.flash_dkv(q, k, v, do, ref_lse, delta, True, window=window)]
+    want = [fa.flash_dq_reference(q, k, v, do, ref_lse, delta, True, window=window),
+            *fa.flash_dkv_reference(q, k, v, do, ref_lse, delta, True, window=window)]
+    for a, b in zip(got, want):
+        rel = ((a.float() - b.float()).norm() / b.float().norm()).item()
+        assert rel <= 1e-2
+
+
+@pytest.mark.cuda
+def test_full_layer_kernels_match_plain_versions_on_card():
+    """The three kernels at MiMo-V2-Flash's full layers' micro-batch (B 2,
+    S 32,768, 64 q heads over 4 kv heads, q·k 192, v 128, causal, no
+    window, no sinks) against their banded plain versions on the card: O
+    atol 2e-2, lse atol 1e-4, dQ, dK, dV relative L2 1e-2, as the other
+    cases."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    B, S, H, KV, D, Dv = 2, 32768, 64, 4, 192, 128
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(S)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    q, k, v, do = randn(B, S, H, D), randn(B, S, KV, D), randn(B, S, KV, Dv), randn(B, S, H, Dv)
+    o, lse = fa.flash_fwd(q, k, v, True)
+    ref_o, ref_lse = fa.flash_fwd_reference(q, k, v, True)
+    assert (o.float() - ref_o.float()).abs().max().item() <= 2e-2
+    assert (lse - ref_lse).abs().max().item() <= 1e-4
+    del o, lse
+    delta = fa.flash_delta(ref_o, do)
+    got = [fa.flash_dq(q, k, v, do, ref_lse, delta, True),
+           *fa.flash_dkv(q, k, v, do, ref_lse, delta, True)]
+    want = [fa.flash_dq_reference(q, k, v, do, ref_lse, delta, True),
+            *fa.flash_dkv_reference(q, k, v, do, ref_lse, delta, True)]
+    for a, b in zip(got, want):
+        rel = ((a.float() - b.float()).norm() / b.float().norm()).item()
+        assert rel <= 1e-2

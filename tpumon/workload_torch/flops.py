@@ -6,7 +6,9 @@ FLOPs one optimizer step of ``models.llama`` or ``models.moe`` executes, attenti
 full S×S the additive-mask implementation computes, backward = 2× forward.
 A step of any family is 3× its record's forward count (``models.family``):
 ``forward_flops`` for those two, ``models.deepseek_v2.forward_flops`` (by
-the same rules) for DeepSeek-V2, which the reference lacks.
+the same rules) for DeepSeek-V2, and ``models.mimo_v2.forward_flops`` for
+MiMo-V2, whose sliding-window layers count their windowed pairs
+(:func:`window_pairs`), which the reference lacks.
 
 The peak table is keyed on ``torch.cuda.get_device_name()`` and holds only
 the H100's published dense (no sparsity) bf16 rates and HBM bandwidths,
@@ -60,6 +62,13 @@ def peak_flops_per_device(device) -> float | None:
 def peak_hbm_bytes_per_device(device) -> float | None:
     """Peak HBM bytes/s of a device, or None when unknown."""
     return _lookup(PEAK_HBM_BYTES, device)
+
+
+def window_pairs(seq: int, window: int) -> int:
+    """Query-key pairs of causal attention over ``seq`` positions where
+    each query sees its last ``window`` keys: Σ_i min(i + 1, W)."""
+    w = min(window, seq)
+    return w * (w + 1) // 2 + (seq - w) * w
 
 
 def forward_flops(cfg, batch: int, seq: int) -> float:
@@ -134,4 +143,5 @@ __all__ = [
     "peak_flops_total",
     "peak_hbm_bytes_per_device",
     "train_flops_per_step",
+    "window_pairs",
 ]

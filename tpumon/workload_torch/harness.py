@@ -241,7 +241,9 @@ def make_train_step(
     where ``grad_accum`` is 1). While a profiler records, the call runs in
     the span ``workload.step``, each chunk's forward and backward in
     ``workload.fwd`` and ``workload.bwd``, and the update in
-    ``workload.optimizer`` (``spans.py``)."""
+    ``workload.optimizer`` (``spans.py``). After the update it runs the
+    family's ``after_step`` on the model, where the family gives one
+    (``models.family``)."""
     params = list(model.parameters())
     mesh = model.mesh
     specs = _param_specs(model)
@@ -249,6 +251,7 @@ def make_train_step(
     by_model = [mesh_mod.split_dim(n, specs) is not None for n in names]
     by_expert = [mesh_mod.split_dim(n, specs, "expert") is not None for n in names]
     by_stage = [mesh_mod.layer_index(n) is not None for n in names]
+    after_step = family.of(model.cfg).after_step
 
     def grad_of(tokens):
         with spans.span("fwd"):
@@ -305,6 +308,8 @@ def make_train_step(
             gnorm = torch.full((), float("nan"), device=loss.device)
         with spans.span("optimizer"):
             optimizer.step()
+        if after_step is not None:
+            after_step(model)
         return loss, gnorm
 
     return step
@@ -350,7 +355,9 @@ def _make_phase_probe(model, optimizer, attn_impl, remat, loss_chunk,
     phases (``--phase-stats``), run at most once per stats window. It
     leaves the live parameters, their ``.grad`` and the optimizer state
     untouched: gradients come from ``torch.autograd.grad``, and the timed
-    optimizer update runs on clones of the parameters and the state.
+    optimizer update runs on clones of the parameters and the state, and
+    the model's buffers (MiMo-V2's expert loads) are put back after its
+    passes.
     bwd is the grad pass minus the forward pass.
 
     Under ``grad_accum > 1`` the probe times ONE strided chunk and scales
@@ -375,6 +382,7 @@ def _make_phase_probe(model, optimizer, attn_impl, remat, loss_chunk,
     def probe(tokens) -> dict[str, float]:
         if chunks > 1:
             tokens = tokens[::chunks]
+        held = [b.clone() for b in model.buffers()]
         t0 = clock()
         with torch.no_grad():
             loss_fn(model, tokens, attn_impl, remat, loss_chunk, forward_fn)
@@ -388,6 +396,9 @@ def _make_phase_probe(model, optimizer, attn_impl, remat, loss_chunk,
             grads = [g.view_as(p) for g, p in
                      zip(flat.split([p.numel() for p in params]), params)]
         grad_s = clock() - t0
+        with torch.no_grad():
+            for b, kept in zip(model.buffers(), held):
+                b.copy_(kept)
         scratch = [p.detach().clone().requires_grad_(True) for p in params]
         for s, g in zip(scratch, grads):
             s.grad = g

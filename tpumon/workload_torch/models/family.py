@@ -1,5 +1,6 @@
 """The port's model families: one :class:`Family` record each, which its
-module (``models/llama.py``, ``moe.py``, ``deepseek_v2.py``) registers on
+module (``models/llama.py``, ``moe.py``, ``deepseek_v2.py``,
+``mimo_v2.py``) registers on
 import. The harness, the pipeline and ``flops.py`` read the record, not
 the config's class: a new family comes in as its module and its record.
 """
@@ -25,7 +26,10 @@ class Family:
     parameter tree (it raises for a family with no JAX counterpart).
     ``forward_flops(cfg, batch, seq)`` counts one forward's matmul FLOPs.
     ``check(cfg, *, dp, tp, sp, pp, ep, seq, sp_layout, loss_chunk,
-    grad_accum)`` raises a ValueError for a run the family cannot do."""
+    grad_accum)`` raises a ValueError for a run the family cannot do.
+    ``after_step(model)``, where a family gives one, is a state change
+    outside the gradient that the train step runs after each optimizer
+    step (MiMo-V2's router bias update)."""
 
     name: str
     config: type
@@ -37,13 +41,14 @@ class Family:
     check: Callable
     param_specs: dict | None = None
     own_presets: tuple[str, ...] = ()
+    after_step: Callable | None = None
 
 
 #: The registered families by ``--model`` name, in registration order.
 REGISTRY: dict[str, Family] = {}
 
 #: The port's own family modules, imported before the registry is read.
-_MODULES = ("llama", "moe", "deepseek_v2")
+_MODULES = ("llama", "moe", "deepseek_v2", "mimo_v2")
 
 
 def register(family: Family) -> Family:

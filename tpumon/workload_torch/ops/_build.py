@@ -27,16 +27,16 @@ BUILD = Path(__file__).resolve().parent.parent / "build"
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 SIGNATURES: dict[str, list] = {
     # q, k, v, o, lse, B, H, KV, S, Sk, D, block_q, block_k, scale, causal,
-    # stream
-    "flash_fwd": [_P] * 5 + [_I] * 8 + [_F, _I, _P],
+    # window, sinks (null for none), stream
+    "flash_fwd": [_P] * 5 + [_I] * 8 + [_F, _I, _I, _P, _P],
     # q, k, v, dO, lse, delta, dq, B, H, KV, S, Sk, D, block_q, block_k,
-    # scale, causal, stream
-    "flash_dq": [_P] * 7 + [_I] * 8 + [_F, _I, _P],
+    # scale, causal, window, stream
+    "flash_dq": [_P] * 7 + [_I] * 8 + [_F, _I, _I, _P],
     # q, k, v, dO, lse, delta, dk, dv, B, H, KV, S, Sk, D, Dv, block_q,
-    # block_k, scale, causal, stream (flash_dkv: Dv = D at 64 and 128;
-    # flash_dkv_mla: D 192, Dv 128)
-    "flash_dkv": [_P] * 8 + [_I] * 9 + [_F, _I, _P],
-    "flash_dkv_mla": [_P] * 8 + [_I] * 9 + [_F, _I, _P],
+    # block_k, scale, causal, window, stream (flash_dkv: Dv = D at 64 and
+    # 128; flash_dkv_mla: D 192, Dv 128)
+    "flash_dkv": [_P] * 8 + [_I] * 9 + [_F, _I, _I, _P],
+    "flash_dkv_mla": [_P] * 8 + [_I] * 9 + [_F, _I, _I, _P],
     # x, w, y, rstd, rows, D, is_f32, eps, stream
     "rms_norm_fwd": [_P] * 4 + [_I] * 3 + [_F, _P],
     # x, dy, w, rstd, dx, part, dw, rows, D, is_f32, grid, stream

@@ -57,6 +57,11 @@
 // - Causal: the q loop starts at the first q tile that reaches the
 //   k-block; only tiles that cross the diagonal (or the S edge) are
 //   masked, and a warpgroup skips a tile that its rows cannot see.
+// - Window (window = W > 0, causal; flash_fwd.cu's): the q loop stops
+//   after the stage that holds row k0 + BK - 2 + W, a warpgroup skips a
+//   stage wholly past its rows' windows, and only stages the window's
+//   edge crosses test the extra term. A runtime argument: no
+//   instantiation is added.
 //
 // What still holds it below half its bound: S^T is computed twice at
 // D = 128; the products of a step run back to back in each warpgroup with
@@ -109,7 +114,7 @@ __global__ void __launch_bounds__(Warps<BK>::THREADS, 1)
                const __grid_constant__ CUtensorMap map_do,
                const float* __restrict__ lse, const float* __restrict__ delta,
                bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int KV,
-               int S, int Sk, float scale, int causal) {
+               int S, int Sk, float scale, int causal, int window) {
   using C = Cfg<D, PART, BK, BQ_>;
   using W = Warps<BK>;
   constexpr int BQ = C::BQ;
@@ -128,8 +133,12 @@ __global__ void __launch_bounds__(Warps<BK>::THREADS, 1)
   const int b = blockIdx.x / KV, kvh = blockIdx.x % KV;
   const int k0 = blockIdx.y * BK;  // the heaviest k-blocks come first
   const int group = H / KV;
-  const int n_qb = (S + BQ - 1) / BQ;
+  // Under a window the last q row that sees the k-block is k0 + BK - 2 + W;
+  // win is W, or a distance past any sequence without one.
+  int n_qb = (S + BQ - 1) / BQ;
+  if (window > 0) n_qb = min(n_qb, (k0 + BK - 2 + window) / BQ + 1);
   const int qb_lo = causal ? k0 / BQ : 0;
+  const int win = window > 0 ? window : (1 << 30);
   const int wg = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
@@ -205,8 +214,10 @@ __global__ void __launch_bounds__(Warps<BK>::THREADS, 1)
         const int s = it % STAGES;
         const int q0 = qb * BQ;
         mbar_wait(&full[s], (it / STAGES) & 1);
-        // Under causal a tile wholly above this warpgroup's rows is dead.
-        if (!(causal && q0 + BQ - 1 < wg_row_min)) {
+        // Under causal a tile wholly above this warpgroup's rows is dead, as
+        // is one wholly past their windows.
+        if (!((causal && q0 + BQ - 1 < wg_row_min) ||
+              q0 >= wg_row_min + 63 + win)) {
           const unsigned char* sQs = sQ + s * C::Q_BYTES;
           const unsigned char* sDOs = sDO + s * C::Q_BYTES;
 
@@ -247,8 +258,9 @@ __global__ void __launch_bounds__(Warps<BK>::THREADS, 1)
           // P^T = exp2(s * scale log2 e - lse log2 e); dS^T = P^T (dP^T -
           // delta) scale. Column c of this thread's pairs is q row q0 + c.
           // Each k16 slice is packed to bf16 as soon as it is formed.
-          const bool masked =
-              q0 + BQ > S || (causal && q0 < wg_row_min + 63);
+          const bool masked = q0 + BQ > S ||
+                              (causal && q0 < wg_row_min + 63) ||
+                              q0 + BQ - 1 >= wg_row_min + win;
           const float* lse_s = sLse + s * BQ;
           const float* delta_s = sDelta + s * BQ;
           uint32_t pa[BQ / 16][4], da[BQ / 16][4];
@@ -267,7 +279,9 @@ __global__ void __launch_bounds__(Warps<BK>::THREADS, 1)
                 if (masked) {
                   const int col = q0 + 8 * j + cq + e;
                   const int row = row0 + 8 * (i / 2);
-                  if (col >= S || (causal && col < row)) p[i] = 0.0f;
+                  if (col >= S || (causal && col < row) || col >= row + win) {
+                    p[i] = 0.0f;
+                  }
                 }
               }
               if constexpr (C::kDV) {
@@ -344,7 +358,7 @@ template <int D, int PART, int BK, int BQ>
 int run_part(const void* q, const void* k, const void* v, const void* dout,
              const void* lse, const void* delta, void* dk, void* dv, int B,
              int H, int KV, int S, int Sk, float scale, int causal,
-             void* stream) {
+             int window, void* stream) {
   using C = Cfg<D, PART, BK, BQ>;
   CUtensorMap map_q, map_k, map_v, map_do;
   int err = make_map(&map_q, q, B, S, H, D, BQ);
@@ -357,7 +371,7 @@ int run_part(const void* q, const void* k, const void* v, const void* dout,
                 C::LAUNCH, stream, map_q, map_k, map_v, map_do,
                 static_cast<const float*>(lse), static_cast<const float*>(delta),
                 static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, KV, S, Sk,
-                scale, causal);
+                scale, causal, window);
 }
 
 // Every part of one call at k tile BK: at D = 128 the dV part, then the
@@ -365,19 +379,20 @@ int run_part(const void* q, const void* k, const void* v, const void* dout,
 template <int D, int BK>
 int run(const void* q, const void* k, const void* v, const void* dout,
         const void* lse, const void* delta, void* dk, void* dv, int B, int H,
-        int KV, int S, int Sk, float scale, int causal, void* stream) {
+        int KV, int S, int Sk, float scale, int causal, int window,
+        void* stream) {
   if constexpr (D == 128) {
     int err = run_part<D, DV, BK, q_cap<D, DV>()>(
         q, k, v, dout, lse, delta, dk, dv, B, H, KV, S, Sk, scale, causal,
-        stream);
+        window, stream);
     if (err) return err;
     return run_part<D, DK, BK, q_cap<D, DK>()>(
         q, k, v, dout, lse, delta, dk, dv, B, H, KV, S, Sk, scale, causal,
-        stream);
+        window, stream);
   } else {
     return run_part<D, BOTH, BK, q_cap<D, BOTH>()>(
         q, k, v, dout, lse, delta, dk, dv, B, H, KV, S, Sk, scale, causal,
-        stream);
+        window, stream);
   }
 }
 
@@ -388,15 +403,16 @@ template <int D>
 int dispatch(int block_q, int block_k, const void* q, const void* k,
              const void* v, const void* dout, const void* lse,
              const void* delta, void* dk, void* dv, int B, int H, int KV,
-             int S, int Sk, float scale, int causal, void* stream) {
+             int S, int Sk, float scale, int causal, int window,
+             void* stream) {
   if (block_q != 64 && block_q != 128) return TILE_ERROR;
   if (block_k == 64) {
     return run<D, 64>(q, k, v, dout, lse, delta, dk, dv, B, H, KV, S, Sk,
-                      scale, causal, stream);
+                      scale, causal, window, stream);
   }
   if (block_k == 128) {
     return run<D, 128>(q, k, v, dout, lse, delta, dk, dv, B, H, KV, S, Sk,
-                       scale, causal, stream);
+                       scale, causal, window, stream);
   }
   return TILE_ERROR;
 }
@@ -404,23 +420,24 @@ int dispatch(int block_q, int block_k, const void* q, const void* k,
 }  // namespace dkv
 
 // Plain C entry for ctypes, with flash_dkv_mla.cu's arguments: v's width
-// Dv beside D, which must equal it here. Returns 0 when launched,
-// cudaErrorInvalidValue for other widths, else a cudaError_t value,
-// hopper::TMAP_ERROR + CUresult when a tensor map is refused, or
-// hopper::TILE_ERROR for a (block_q, block_k) pair that is not compiled.
+// Dv beside D, which must equal it here, and window (0 for none).
+// Returns 0 when launched, cudaErrorInvalidValue for other widths, else a
+// cudaError_t value, hopper::TMAP_ERROR + CUresult when a tensor map is
+// refused, or hopper::TILE_ERROR for a (block_q, block_k) pair that is
+// not compiled.
 extern "C" int flash_dkv(const void* q, const void* k, const void* v,
                          const void* dout, const void* lse, const void* delta,
                          void* dk, void* dv, int B, int H, int KV, int S,
                          int Sk, int D, int Dv, int block_q, int block_k,
-                         float scale, int causal, void* stream) {
+                         float scale, int causal, int window, void* stream) {
   if (Dv != D) return int(cudaErrorInvalidValue);
   if (D == 128) {
     return dkv::dispatch<128>(block_q, block_k, q, k, v, dout, lse, delta, dk,
-                              dv, B, H, KV, S, Sk, scale, causal, stream);
+                              dv, B, H, KV, S, Sk, scale, causal, window, stream);
   }
   if (D == 64) {
     return dkv::dispatch<64>(block_q, block_k, q, k, v, dout, lse, delta, dk,
-                             dv, B, H, KV, S, Sk, scale, causal, stream);
+                             dv, B, H, KV, S, Sk, scale, causal, window, stream);
   }
   return int(cudaErrorInvalidValue);
 }

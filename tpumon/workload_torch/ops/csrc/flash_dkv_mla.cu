@@ -63,6 +63,10 @@
 //   path by the launch's 168.
 // - Causal: the q loop starts at the k-block's own 64 rows; only the
 //   diagonal tile (and the S edge) is masked.
+// - Window (window = W > 0, causal; flash_fwd.cu's): q row i sees key j
+//   iff j <= i < j + W, so the q loop stops after the stage that holds
+//   row k0 + BK - 2 + W, and only stages that the window's edge crosses
+//   test the extra term. A runtime argument: no instantiation is added.
 //
 // What still holds it below its bound (1.75 ms a call at B = 4 against
 // 0.695, 40 %, on an H100 at 700 W): within a warpgroup each tile is
@@ -123,7 +127,7 @@ __global__ void __launch_bounds__(THREADS, 1)
                    const float* __restrict__ lse,
                    const float* __restrict__ delta, bf16* __restrict__ dk,
                    bf16* __restrict__ dv, int H, int KV, int S, int Sk,
-                   float scale, int causal) {
+                   float scale, int causal, int window) {
   static_assert(DQK_ == DQK && DV_ == DV && BK_ == BK && BQ_ == BQ,
                 "compiled at q.k 192, v 128, 64 x 64 tiles");
   using C = MlaCfg;
@@ -144,8 +148,12 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int b = blockIdx.x / KV, kvh = blockIdx.x % KV;
   const int k0 = blockIdx.y * BK;  // the heaviest k-blocks come first
   const int group = H / KV;
-  const int n_qb = (S + BQ - 1) / BQ;
+  // Under a window the last q row that sees the k-block is k0 + BK - 2 + W;
+  // win is W, or a distance past any sequence without one.
+  int n_qb = (S + BQ - 1) / BQ;
+  if (window > 0) n_qb = min(n_qb, (k0 + BK - 2 + window) / BQ + 1);
   const int qb_lo = causal ? k0 / BQ : 0;
+  const int win = window > 0 ? window : (1 << 30);
   const int wg = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
@@ -238,7 +246,8 @@ __global__ void __launch_bounds__(THREADS, 1)
         // Column c of this thread's pairs is q row q0 + c. Each k16 slice
         // is packed to bf16 as soon as it is formed; the f32 values go to
         // the stage's P buffer for warpgroup 1.
-        const bool masked = q0 + BQ > S || (causal && q0 < k0 + BK - 1);
+        const bool masked = q0 + BQ > S || (causal && q0 < k0 + BK - 1) ||
+                            q0 + BQ - 1 >= k0 + win;
         const float* lse_s = sLse + s * BQ;
         float4* sPs = sP + s * (C::P_BYTES / 16);
         uint32_t pa[BQ / 16][4];
@@ -257,7 +266,9 @@ __global__ void __launch_bounds__(THREADS, 1)
               if (masked) {
                 const int col = q0 + 8 * j + cq + e;
                 const int row = row0 + 8 * (i / 2);
-                if (col >= S || (causal && col < row)) p[i] = 0.0f;
+                if (col >= S || (causal && col < row) || col >= row + win) {
+                  p[i] = 0.0f;
+                }
               }
             }
             pa[kk][2 * jj] = pack_bf16(p[0], p[1]);
@@ -387,8 +398,9 @@ __global__ void __launch_bounds__(THREADS, 1)
 }  // namespace dkv
 
 // Plain C entry for ctypes, with the arguments of flash_dkv.cu's entry and
-// v's width beside D. Returns 0 when launched, cudaErrorInvalidValue for
-// widths other than (192, 128), else a cudaError_t value,
+// v's width beside D (window 0 for none). Returns 0 when launched,
+// cudaErrorInvalidValue for widths other than (192, 128), else a
+// cudaError_t value,
 // hopper::TMAP_ERROR + CUresult when a tensor map is refused, or
 // hopper::TILE_ERROR for a (block_q, block_k) pair that is not compiled:
 // block_q 64 or 128 (both streamed at 64 rows a stage), block_k 64.
@@ -397,7 +409,7 @@ extern "C" int flash_dkv_mla(const void* q, const void* k, const void* v,
                              const void* delta, void* dk, void* dv, int B,
                              int H, int KV, int S, int Sk, int D, int Dv,
                              int block_q, int block_k, float scale,
-                             int causal, void* stream) {
+                             int causal, int window, void* stream) {
   using namespace dkv;
   if (D != DQK || Dv != DV) return int(cudaErrorInvalidValue);
   if ((block_q != 64 && block_q != 128) || block_k != BK) {
@@ -415,5 +427,5 @@ extern "C" int flash_dkv_mla(const void* q, const void* k, const void* v,
                         static_cast<const float*>(lse),
                         static_cast<const float*>(delta),
                         static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, KV,
-                        S, Sk, scale, causal);
+                        S, Sk, scale, causal, window);
 }

@@ -52,6 +52,13 @@
 //   rows: that warpgroup skips its products there but still releases the
 //   stage. The Sk edge is masked explicitly: a K row past Sk
 //   arrives as zeros, so s = 0 and P = 2^-lse, not 0.
+// - Window (window = W > 0, causal; flash_fwd.cu's): the k loop starts
+//   at the tile that holds key q0 - W + 1, a warpgroup skips a tile
+//   wholly below its rows' windows, and only tiles the window's edge
+//   crosses test the extra term. A runtime argument: no instantiation is
+//   added. With sinks the caller hands in the forward's lse (the sink
+//   in it) and delta from its O: P and dS are then exact, and the sink's
+//   own gradient is the caller's.
 // - dQ is stored from registers in q's dtype, each row once (no atomics):
 //   bit-for-bit deterministic.
 //
@@ -89,7 +96,7 @@ __global__ void __launch_bounds__(Warps<BQ>::THREADS, 1)
               const __grid_constant__ CUtensorMap map_do,
               const float* __restrict__ lse, const float* __restrict__ delta,
               bf16* __restrict__ dq_out, int H, int KV, int S, int Sk,
-              float scale, int causal) {
+              float scale, int causal, int window) {
   static_assert(BK == 64 || BK == 128, "k tiles of 64 or 128 rows");
   using L = Smem<D, BQ, BK>;
   using W = Warps<BQ>;
@@ -110,6 +117,10 @@ __global__ void __launch_bounds__(Warps<BQ>::THREADS, 1)
   const int q0 = qb * BQ;
   int n_kb = (Sk + BK - 1) / BK;
   if (causal) n_kb = min(n_kb, (q0 + BQ + BK - 1) / BK);
+  // Under a window the first k tile holds key q0 - W + 1; win is W, or a
+  // distance past any sequence without one.
+  const int kb_lo = window > 0 ? max(q0 - window + 1, 0) / BK : 0;
+  const int win = window > 0 ? window : (1 << 30);
   const int wg = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
@@ -133,9 +144,10 @@ __global__ void __launch_bounds__(Warps<BQ>::THREADS, 1)
       mbar_arrive_tx(full_q, 2 * L::Q_BYTES);
       tma_load_tile<D>(sQ, BQ, &map_q, full_q, h, q0, b);
       tma_load_tile<D>(sDO, BQ, &map_do, full_q, h, q0, b);
-      for (int kb = 0; kb < n_kb; ++kb) {
-        const int s = kb % STAGES;
-        mbar_wait(&empty[s], ((kb / STAGES) & 1) ^ 1);
+      for (int kb = kb_lo; kb < n_kb; ++kb) {
+        const int it = kb - kb_lo;
+        const int s = it % STAGES;
+        mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
         mbar_arrive_tx(&full[s], 2 * L::KV_BYTES);
         tma_load_tile<D>(sK + s * L::KV_BYTES, BK, &map_k, &full[s], kvh,
                          kb * BK, b);
@@ -169,17 +181,20 @@ __global__ void __launch_bounds__(Warps<BQ>::THREADS, 1)
     for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
 
     mbar_wait(full_q, 0);
-    for (int kb = 0; kb < n_kb; ++kb) {
-      const int s = kb % STAGES;
-      const uint32_t parity = (kb / STAGES) & 1;
+    for (int kb = kb_lo; kb < n_kb; ++kb) {
+      const int it = kb - kb_lo;
+      const int s = it % STAGES;
+      const uint32_t parity = (it / STAGES) & 1;
       const int k0 = kb * BK;
       const unsigned char* sKs = sK + s * L::KV_BYTES;
       const unsigned char* sVs = sV + s * L::KV_BYTES;
       // The stage is released only after it was filled: an arrival before
       // would count toward the stage's previous fill.
       mbar_wait(&full[s], parity);
-      // Under causal a tile wholly above this warpgroup's rows is dead.
-      if (!(causal && k0 > wg_row_min + 63)) {
+      // Under causal a tile wholly above this warpgroup's rows is dead, as
+      // is one wholly below their windows.
+      if (!((causal && k0 > wg_row_min + 63) ||
+            k0 + BK - 1 + win <= wg_row_min)) {
         // S = q k^T and dP = dO v^T: the head dim is the contraction.
         // Zeroed although the first k slice overwrites them: left
         // undefined, ptxas may give both the same registers.
@@ -211,6 +226,9 @@ __global__ void __launch_bounds__(Warps<BQ>::THREADS, 1)
         wg_wait<0>();
         fence_regs(sc);
         fence_regs(dp);
+        // Keys below the window's edge, on tiles it crosses only
+        // (flash_fwd.cu's window_mask pass): p = exp2(-inf) = 0 there.
+        if (k0 + win <= wg_row_min + 63) window_mask<BK>(sc, k0, row0, cq, win);
 
         // P = exp2(s * scale log2 e - lse log2 e); dS = P (dP - delta)
         // scale, packed to bf16 in the A-operand layout of dQ += dS k.
@@ -270,7 +288,8 @@ __global__ void __launch_bounds__(Warps<BQ>::THREADS, 1)
 template <int D, int BQ, int BK>
 int run(const void* q, const void* k, const void* v, const void* dout,
         const void* lse, const void* delta, void* dq_out, int B, int H,
-        int KV, int S, int Sk, float scale, int causal, void* stream) {
+        int KV, int S, int Sk, float scale, int causal, int window,
+        void* stream) {
   CUtensorMap map_q, map_k, map_v, map_do;
   int err = make_map(&map_q, q, B, S, H, D, BQ);
   if (!err) err = make_map(&map_do, dout, B, S, H, D, BQ);
@@ -281,7 +300,8 @@ int run(const void* q, const void* k, const void* v, const void* dout,
   return launch(dq_kernel<D, BQ, BK>, grid, Warps<BQ>::THREADS,
                 Smem<D, BQ, BK>::LAUNCH, stream, map_q, map_k, map_v, map_do,
                 static_cast<const float*>(lse), static_cast<const float*>(delta),
-                static_cast<bf16*>(dq_out), H, KV, S, Sk, scale, causal);
+                static_cast<bf16*>(dq_out), H, KV, S, Sk, scale, causal,
+                window);
 }
 
 // The compiled tile pairs at head dim D (ops/flash_attention.py COMPILED
@@ -293,11 +313,11 @@ template <int D>
 int dispatch(int block_q, int block_k, const void* q, const void* k,
              const void* v, const void* dout, const void* lse,
              const void* delta, void* dq_out, int B, int H, int KV, int S,
-             int Sk, float scale, int causal, void* stream) {
+             int Sk, float scale, int causal, int window, void* stream) {
 #define DQ_TILE(BQ, BK)                                                    \
   if (block_q == BQ && block_k == BK) {                                    \
     return run<D, BQ, BK>(q, k, v, dout, lse, delta, dq_out, B, H, KV, S,  \
-                          Sk, scale, causal, stream);                      \
+                          Sk, scale, causal, window, stream);              \
   }
   DQ_TILE(64, 64)
   if constexpr (D <= 128) {
@@ -310,25 +330,26 @@ int dispatch(int block_q, int block_k, const void* q, const void* k,
 
 }  // namespace dq
 
-// Plain C entry for ctypes. Returns 0 when launched, else a cudaError_t
-// value, hopper::TMAP_ERROR + CUresult when a tensor map is refused, or
-// hopper::TILE_ERROR for a (block_q, block_k) pair that is not compiled.
+// Plain C entry for ctypes (window 0 for none). Returns 0 when launched,
+// else a cudaError_t value, hopper::TMAP_ERROR + CUresult when a tensor
+// map is refused, or hopper::TILE_ERROR for a (block_q, block_k) pair
+// that is not compiled.
 extern "C" int flash_dq(const void* q, const void* k, const void* v,
                         const void* dout, const void* lse, const void* delta,
                         void* dq, int B, int H, int KV, int S, int Sk, int D,
                         int block_q, int block_k, float scale, int causal,
-                        void* stream) {
+                        int window, void* stream) {
   if (D == 128) {
     return dq::dispatch<128>(block_q, block_k, q, k, v, dout, lse, delta, dq,
-                             B, H, KV, S, Sk, scale, causal, stream);
+                             B, H, KV, S, Sk, scale, causal, window, stream);
   }
   if (D == 64) {
     return dq::dispatch<64>(block_q, block_k, q, k, v, dout, lse, delta, dq,
-                            B, H, KV, S, Sk, scale, causal, stream);
+                            B, H, KV, S, Sk, scale, causal, window, stream);
   }
   if (D == 192) {
     return dq::dispatch<192>(block_q, block_k, q, k, v, dout, lse, delta, dq,
-                             B, H, KV, S, Sk, scale, causal, stream);
+                             B, H, KV, S, Sk, scale, causal, window, stream);
   }
   return int(cudaErrorInvalidValue);
 }

@@ -45,6 +45,24 @@
 //   the Sk edge) are masked; a warpgroup skips the products of a tile
 //   wholly above its rows (which exists only when BK < BQ); the heaviest
 //   q-blocks launch first.
+// - Window (window = W > 0, causal): key j is live for query i iff
+//   i - W < j <= i. The k loop starts at the tile that holds key
+//   q0 - W + 1, a warpgroup skips the products of a tile wholly below its
+//   rows' windows, and only tiles that the window's edge crosses test the
+//   extra term. W is a runtime argument, so no instantiation is added; at
+//   W = 0 the loop bounds and the masks are the causal ones. A key below
+//   the window is -inf, not NEG_BIG: a row may meet a tile wholly below
+//   its window before its first live key, and exp2(-inf - NEG_BIG) is 0.
+//   The window's test runs as a pass of its own over S (window_mask in
+//   hopper_common.cuh), only on tiles the edge crosses: folded into the
+//   causal mask's loop, it made ptxas predicate every tile's softmax
+//   (1,480 -> 2,120 instructions at <128, 128, 128>, the forward 20 %
+//   slower at window 0 on an H100).
+// - Sinks (sink != nullptr): one more logit b_h a q-head, with no value,
+//   in the softmax's normaliser: the epilogue takes m' = max(m, b_h) and
+//   l' = l 2^(m - m') + 2^(b_h - m') (in the log2 domain), so O and lse
+//   come out as the softmax over the keys and the sink, with no pass
+//   over O of their own.
 // - q, k and v are read as 4-D tensor maps (D, heads, seq, batch) in
 //   boxes of 64 columns by BQ or BK rows (D = 128 is two boxes a tile); a
 //   box past seq is zero-filled inside its own batch.
@@ -81,7 +99,8 @@ __global__ void __launch_bounds__(Warps<BQ>::THREADS, 1)
                const __grid_constant__ CUtensorMap map_k,
                const __grid_constant__ CUtensorMap map_v,
                bf16* __restrict__ o, float* __restrict__ lse, int H, int KV,
-               int S, int Sk, float scale_log2, int causal) {
+               int S, int Sk, float scale_log2, int causal, int window,
+               const float* __restrict__ sink) {
   static_assert(BK == 64 || BK == 128, "k tiles of 64 or 128 rows");
   using L = Smem<D, BQ, BK>;
   using W = Warps<BQ>;
@@ -102,6 +121,10 @@ __global__ void __launch_bounds__(Warps<BQ>::THREADS, 1)
   const int q0 = qb * BQ;
   int n_kb = (Sk + BK - 1) / BK;
   if (causal) n_kb = min(n_kb, (q0 + BQ + BK - 1) / BK);
+  // Under a window the first k tile holds key q0 - W + 1; win is W, or a
+  // distance past any sequence without one.
+  const int kb_lo = window > 0 ? max(q0 - window + 1, 0) / BK : 0;
+  const int win = window > 0 ? window : (1 << 30);
   const int wg = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
@@ -124,9 +147,10 @@ __global__ void __launch_bounds__(Warps<BQ>::THREADS, 1)
       prefetch_map(&map_v);
       mbar_arrive_tx(full_q, L::Q_BYTES);
       tma_load_tile<D>(sQ, BQ, &map_q, full_q, h, q0, b);
-      for (int kb = 0; kb < n_kb; ++kb) {
-        const int s = kb % STAGES;
-        mbar_wait(&empty[s], ((kb / STAGES) & 1) ^ 1);
+      for (int kb = kb_lo; kb < n_kb; ++kb) {
+        const int it = kb - kb_lo;
+        const int s = it % STAGES;
+        mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
         mbar_arrive_tx(&full_k[s], L::KV_BYTES);
         tma_load_tile<D>(sK + s * L::KV_BYTES, BK, &map_k, &full_k[s], kvh,
                          kb * BK, b);
@@ -151,15 +175,17 @@ __global__ void __launch_bounds__(Warps<BQ>::THREADS, 1)
     float l[2] = {0.0f, 0.0f};  // this thread's share of the row sums
 
     mbar_wait(full_q, 0);
-    for (int kb = 0; kb < n_kb; ++kb) {
-      const int s = kb % STAGES;
-      const uint32_t parity = (kb / STAGES) & 1;
+    for (int kb = kb_lo; kb < n_kb; ++kb) {
+      const int it = kb - kb_lo;
+      const int s = it % STAGES;
+      const uint32_t parity = (it / STAGES) & 1;
       const int k0 = kb * BK;
       const unsigned char* sKs = sK + s * L::KV_BYTES;
       const unsigned char* sVs = sV + s * L::KV_BYTES;
 
-      if (causal && k0 > wg_row_min + 63) {
-        // A tile wholly above this warpgroup's rows adds nothing. The
+      if ((causal && k0 > wg_row_min + 63) || k0 + BK - 1 + win <= wg_row_min) {
+        // A tile wholly above this warpgroup's rows (or wholly below
+        // their windows) adds nothing. The
         // stage is released only after it was filled: an arrival before
         // would count toward the stage's previous fill.
         mbar_wait(&full_k[s], parity);
@@ -185,6 +211,10 @@ __global__ void __launch_bounds__(Warps<BQ>::THREADS, 1)
       wg_commit();
       wg_wait<0>();
       fence_regs(sc);
+
+      // Keys below the window's edge, on tiles it crosses only: a pass of
+      // its own, so that the causal tiles' code is the parent design's.
+      if (k0 + win <= wg_row_min + 63) window_mask<BK>(sc, k0, row0, cq, win);
 
       // Online softmax in the log2 domain (scale_log2 = log2(e)/sqrt(D)).
       const bool masked =
@@ -250,14 +280,23 @@ __global__ void __launch_bounds__(Warps<BQ>::THREADS, 1)
       if (lane == 0) mbar_arrive(&empty[s]);
     }
 
-    // Epilogue: O = acc / l in q's dtype, lse = (m + log2 l) * ln 2.
+    // Epilogue: O = acc / l in q's dtype, lse = (m + log2 l) * ln 2; with
+    // a sink, its logit joins m and l first.
     const int64_t q_stride = int64_t(H) * D;
+    const float sink2 = sink != nullptr ? sink[h] * LOG2E : 0.0f;
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
       const int row = row0 + 8 * hr;
-      const float l_row = quad_sum(l[hr]);
+      float l_row = quad_sum(l[hr]);
       if (row >= S) continue;
-      const float inv = __fdividef(1.0f, l_row);
+      float inv = __fdividef(1.0f, l_row);
+      if (sink != nullptr) {
+        const float m_new = fmaxf(m[hr], sink2);
+        const float keep = ex2(m[hr] - m_new);
+        l_row = l_row * keep + ex2(sink2 - m_new);
+        inv = __fdividef(keep, l_row);
+        m[hr] = m_new;
+      }
       bf16* op = o + (int64_t(b) * S + row) * q_stride + int64_t(h) * D + cq;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j) {
@@ -274,7 +313,7 @@ __global__ void __launch_bounds__(Warps<BQ>::THREADS, 1)
 template <int D, int BQ, int BK>
 int run(const void* q, const void* k, const void* v, void* o, void* lse,
         int B, int H, int KV, int S, int Sk, float scale, int causal,
-        void* stream) {
+        int window, const float* sink, void* stream) {
   CUtensorMap map_q, map_k, map_v;
   int err = make_map(&map_q, q, B, S, H, D, BQ);
   if (!err) err = make_map(&map_k, k, B, Sk, KV, D, BK);
@@ -284,7 +323,7 @@ int run(const void* q, const void* k, const void* v, void* o, void* lse,
   return launch(fwd_kernel<D, BQ, BK>, grid, Warps<BQ>::THREADS,
                 Smem<D, BQ, BK>::LAUNCH, stream, map_q, map_k, map_v,
                 static_cast<bf16*>(o), static_cast<float*>(lse), H, KV, S, Sk,
-                scale * LOG2E, causal);
+                scale * LOG2E, causal, window, sink);
 }
 
 // The compiled tile pairs at head dim D (ops/flash_attention.py COMPILED
@@ -294,11 +333,12 @@ int run(const void* q, const void* k, const void* v, void* o, void* lse,
 template <int D>
 int dispatch(int block_q, int block_k, const void* q, const void* k,
              const void* v, void* o, void* lse, int B, int H, int KV, int S,
-             int Sk, float scale, int causal, void* stream) {
+             int Sk, float scale, int causal, int window, const float* sink,
+             void* stream) {
 #define FWD_TILE(BQ, BK)                                                   \
   if (block_q == BQ && block_k == BK) {                                    \
     return run<D, BQ, BK>(q, k, v, o, lse, B, H, KV, S, Sk, scale, causal, \
-                          stream);                                         \
+                          window, sink, stream);                           \
   }
   FWD_TILE(64, 64)
   FWD_TILE(64, 128)
@@ -312,24 +352,26 @@ int dispatch(int block_q, int block_k, const void* q, const void* k,
 
 }  // namespace fwd
 
-// Plain C entry for ctypes. Returns 0 when launched, else a cudaError_t
-// value, hopper::TMAP_ERROR + CUresult when a tensor map is refused, or
+// Plain C entry for ctypes: window 0 for none, sink null for none (else
+// H f32 logits). Returns 0 when launched, else a cudaError_t value,
+// hopper::TMAP_ERROR + CUresult when a tensor map is refused, or
 // hopper::TILE_ERROR for a (block_q, block_k) pair that is not compiled.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
                          void* lse, int B, int H, int KV, int S, int Sk, int D,
                          int block_q, int block_k, float scale, int causal,
-                         void* stream) {
+                         int window, const void* sink, void* stream) {
+  const float* sinks = static_cast<const float*>(sink);
   if (D == 128) {
     return fwd::dispatch<128>(block_q, block_k, q, k, v, o, lse, B, H, KV, S,
-                              Sk, scale, causal, stream);
+                              Sk, scale, causal, window, sinks, stream);
   }
   if (D == 64) {
     return fwd::dispatch<64>(block_q, block_k, q, k, v, o, lse, B, H, KV, S,
-                             Sk, scale, causal, stream);
+                             Sk, scale, causal, window, sinks, stream);
   }
   if (D == 192) {
     return fwd::dispatch<192>(block_q, block_k, q, k, v, o, lse, B, H, KV, S,
-                              Sk, scale, causal, stream);
+                              Sk, scale, causal, window, sinks, stream);
   }
   return int(cudaErrorInvalidValue);
 }

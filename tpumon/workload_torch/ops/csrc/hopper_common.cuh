@@ -279,6 +279,24 @@ HOPPER_DEV float ex2(float x) {
   return y;
 }
 
+// The sliding window's mask on one S tile of a consumer thread (flash_fwd,
+// flash_dq): sc holds BK / 2 scores of rows row0 and row0 + 8 at keys k0 +
+// 8 j + cq (+ 1), in the accumulator order of a m64nBK wgmma; a key j is
+// below row i's window when j + win <= i, and its score becomes -inf.
+template <int BK>
+HOPPER_DEV void window_mask(float* sc, int k0, int row0, int cq, int win) {
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int col = k0 + 8 * j + cq + (i % 2);
+      if (col + win <= row0 + 8 * (i / 2)) {
+        sc[4 * j + i] = __int_as_float(0xff800000);
+      }
+    }
+  }
+}
+
 // The max and the sum over the quad of lanes that holds one row.
 HOPPER_DEV float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));

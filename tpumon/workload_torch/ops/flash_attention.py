@@ -47,6 +47,21 @@ H100 table (:func:`default_blocks`); :func:`effective_blocks` says what
 each kernel runs, and :data:`tile_launches` counts launches by tiles.
 The plain versions check a request and compute the same dense math.
 
+Sliding windows and sinks (MiMo-V2-Flash's SWA layers): under
+``window`` W > 0 (causal only) key j is live for query i iff
+i − W < j ≤ i, as ``transformers`` masks ``sliding_window``; each kernel
+takes W at run time and skips the tiles wholly outside it (no
+instantiation is added, and W = 0 runs every kernel as before).
+``sinks`` [H] f32 adds one logit b_h a q-head, with no value, to each
+row's softmax: flash_fwd folds it into its normaliser (lse′ =
+logaddexp(lse, b_h), O′ = O·e^{lse − lse′}), the backward hands the
+kernels lse′ and Δ′ = rowsum(dO·O′), which makes dQ, dK and dV exact
+with no kernel change, and ∂b_h = −Σ e^{b_h − lse′}·Δ′ is one torch
+reduction over [B, H, S]. A model sets both for an ``attn_impl`` with
+:func:`attention_window`, as it sets the scale. The plain versions take
+the same window and sinks, causal calls in query bands so that a long
+sequence fits.
+
 The TPU-only knobs of the reference (``interpret``, ``resident``) are not
 ported: on Hopper K/V tiles always stream, and the kernels have no
 interpret mode.
@@ -122,9 +137,10 @@ H100_SMS = 132
 launches: dict[str, int] = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
 
 #: The same launches by tiles, ``"<kernel>[<block_q>x<block_k>]"`` with
-#: the tiles the kernel ran (:func:`effective_blocks`), and
+#: the tiles the kernel ran (:func:`effective_blocks`),
 #: ``"<kernel>[<block_q>x<block_k>,v<Dv>]"`` where :data:`WIDTHS` runs v
-#: narrower than q·k.
+#: narrower than q·k, and ``,w<W>`` before the bracket for a launch under
+#: a window of W keys.
 tile_launches: dict[str, int] = {}
 
 
@@ -229,11 +245,19 @@ def _expand(t: torch.Tensor, heads: int) -> torch.Tensor:
     return t.float().repeat_interleave(heads // t.shape[2], dim=2)
 
 
-def _mask(s: torch.Tensor, causal: bool) -> torch.Tensor:
+def _mask(s: torch.Tensor, causal: bool, window: int = 0,
+          q0: int = 0, k0: int = 0) -> torch.Tensor:
+    """Scores s [..., S, Sk] of queries q0… and keys k0… masked to
+    NEG_BIG where key j is not live for query i: j > i under ``causal``,
+    and j ≤ i − ``window`` under a window."""
     if not causal:
         return s
     S, Sk = s.shape[-2], s.shape[-1]
-    live = torch.ones(S, Sk, dtype=torch.bool, device=s.device).tril()
+    i = torch.arange(q0, q0 + S, device=s.device)[:, None]
+    j = torch.arange(k0, k0 + Sk, device=s.device)[None, :]
+    live = j <= i
+    if window:
+        live &= j > i - window
     return s.masked_fill(~live, NEG_BIG)
 
 
@@ -241,52 +265,123 @@ def _scale(q, scale: float | None) -> float:
     return 1.0 / math.sqrt(q.shape[3]) if scale is None else scale
 
 
-def flash_fwd_reference(q, k, v, causal: bool = True, scale: float | None = None):
-    """Plain version of ``flash_fwd``: (O [B,S,H,D] in q's dtype,
-    lse [B,H,S] f32). p is cast to v's dtype before the second product,
-    as the kernels do. ``scale`` defaults to 1/√D."""
+#: Query rows a band of the plain versions takes under the causal mask, at
+#: most: fewer where a band's [B, H, rows, keys] f32 scores would hold more
+#: than BAND_ELEMENTS values (2 GiB).
+BAND_ROWS = 512
+BAND_ELEMENTS = 1 << 29
+
+
+def _bands(S: int, Sk: int, causal: bool, window: int, width: int = 1):
+    """(q0, q1, k0, k1): the query bands the plain versions run, each with
+    the keys its rows can see. One band of every row and key without the
+    causal mask; under it, :data:`BAND_ROWS` rows a band (halved while a
+    band's scores, ``width`` = B·H values a pair, pass
+    :data:`BAND_ELEMENTS`), each against keys 0 … q1 − 1 (q0 − W + 1 …
+    q1 − 1 under a window W), so a long sequence fits. A sequence of one
+    band is the one dense product."""
+    if not causal:
+        return [(0, S, 0, Sk)]
+    rows = BAND_ROWS
+    keys = (lambda r: r + window) if window else (lambda r: Sk)
+    while rows > 16 and rows * width * keys(rows) > BAND_ELEMENTS:
+        rows //= 2
+    return [(q0, min(q0 + rows, S),
+             max(q0 - window + 1, 0) if window else 0,
+             min(q0 + rows, S)) for q0 in range(0, S, rows)]
+
+
+def _fwd_dense(q, k, v, causal, scale, window=0, q0=0, k0=0):
+    """(O f32, lse) of queries q0… over keys k0…, dense."""
     H = q.shape[2]
     s = torch.einsum(
         "bqhd,bkhd->bhqk", q.float() * _scale(q, scale), _expand(k, H)
     )
-    s = _mask(s, causal)
+    s = _mask(s, causal, window, q0, k0)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     denom = p.sum(dim=-1, keepdim=True)
     acc = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), _expand(v, H))
-    out = acc / denom.permute(0, 2, 1, 3)
-    return out.to(q.dtype), (m + torch.log(denom)).squeeze(-1)
+    return acc / denom.permute(0, 2, 1, 3), (m + torch.log(denom)).squeeze(-1)
 
 
-def _p_ds(q, k, v, do, lse, delta, causal, scale):
-    """P and scale·dS, dense f32 [B,H,S,Sk], from the forward's lse."""
+def flash_fwd_reference(q, k, v, causal: bool = True, scale: float | None = None,
+                        window: int = 0, sinks: torch.Tensor | None = None):
+    """Plain version of ``flash_fwd``: (O [B,S,H,Dv] in q's dtype,
+    lse [B,H,S] f32). p is cast to v's dtype before the second product,
+    as the kernels do. ``scale`` defaults to 1/√D. Under the causal mask
+    each band of :func:`_bands` reads its keys only; ``sinks`` [H] join each
+    row's normaliser: lse′ = logaddexp(lse, b_h), O′ = O·e^{lse − lse′}."""
+    _check_window(window, causal)
+    parts = [_fwd_dense(q[:, a:b], k[:, k0:k1], v[:, k0:k1], causal, scale,
+                        window, a, k0)
+             for a, b, k0, k1 in _bands(q.shape[1], k.shape[1], causal, window,
+                                        q.shape[0] * q.shape[2])]
+    out = torch.cat([o for o, _ in parts], dim=1)
+    lse = torch.cat([l for _, l in parts], dim=2)
+    if sinks is not None:
+        lse_all = torch.logaddexp(lse, sinks.float()[None, :, None])
+        out = out * torch.exp(lse - lse_all).transpose(1, 2)[..., None]
+        lse = lse_all
+    return out.to(q.dtype), lse
+
+
+def _p_ds(q, k, v, do, lse, delta, causal, scale, window=0, q0=0, k0=0):
+    """P and scale·dS, dense f32 [B,H,S,Sk] of queries q0… and keys k0…,
+    from the forward's lse."""
     H, scale = q.shape[2], _scale(q, scale)
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), _expand(k, H)) * scale
-    p = torch.exp(_mask(s, causal) - lse.float()[..., None])
+    p = torch.exp(_mask(s, causal, window, q0, k0) - lse.float()[..., None])
     dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), _expand(v, H))
     return p, p * (dp - delta.float()[..., None]) * scale
 
 
 def flash_dq_reference(q, k, v, do, lse, delta, causal: bool = True,
-                       scale: float | None = None):
-    """Plain version of ``flash_dq``: dQ [B,S,H,D] in q's dtype."""
-    _, ds = _p_ds(q, k, v, do, lse, delta, causal, scale)
-    dq = torch.einsum("bhqk,bkhd->bqhd", ds, _expand(k, q.shape[2]))
-    return dq.to(q.dtype)
+                       scale: float | None = None, window: int = 0):
+    """Plain version of ``flash_dq``: dQ [B,S,H,D] in q's dtype (under
+    the causal mask band by band, :func:`_bands`)."""
+    _check_window(window, causal)
+    parts = []
+    for a, b, k0, k1 in _bands(q.shape[1], k.shape[1], causal, window,
+                               q.shape[0] * q.shape[2]):
+        _, ds = _p_ds(q[:, a:b], k[:, k0:k1], v[:, k0:k1], do[:, a:b],
+                      lse[:, :, a:b], delta[:, :, a:b], causal, scale, window,
+                      a, k0)
+        parts.append(torch.einsum("bhqk,bkhd->bqhd", ds,
+                                  _expand(k[:, k0:k1], q.shape[2])))
+    return torch.cat(parts, dim=1).to(q.dtype)
 
 
 def flash_dkv_reference(q, k, v, do, lse, delta, causal: bool = True,
-                        scale: float | None = None):
+                        scale: float | None = None, window: int = 0):
     """Plain version of ``flash_dkv``: (dK [B,Sk,KV,D], dV [B,Sk,KV,Dv])
-    in k's and v's dtypes, summed over each kv-head's group of q-heads."""
+    in k's and v's dtypes, summed over each kv-head's group of q-heads
+    (under the causal mask band by band, :func:`_bands`, summed in f32)."""
+    _check_window(window, causal)
     B, Sk, KV, D = k.shape
     group = q.shape[2] // KV
-    p, ds = _p_ds(q, k, v, do, lse, delta, causal, scale)
-    dv = torch.einsum("bhqk,bqhd->bkhd", p, do.float())
-    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
-    dk = dk.reshape(B, Sk, KV, group, D).sum(dim=3)
-    dv = dv.reshape(B, Sk, KV, group, v.shape[3]).sum(dim=3)
+    dk = torch.zeros(B, Sk, KV, D, dtype=torch.float32, device=k.device)
+    dv = torch.zeros(B, Sk, KV, v.shape[3], dtype=torch.float32, device=k.device)
+    for a, b, k0, k1 in _bands(q.shape[1], Sk, causal, window, B * q.shape[2]):
+        p, ds = _p_ds(q[:, a:b], k[:, k0:k1], v[:, k0:k1], do[:, a:b],
+                      lse[:, :, a:b], delta[:, :, a:b], causal, scale, window,
+                      a, k0)
+        part_v = torch.einsum("bhqk,bqhd->bkhd", p, do[:, a:b].float())
+        part_k = torch.einsum("bhqk,bqhd->bkhd", ds, q[:, a:b].float())
+        n = k1 - k0
+        dk[:, k0:k1] += part_k.reshape(B, n, KV, group, D).sum(dim=3)
+        dv[:, k0:k1] += part_v.reshape(B, n, KV, group, v.shape[3]).sum(dim=3)
     return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def sink_grad(sinks: torch.Tensor, lse: torch.Tensor,
+              delta: torch.Tensor) -> torch.Tensor:
+    """∂L/∂b [H] f32 of sink logits b from the forward's lse′ [B,H,S] (the
+    sinks in it) and the backward's Δ′ [B,H,S] (:func:`flash_delta` of
+    O′): −Σ_{b,q} e^{b_h − lse′}·Δ′, the sink's own column of dS (its dP
+    is 0: it has no value)."""
+    share = torch.exp(sinks.float()[None, :, None] - lse.float())
+    return -(share * delta.float()).sum(dim=(0, 2))
 
 
 # ---------------------------------------------------------------------------
@@ -312,6 +407,30 @@ def _check_shapes(q, k, v, causal: bool) -> None:
             f"causal flash attention needs matching seq lengths (q {S}, "
             f"k {Sk}); rectangular attention must be causal=False"
         )
+
+
+def _check_window(window: int, causal: bool) -> None:
+    """A window is a whole number of keys, 0 for none, under causal
+    attention only."""
+    if isinstance(window, bool) or not isinstance(window, int) or window < 0:
+        raise ValueError(f"flash attention: window must be a whole number "
+                         f"of keys >= 0 (0: none), got {window!r}")
+    if window and not causal:
+        raise ValueError("flash attention: a sliding window needs causal=True")
+
+
+def _check_sinks(sinks, q) -> None:
+    """Sinks are one float32 logit a q-head, on q's device."""
+    if sinks is None:
+        return
+    H = q.shape[2]
+    if sinks.shape != (H,) or sinks.dtype != torch.float32:
+        raise ValueError(f"flash attention: sinks must be [{H}] float32 (one "
+                         f"logit a q-head), got {sinks.dtype} "
+                         f"{tuple(sinks.shape)}")
+    if sinks.device != q.device:
+        raise ValueError(f"flash attention: sinks on {sinks.device}, q on "
+                         f"{q.device}")
 
 
 def _on_cpu(*tensors) -> bool:
@@ -358,11 +477,11 @@ TILE_ERROR = 20000
 
 
 def _launch(name: str, D: int, device: torch.device, effective: tuple[int, int],
-            *args) -> None:
+            window: int, *args) -> None:
     """Launch kernel ``name`` at compiled q·k width ``D`` through the C
     entry :data:`WIDTHS` gives there, with the entry's ``args``, and count
     it under the ``effective`` tiles it runs (and v's width where that is
-    not ``D``)."""
+    not ``D``, and the ``window`` where there is one)."""
     from tpumon.workload_torch.ops._build import load
 
     width = WIDTHS[name][D]
@@ -377,9 +496,17 @@ def _launch(name: str, D: int, device: torch.device, effective: tuple[int, int],
             "the CUresult of a refused TMA tensor map)"
         )
     launches[name] += 1
-    key = f"{name}[{effective[0]}x{effective[1]}"
-    key += "]" if width.v == D else f",v{width.v}]"
+    key = launch_key(name, D, effective, window)
     tile_launches[key] = tile_launches.get(key, 0) + 1
+
+
+def launch_key(name: str, D: int, effective: tuple[int, int], window: int = 0) -> str:
+    """The :data:`tile_launches` key of a launch of kernel ``name`` at
+    compiled q·k width ``D``, the ``effective`` tiles and ``window``."""
+    key = f"{name}[{effective[0]}x{effective[1]}"
+    width = WIDTHS[name][D]
+    key += "" if width.v == D else f",v{width.v}"
+    return key + (f",w{window}]" if window else "]")
 
 
 def kernel_width(D: int) -> int:
@@ -457,22 +584,26 @@ def _tiles_of(name, B, H, KV, S, Sk, D, causal, block_q, block_k):
     return tiles, effective_blocks(*dims, block_q, block_k)[name]
 
 
-def _fwd_kernel(q, k, v, causal, scale, *, block_q=None, block_k=None):
+def _fwd_kernel(q, k, v, causal, scale, *, block_q=None, block_k=None,
+                window=0, sinks=None):
     _check_kernel_inputs({"q": q, "k": k, "v": v}, "flash_fwd")
     B, H, KV, S, Sk, D = _dims(q, k)
     tiles, eff = _tiles("flash_fwd", q, k, causal, block_q, block_k)
     out = torch.empty_like(q)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    if sinks is not None:
+        sinks = sinks.contiguous()
     _launch(
-        "flash_fwd", D, q.device, eff, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), lse.data_ptr(), B, H, KV, S, Sk, D, *tiles, scale,
-        int(causal),
+        "flash_fwd", D, q.device, eff, window, q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), out.data_ptr(), lse.data_ptr(), B, H, KV, S, Sk, D,
+        *tiles, scale, int(causal), window,
+        None if sinks is None else sinks.data_ptr(),
     )
     return out, lse
 
 
 def _dq_kernel(q, k, v, do, lse, delta, causal, scale, *, block_q=None,
-               block_k=None):
+               block_k=None, window=0):
     _check_kernel_inputs(
         {"q": q, "k": k, "v": v, "do": do, "lse": lse, "delta": delta}, "flash_dq"
     )
@@ -480,15 +611,15 @@ def _dq_kernel(q, k, v, do, lse, delta, causal, scale, *, block_q=None,
     tiles, eff = _tiles("flash_dq", q, k, causal, block_q, block_k)
     dq = torch.empty_like(q)
     _launch(
-        "flash_dq", D, q.device, eff, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        B, H, KV, S, Sk, D, *tiles, scale, int(causal),
+        "flash_dq", D, q.device, eff, window, q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        dq.data_ptr(), B, H, KV, S, Sk, D, *tiles, scale, int(causal), window,
     )
     return dq
 
 
 def _dkv_kernel(q, k, v, do, lse, delta, causal, scale, *, block_q=None,
-                block_k=None):
+                block_k=None, window=0):
     """dK, dV from the C entry :data:`WIDTHS` gives at q's width, on v and
     dO at the width it runs."""
     _check_kernel_inputs(
@@ -498,52 +629,62 @@ def _dkv_kernel(q, k, v, do, lse, delta, causal, scale, *, block_q=None,
     tiles, eff = _tiles("flash_dkv", q, k, causal, block_q, block_k)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    _launch("flash_dkv", D, q.device, eff, q.data_ptr(), k.data_ptr(),
+    _launch("flash_dkv", D, q.device, eff, window, q.data_ptr(), k.data_ptr(),
             v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), B, H, KV, S, Sk, D, v.shape[3],
-            *tiles, scale, int(causal))
+            *tiles, scale, int(causal), window)
     return dk, dv
 
 
 def flash_fwd(q, k, v, causal: bool = True, *, scale: float | None = None,
+              window: int = 0, sinks: torch.Tensor | None = None,
               block_q: int | None = None, block_k: int | None = None):
     """(O [B,S,H,Dv], lse [B,H,S] f32) — kernel ``flash_fwd`` on the card
     at the tiles of :func:`effective_blocks`, :func:`flash_fwd_reference`
-    for CPU tensors. ``scale`` defaults to 1/√D."""
+    for CPU tensors. ``scale`` defaults to 1/√D; ``window`` (0: none) and
+    ``sinks`` ([H] f32 logits, None: none) as in the module's notes."""
     _check_shapes(q, k, v, causal)
+    _check_window(window, causal)
+    _check_sinks(sinks, q)
     _check_request(block_q, block_k)
     if _on_cpu(q, k, v):
-        return flash_fwd_reference(q, k, v, causal, scale)
-    run = functools.partial(_fwd_kernel, block_q=block_q, block_k=block_k)
+        return flash_fwd_reference(q, k, v, causal, scale, window, sinks)
+    run = functools.partial(_fwd_kernel, block_q=block_q, block_k=block_k,
+                            window=window, sinks=sinks)
     return _on_width("flash_fwd", run, q, k, v, causal=causal, scale=scale)
 
 
 def flash_dq(q, k, v, do, lse, delta, causal: bool = True, *,
-             scale: float | None = None, block_q: int | None = None,
-             block_k: int | None = None):
+             scale: float | None = None, window: int = 0,
+             block_q: int | None = None, block_k: int | None = None):
     """dQ [B,S,H,D] — kernel ``flash_dq`` on the card at the tiles of
     :func:`effective_blocks`, :func:`flash_dq_reference` for CPU
     tensors."""
     _check_shapes(q, k, v, causal)
+    _check_window(window, causal)
     _check_request(block_q, block_k)
     if _on_cpu(q, k, v, do, lse, delta):
-        return flash_dq_reference(q, k, v, do, lse, delta, causal, scale)
-    run = functools.partial(_dq_kernel, block_q=block_q, block_k=block_k)
+        return flash_dq_reference(q, k, v, do, lse, delta, causal, scale, window)
+    run = functools.partial(_dq_kernel, block_q=block_q, block_k=block_k,
+                            window=window)
     return _on_width("flash_dq", run, q, k, v, do, lse, delta, causal=causal,
                      scale=scale)
 
 
 def flash_dkv(q, k, v, do, lse, delta, causal: bool = True, *,
-              scale: float | None = None, block_q: int | None = None,
-              block_k: int | None = None):
+              scale: float | None = None, window: int = 0,
+              block_q: int | None = None, block_k: int | None = None):
     """(dK [B,Sk,KV,D], dV [B,Sk,KV,Dv]) — kernel ``flash_dkv`` on the
     card at the tiles of :func:`effective_blocks` and the widths of
     :data:`WIDTHS`, :func:`flash_dkv_reference` for CPU tensors."""
     _check_shapes(q, k, v, causal)
+    _check_window(window, causal)
     _check_request(block_q, block_k)
     if _on_cpu(q, k, v, do, lse, delta):
-        return flash_dkv_reference(q, k, v, do, lse, delta, causal, scale)
-    run = functools.partial(_dkv_kernel, block_q=block_q, block_k=block_k)
+        return flash_dkv_reference(q, k, v, do, lse, delta, causal, scale,
+                                   window)
+    run = functools.partial(_dkv_kernel, block_q=block_q, block_k=block_k,
+                            window=window)
     return _on_width("flash_dkv", run, q, k, v, do, lse, delta, causal=causal,
                      scale=scale)
 
@@ -565,34 +706,43 @@ def flash_delta(out, g_out, g_lse=None):
 
 class _FlashLse(torch.autograd.Function):
     """(O, lse) with the flash backward: Δ pre-pass, then dQ and dK/dV
-    from their kernels, recomputing P from the saved lse."""
+    from their kernels, recomputing P from the saved lse. With sinks the
+    saved O and lse are O′ and lse′, so the kernels' dQ, dK and dV are
+    exact, and the sinks' gradient is :func:`sink_grad`."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, block_q, block_k, scale):
+    def forward(ctx, q, k, v, causal, block_q, block_k, scale, window, sinks):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        kw = {"scale": scale, "block_q": block_q, "block_k": block_k}
-        out, lse = flash_fwd(q, k, v, causal, **kw)
-        ctx.save_for_backward(q, k, v, out, lse)
+        kw = {"scale": scale, "window": window, "block_q": block_q,
+              "block_k": block_k}
+        out, lse = flash_fwd(q, k, v, causal, sinks=sinks, **kw)
+        ctx.save_for_backward(q, k, v, out, lse, sinks)
         ctx.causal, ctx.kw = causal, kw
         return out, lse
 
     @staticmethod
     def backward(ctx, g_out, g_lse):
-        q, k, v, out, lse = ctx.saved_tensors
+        q, k, v, out, lse, sinks = ctx.saved_tensors
         g_out = g_out.contiguous()
         delta = flash_delta(out, g_out, g_lse)
         dq = flash_dq(q, k, v, g_out, lse, delta, ctx.causal, **ctx.kw)
         dk, dv = flash_dkv(q, k, v, g_out, lse, delta, ctx.causal, **ctx.kw)
-        return dq, dk, dv, None, None, None, None
+        d_sinks = None
+        if sinks is not None and ctx.needs_input_grad[8]:
+            d_sinks = sink_grad(sinks, lse, delta)
+        return dq, dk, dv, None, None, None, None, None, d_sinks
 
 
 def flash_attention_with_lse(q, k, v, *, causal: bool = True,
-                             scale: float | None = None,
+                             scale: float | None = None, window: int = 0,
+                             sinks: torch.Tensor | None = None,
                              block_q: int | None = None,
                              block_k: int | None = None):
     """Flash attention returning ``(out [B,S,H,Dv], lse [B,H,S] f32)``,
     q and k of width D, v of width Dv ≤ D, scores scaled by ``scale``
-    (default 1/√D).
+    (default 1/√D), keys within ``window`` of each query (0: all), and
+    ``sinks`` [H] f32 in each row's normaliser (None: none), the sinks
+    differentiable too.
 
     Both outputs are differentiable: the lse cotangent folds into the
     backward's Δ (:func:`flash_delta`), so two partials over the same
@@ -603,16 +753,21 @@ def flash_attention_with_lse(q, k, v, *, causal: bool = True,
     :func:`default_blocks`).
     """
     _check_shapes(q, k, v, causal)
-    return _FlashLse.apply(q, k, v, causal, block_q, block_k, scale)
+    _check_window(window, causal)
+    _check_sinks(sinks, q)
+    return _FlashLse.apply(q, k, v, causal, block_q, block_k, scale, window,
+                           sinks)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, scale: float | None = None,
+                    window: int = 0, sinks: torch.Tensor | None = None,
                     block_q: int | None = None, block_k: int | None = None):
     """Flash attention over [B, S, H, D] tensors (model layout); K/V may
     carry fewer heads than Q (grouped-query, never materialized), and V
-    fewer columns. ``scale``, ``block_q``/``block_k`` as in
-    :func:`flash_attention_with_lse`."""
+    fewer columns. ``scale``, ``window``, ``sinks``, ``block_q``/``block_k``
+    as in :func:`flash_attention_with_lse`."""
     out, _ = flash_attention_with_lse(q, k, v, causal=causal, scale=scale,
+                                      window=window, sinks=sinks,
                                       block_q=block_q, block_k=block_k)
     return out
 
@@ -636,25 +791,50 @@ def softmax_scale(scale: float):
         _SCALE.reset(token)
 
 
+#: The window and the sinks :func:`attention_window` sets for the impls'
+#: calls.
+_WINDOW: contextvars.ContextVar = contextvars.ContextVar(
+    "flash_attention_window", default=(0, None))
+
+
+@contextlib.contextmanager
+def attention_window(window: int, sinks: torch.Tensor | None = None):
+    """Inside the block, an ``attn_impl`` of :func:`make_flash_attn` sees
+    each query's last ``window`` keys only (0: all) and adds ``sinks``
+    ([H] f32, None: none) to each row's normaliser, as
+    :func:`softmax_scale` sets the scale: the impl's call takes q, k and v
+    only (MiMo-V2-Flash's SWA layers set both around the call)."""
+    token = _WINDOW.set((int(window), sinks))
+    try:
+        yield
+    finally:
+        _WINDOW.reset(token)
+
+
 def make_flash_attn(*, causal: bool = True, block_q: int | None = None,
                     block_k: int | None = None):
     """``attn_impl`` factory for :meth:`models.llama.Llama.forward`; the
     tiles default to the H100 table (:func:`default_blocks`), the scale to
-    :func:`softmax_scale`'s, else 1/√D."""
+    :func:`softmax_scale`'s, else 1/√D, the window and the sinks to
+    :func:`attention_window`'s, else none."""
 
     def attn(q, k, v):
+        window, sinks = _WINDOW.get()
         return flash_attention(q, k, v, causal=causal, scale=_SCALE.get(),
+                               window=window, sinks=sinks,
                                block_q=block_q, block_k=block_k)
 
     return attn
 
 
 __all__ = [
+    "BAND_ROWS",
     "COMPILED",
     "HEAD_DIMS",
     "NEG_BIG",
     "TILES",
     "WIDTHS",
+    "attention_window",
     "default_blocks",
     "effective_blocks",
     "flash_attention",
@@ -667,10 +847,12 @@ __all__ = [
     "flash_fwd",
     "flash_fwd_reference",
     "kernel_width",
+    "launch_key",
     "launches",
     "make_flash_attn",
     "pick_block",
     "reset_launches",
+    "sink_grad",
     "softmax_scale",
     "tile_launches",
 ]
